@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+
+1. probe   — the card's name and power limit, torch / CUDA / nvcc /
+             triton versions;
+2. build   — compiles the hand-written kernels (``src/repro_torch/csrc``,
+             one nvcc per source, in parallel) and reports the seconds;
+3. kernels — runs ``rank_update`` (SYRK / SYR2K bodies, epilogue
+             variants, every tile size) and ``sym_stream`` (SYMM) on the
+             card at the serving path's shapes and holds each against
+             its plain PyTorch version on the same inputs, with the
+             tolerance printed beside the error; times the kernel, the
+             plain version and one ``torch.matmul`` of the same product;
+4. serve   — serves stablelm-1.6b at full width (24 layers, d_model
+             2048, vocab 100352; random weights from a seed) with the
+             whitening cache on, and asserts that every request
+             completes, every embedding is finite, a factor was
+             refreshed and both kernels launched during the serve;
+5. check   — a reduced model on the card against the same weights on
+             the CPU, and the full-width Newton–Schulz whitening on the
+             kernels against the eigh oracle.
+
+The line before the last is a JSON object with one entry per kernel;
+the last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32
+#: FLOP/s outside the tensor cores — the f32 parity path uses no TF32
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_FLOP_S = 67e12
+DEVICE = "cuda"
+TOL_F32 = 2e-5      # max |kernel − plain| / max(1, max |plain|), f32 out
+TOL_BF16 = 1e-2     # the same for a bf16 output (2^-8 relative rounding)
+
+REPLACES = {
+    "rank_update": "src/repro/kernels/trigrid.py:151",
+    "sym_stream": "src/repro/kernels/trigrid.py:224",
+}
+SOURCES = {
+    "rank_update": "src/repro_torch/csrc/rank_update.cu",
+    "sym_stream": "src/repro_torch/csrc/sym_stream.cu",
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# phase 1: probe
+# --------------------------------------------------------------------------
+def probe(torch) -> str:
+    card = smi()
+    log(f"[probe] gpu: {card}")
+    log(f"[probe] python {sys.version.split()[0]}  torch {torch.__version__}"
+        f"  cuda {torch.version.cuda}  device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from repro_torch.kernels import native
+    nv = subprocess.run([native.nvcc_path(), "--version"],
+                        capture_output=True, text=True).stdout.strip()
+    log(f"[probe] nvcc: {nv.splitlines()[-1] if nv else 'missing'}")
+    try:
+        import triton
+        log(f"[probe] triton {triton.__version__}")
+    except ImportError:
+        log("[probe] triton not importable")
+    return card
+
+
+# --------------------------------------------------------------------------
+# phase 2: build
+# --------------------------------------------------------------------------
+def build() -> float:
+    from repro_torch.kernels import native
+    t0 = time.perf_counter()
+    native.load()
+    secs = time.perf_counter() - t0
+    log(f"[build] {len(native.SOURCES)} sources, built "
+        f"{native.BUILD_INFO['built']} in {secs:.2f} s into "
+        f"{native.build_dir()}")
+    for ln in str(native.BUILD_INFO["ptxas"]).splitlines():
+        if "registers" in ln or "spill" in ln and " 0 bytes" not in ln:
+            log("[build]   " + ln.strip())
+    return secs
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+def cuda_ms(torch, fn, window_ms: float = 25.0, warmup: int = 3) -> float:
+    """Mean device ms per call over a window of at least ``window_ms``
+    (at least 10 calls), so that a short kernel is timed over enough
+    launches for the clocks to settle."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed(reps):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    fn()                                  # first call: lazy set-up
+    est = timed(warmup)
+    return timed(max(10, int(window_ms / max(est, 1e-3)) + 1))
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
+def compare(torch, name, got, want, out_dtype):
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = TOL_BF16 if out_dtype == torch.bfloat16 else TOL_F32
+    ok = err / scale <= tol and bool(torch.isfinite(got.float()).all())
+    log(f"[kernels] {name:44s} max_abs_err {err:.3e} (rel {err / scale:.2e}"
+        f" <= {tol:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"kernel {name} disagrees with its plain version")
+    return err
+
+
+def kernel_phase(torch):
+    from repro_torch.core.packing import TriTiles, pack_tril_tiles
+    from repro_torch.kernels import trigrid
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = {"rank_update": [], "sym_stream": []}
+
+    def rank_case(label, body, a, b=None, bm=128, ep=None, c0=None,
+                  timed=False):
+        ep = ep or trigrid.Epilogue()
+        got = trigrid.rank_update(body, a, b, bm=bm, epilogue=ep, c0=c0)
+        want = trigrid._rank_update_plain(body, a, b, bm, ep, c0)
+        err = compare(torch, f"rank_update {label}", got, want,
+                      ep.out_dtype)
+        n1, n2 = a.shape
+        m = 1 if body == "syrk" else 2
+        T = (n1 // bm) * (n1 // bm + 1) // 2
+        out_b = T * bm * bm * (2 if ep.out_dtype == bf16 else 4)
+        nbytes = m * n1 * n2 * 4 + out_b + (out_b if c0 is not None else 0)
+        flops = m * n1 * (n1 + 1) * n2        # useful half, 2 flops / FMA
+        row = {"case": label, "max_abs_err": err,
+               "bound_ms": bound_ms(nbytes, flops)[0]}
+        if timed:
+            row["ms"] = cuda_ms(torch, lambda: trigrid.rank_update(
+                body, a, b, bm=bm, epilogue=ep, c0=c0))
+            row["plain_ms"] = cuda_ms(torch, lambda: trigrid.
+                                      _rank_update_plain(body, a, b, bm, ep,
+                                                         c0))
+            if body == "syrk":
+                row["library_ms"] = cuda_ms(torch, lambda: a @ a.T)
+            else:
+                row["library_ms"] = cuda_ms(torch, lambda: torch.addmm(
+                    a @ b.T, b, a.T))
+            row["bound_by"] = bound_ms(nbytes, flops)[1]
+            log(f"[kernels]   ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}"
+                f"  library {row['library_ms']:.4f}  bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']})")
+        cases["rank_update"].append(row)
+
+    def symm_case(label, tiles, b, bm, ds=1.0, out_dtype=f32, dense=None,
+                  timed=False):
+        got = trigrid.sym_stream(tiles, b, bm=bm, out_dtype=out_dtype,
+                                 diag_scale=ds)
+        nt = b.shape[0] // bm
+        want = trigrid._sym_stream_plain(tiles, b, nt, ds, out_dtype)
+        err = compare(torch, f"sym_stream {label}", got, want, out_dtype)
+        n1, n2 = b.shape
+        nbytes = tiles.numel() * 4 + n1 * n2 * 4 + n1 * n2 * (
+            2 if out_dtype == bf16 else 4)
+        flops = 2 * n1 * n1 * n2
+        row = {"case": label, "max_abs_err": err,
+               "bound_ms": bound_ms(nbytes, flops)[0]}
+        if timed:
+            row["ms"] = cuda_ms(torch, lambda: trigrid.sym_stream(
+                tiles, b, bm=bm, out_dtype=out_dtype, diag_scale=ds))
+            row["plain_ms"] = cuda_ms(torch, lambda: trigrid.
+                                      _sym_stream_plain(tiles, b, nt, ds,
+                                                        out_dtype))
+            row["library_ms"] = cuda_ms(torch, lambda: dense @ b)
+            row["bound_by"] = bound_ms(nbytes, flops)[1]
+            log(f"[kernels]   ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}"
+                f"  library {row['library_ms']:.4f}  bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']})")
+        cases["sym_stream"].append(row)
+
+    d = 2048
+    # Gram updates: feats (2048, bucket) for every prefill bucket
+    for bucket in (16, 32, 64, 128, 256):
+        rank_case(f"syrk packed 2048x{bucket}", "syrk", randn(d, bucket),
+                  timed=bucket == 64)
+    # Newton–Schulz T² (fill="full") and the SYR2K body
+    t = randn(d, d) / d ** 0.5
+    rank_case("syrk full 2048x2048 (NS T^2)", "syrk", t, timed=True)
+    rank_case("syr2k 2048x2048", "syr2k", t, randn(d, d) / d ** 0.5,
+              timed=True)
+    # epilogue variants: alpha, beta·C0, diag_scale, bf16 out, every bm
+    a64, b64 = randn(d, 64), randn(d, 64)
+    c0 = randn(136, 128, 128)
+    rank_case("syrk alpha 0.5 beta 2 c0", "syrk", a64, ep=trigrid.Epilogue(
+        alpha=0.5, beta=2.0, accumulate=True), c0=c0)
+    rank_case("syr2k diag_scale 0.5", "syr2k", a64, b64,
+              ep=trigrid.Epilogue(diag_scale=0.5))
+    rank_case("syr2k diag_scale 2 bf16 out", "syr2k", a64, b64,
+              ep=trigrid.Epilogue(diag_scale=2.0, out_dtype=bf16))
+    rank_case("syrk bf16 out beta c0", "syrk", a64, ep=trigrid.Epilogue(
+        beta=1.0, accumulate=True, out_dtype=bf16), c0=c0)
+    for bm in (8, 16, 32, 64):
+        n = 16 * bm
+        rank_case(f"syrk {n}x40 bm {bm} ragged k", "syrk", randn(n, 40),
+                  bm=bm)
+        rank_case(f"syr2k {n}x24 bm {bm}", "syr2k", randn(n, 24),
+                  randn(n, 24), bm=bm)
+
+    # SYMM: NS seed (Gram TriTiles bm 32 times I), NS products (bm 128),
+    # the embedding (n2 = 1 padded to 128, and unpadded), poison
+    g = randn(d, d)
+    g = (g + g.T) / 2
+    gt = TriTiles.from_tril(g, 32).tiles.contiguous()
+    eye = torch.eye(d, device=dev)
+    symm_case("TriTiles bm 32 x I (NS seed)", gt, eye, 32, dense=g,
+              timed=True)
+    x = randn(d, d) / d ** 0.5
+    xt = pack_tril_tiles(x, 128).contiguous()
+    xs = torch.tril(x) + torch.tril(x, -1).T
+    symm_case("dense 2048^2 x 2048^2 (NS)", xt, randn(d, d), 128, dense=xs,
+              timed=True)
+    p = torch.zeros(d, 128, device=dev)
+    p[:, 0] = randn(d)
+    symm_case("2048^2 x (2048, 1) padded to 128", xt, p, 128, dense=xs,
+              timed=True)
+    symm_case("2048^2 x (2048, 1) unpadded", xt,
+              p[:, :1].contiguous(), 128)
+    symm_case("diag_scale 2 bf16 out", xt, randn(d, 96), 128, ds=2.0,
+              out_dtype=bf16)
+    for bm in (8, 16, 64):
+        n = 16 * bm
+        a = randn(n, n)
+        symm_case(f"{n}^2 x {n}x72 bm {bm}", pack_tril_tiles(
+            a, bm).contiguous(), randn(n, 72), bm)
+    # poison: the upper halves of diagonal tiles are never read
+    clean = TriTiles.from_tril(randn(512, 512), 32).tiles.contiguous()
+    poisoned = clean.clone()
+    ii = torch.arange(16, device=dev)
+    up = torch.triu(torch.ones(32, 32, device=dev, dtype=torch.bool), 1)
+    diag = poisoned[ii * (ii + 3) // 2]
+    poisoned[ii * (ii + 3) // 2] = torch.where(up, float("nan"), diag)
+    bb = randn(512, 64)
+    got = trigrid.sym_stream(poisoned, bb, bm=32)
+    want = trigrid._sym_stream_plain(clean, bb, 16, 1.0, f32)
+    compare(torch, "sym_stream poison (NaN upper halves)", got, want, f32)
+    torch.cuda.synchronize()
+    return cases
+
+
+# --------------------------------------------------------------------------
+# phase 4: serve stablelm-1.6b at full width with the whitening cache
+# --------------------------------------------------------------------------
+def serve_phase(torch):
+    from repro_torch.kernels import trigrid
+    from repro_torch.launch.serve import serve
+    args = argparse.Namespace(
+        arch="stablelm-1.6b", smoke=False, device=DEVICE, requests=8,
+        slots=4, s_max=256, max_new=16, prompt_lo=8, prompt_hi=48,
+        tenants=1, whiten="cache", refresh_stride=2, no_eos=True, seed=0)
+    trigrid.reset_launch_counts()
+    out = serve(args)
+    launches = trigrid.launch_counts()
+    log(f"[serve] {out['arch']} layers {out['layers']} d_model "
+        f"{out['d_model']} vocab {out['vocab']} on {out['device']}")
+    log(f"[serve] completed {out['completed']}/{out['requests']}  tokens/s "
+        f"{out['tokens_per_s']:.2f}  ttft p50 {out['p50_ttft_s']:.4f} s "
+        f"p99 {out['p99_ttft_s']:.4f} s  startup {out['startup_s']:.2f} s")
+    log(f"[serve] host s (each ends in a sync): serve {out['serve_s']:.4f}"
+        f"  prefill {out['prefill_s']:.4f}  embed {out['embed_s']:.4f}"
+        f"  decode {out['decode_s']:.4f} over {out['decode_steps']} steps")
+    log(f"[serve] refreshes {out['cache']['refreshes']} (s: "
+        f"{[round(s, 4) for s in out['refresh_s']]})  ns_fallbacks "
+        f"{out['cache']['ns_fallbacks']}  launches {launches}")
+    assert (out["layers"], out["d_model"], out["vocab"]) == (24, 2048,
+                                                             100352)
+    assert out["completed"] == out["requests"], out
+    assert out["embeddings_finite"], "non-finite embedding"
+    assert out["cache"]["factors_ready"] >= 1 and \
+        out["cache"]["refreshes"] >= 1, out["cache"]
+    assert out["cache"]["failed_refreshes"] == 0, out["cache"]
+    assert launches["rank_update"] > 0 and launches["sym_stream"] > 0, \
+        launches
+    return out, launches
+
+
+# --------------------------------------------------------------------------
+# phase 5: the port on the card against references
+# --------------------------------------------------------------------------
+def check_phase(torch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_model
+    from repro_torch.optim.gram import packed_gram, whitening_from_packed
+    from repro_torch.kernels import trigrid
+
+    # reduced model: same weights on the card and on the CPU
+    cfg = get_smoke_config("stablelm-1.6b")
+    m_cpu = init_model(cfg, seed=0, device="cpu")
+    m_gpu = init_model(cfg, seed=1, device=DEVICE)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    toks = torch.randint(1, cfg.vocab, (2, 24),
+                         generator=torch.Generator().manual_seed(0))
+    lc, _, hc = m_cpu.prefill(toks, 32, return_hidden=True)
+    lg, _, hg = m_gpu.prefill(toks.to(DEVICE), 32, return_hidden=True)
+    err = float((lg.cpu() - lc).abs().max())
+    log(f"[check] smoke prefill logits card vs cpu: max_abs_err {err:.3e}"
+        f" (<= 5e-2, bf16 activations)")
+    assert lg.shape == (2, 1, cfg.vocab) and bool(torch.isfinite(lg).all())
+    assert err <= 5e-2, err
+
+    # full-width NS whitening on the kernels vs the eigh oracle
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.randn(2048, 4096, generator=gen, device=DEVICE)
+    before = trigrid.launch_counts()
+    g = packed_gram(x)
+    w = whitening_from_packed(g, 2048, eps=1e-3, method="ns")
+    after = trigrid.launch_counts()
+    we = whitening_from_packed(g, 2048, eps=1e-3, method="eigh")
+    rel = float(torch.linalg.norm(w - we) / torch.linalg.norm(we))
+    log(f"[check] NS whitening d=2048 vs eigh: rel {rel:.3e} (<= 1e-3); "
+        f"launches {before} -> {after}")
+    assert rel <= 1e-3, rel
+    assert after["rank_update"] > before["rank_update"] and \
+        after["sym_stream"] > before["sym_stream"]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.device import ieee_f32
+    ieee_f32()
+    t_start = time.perf_counter()
+    card = probe(torch)
+    build_s = build()
+    cases = kernel_phase(torch)
+    out, launches = serve_phase(torch)
+    check_phase(torch)
+
+    kernels = []
+    for name, rows in cases.items():
+        main_row = next(r for r in rows if "ms" in r and (
+            "2048x2048" in r["case"] or "2048^2 x 2048^2" in r["case"]))
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shape": main_row["case"], "cases": rows})
+    log(f"[done] build {build_s:.2f} s, total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
