@@ -10,19 +10,28 @@ Phases (any failure exits non-zero):
 2. build   — compiles the hand-written kernels (``src/repro_torch/csrc``,
              one nvcc per source, in parallel) and reports the seconds;
 3. kernels — runs ``rank_update`` (SYRK / SYR2K bodies, epilogue
-             variants, every tile size) and ``sym_stream`` (SYMM) on the
-             card at the serving path's shapes and holds each against
-             its plain PyTorch version on the same inputs, with the
-             tolerance printed beside the error; times the kernel, the
-             plain version and one ``torch.matmul`` of the same product;
+             variants, every tile size), ``sym_stream`` (SYMM) and
+             ``slstm_scan`` (the sLSTM recurrence) on the card at the
+             serving paths' shapes and holds each against its plain
+             PyTorch version on the same inputs, with the tolerance
+             printed beside the error; times the kernel, the plain
+             version and, where one exists, one PyTorch call computing
+             the same function (``torch.matmul``; none for the sLSTM
+             recurrence);
 4. serve   — serves stablelm-1.6b at full width (24 layers, d_model
              2048, vocab 100352; random weights from a seed) with the
              whitening cache on, and asserts that every request
              completes, every embedding is finite, a factor was
-             refreshed and both kernels launched during the serve;
-5. check   — a reduced model on the card against the same weights on
-             the CPU, and the full-width Newton–Schulz whitening on the
-             kernels against the eigh oracle.
+             refreshed and both symmetric kernels launched;
+5. xlstm   — serves xlstm-350m at full width (24 layers, d_model 1024,
+             vocab 50304, 6 sLSTM layers; random weights from a seed)
+             the same way, and asserts that ``slstm_scan`` launched
+             exactly 6 times per model forward the server ran, and both
+             symmetric kernels launched; then times one prefill per
+             block kind (host clock, a sync after every block);
+6. check   — reduced stablelm and xlstm models on the card against the
+             same weights on the CPU, and the full-width Newton–Schulz
+             whitening on the kernels against the eigh oracle.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -47,13 +56,24 @@ DEVICE = "cuda"
 TOL_F32 = 2e-5      # max |kernel − plain| / max(1, max |plain|), f32 out
 TOL_BF16 = 1e-2     # the same for a bf16 output (2^-8 relative rounding)
 
+#: the sLSTM kernel's tolerances are the reference kernel test's
+#: (tests/test_slstm_kernel.py): |got − want| ≤ tol·(1 + |want|)
+SLSTM_Y_TOL = 2e-5
+SLSTM_STATE_TOL = 2e-4
+#: f32 operations per (b, t, channel) step of the sLSTM recurrence: adds,
+#: subtractions, maxima, multiplies and divisions (an FMA counts 2), and
+#: the three exp and one tanh counted once each
+SLSTM_OPS_PER_STEP = 20
+
 REPLACES = {
     "rank_update": "src/repro/kernels/trigrid.py:151",
     "sym_stream": "src/repro/kernels/trigrid.py:224",
+    "slstm_scan": "src/repro/kernels/slstm.py:59",
 }
 SOURCES = {
     "rank_update": "src/repro_torch/csrc/rank_update.cu",
     "sym_stream": "src/repro_torch/csrc/sym_stream.cu",
+    "slstm_scan": "src/repro_torch/csrc/slstm_scan.cu",
 }
 
 
@@ -161,10 +181,10 @@ def kernel_phase(torch):
         return torch.randn(*shape, generator=gen, device=dev)
 
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = {"rank_update": [], "sym_stream": []}
+    cases = {"rank_update": [], "sym_stream": [], "slstm_scan": []}
 
     def rank_case(label, body, a, b=None, bm=128, ep=None, c0=None,
-                  timed=False):
+                  timed=False, main=False):
         ep = ep or trigrid.Epilogue()
         got = trigrid.rank_update(body, a, b, bm=bm, epilogue=ep, c0=c0)
         want = trigrid._rank_update_plain(body, a, b, bm, ep, c0)
@@ -176,7 +196,7 @@ def kernel_phase(torch):
         out_b = T * bm * bm * (2 if ep.out_dtype == bf16 else 4)
         nbytes = m * n1 * n2 * 4 + out_b + (out_b if c0 is not None else 0)
         flops = m * n1 * (n1 + 1) * n2        # useful half, 2 flops / FMA
-        row = {"case": label, "max_abs_err": err,
+        row = {"case": label, "max_abs_err": err, "main": main,
                "bound_ms": bound_ms(nbytes, flops)[0]}
         if timed:
             row["ms"] = cuda_ms(torch, lambda: trigrid.rank_update(
@@ -196,7 +216,7 @@ def kernel_phase(torch):
         cases["rank_update"].append(row)
 
     def symm_case(label, tiles, b, bm, ds=1.0, out_dtype=f32, dense=None,
-                  timed=False):
+                  timed=False, main=False):
         got = trigrid.sym_stream(tiles, b, bm=bm, out_dtype=out_dtype,
                                  diag_scale=ds)
         nt = b.shape[0] // bm
@@ -206,7 +226,7 @@ def kernel_phase(torch):
         nbytes = tiles.numel() * 4 + n1 * n2 * 4 + n1 * n2 * (
             2 if out_dtype == bf16 else 4)
         flops = 2 * n1 * n1 * n2
-        row = {"case": label, "max_abs_err": err,
+        row = {"case": label, "max_abs_err": err, "main": main,
                "bound_ms": bound_ms(nbytes, flops)[0]}
         if timed:
             row["ms"] = cuda_ms(torch, lambda: trigrid.sym_stream(
@@ -228,7 +248,8 @@ def kernel_phase(torch):
                   timed=bucket == 64)
     # Newton–Schulz T² (fill="full") and the SYR2K body
     t = randn(d, d) / d ** 0.5
-    rank_case("syrk full 2048x2048 (NS T^2)", "syrk", t, timed=True)
+    rank_case("syrk full 2048x2048 (NS T^2)", "syrk", t, timed=True,
+              main=True)
     rank_case("syr2k 2048x2048", "syr2k", t, randn(d, d) / d ** 0.5,
               timed=True)
     # epilogue variants: alpha, beta·C0, diag_scale, bf16 out, every bm
@@ -261,7 +282,7 @@ def kernel_phase(torch):
     xt = pack_tril_tiles(x, 128).contiguous()
     xs = torch.tril(x) + torch.tril(x, -1).T
     symm_case("dense 2048^2 x 2048^2 (NS)", xt, randn(d, d), 128, dense=xs,
-              timed=True)
+              timed=True, main=True)
     p = torch.zeros(d, 128, device=dev)
     p[:, 0] = randn(d)
     symm_case("2048^2 x (2048, 1) padded to 128", xt, p, 128, dense=xs,
@@ -286,36 +307,105 @@ def kernel_phase(torch):
     got = trigrid.sym_stream(poisoned, bb, bm=32)
     want = trigrid._sym_stream_plain(clean, bb, 16, 1.0, f32)
     compare(torch, "sym_stream poison (NaN upper halves)", got, want, f32)
+
+    slstm_cases(torch, randn, cases["slstm_scan"])
     torch.cuda.synchronize()
     return cases
 
 
+def slstm_close(torch, name, got, want, tol):
+    """max |got − want| and whether |got − want| ≤ tol·(1 + |want|)
+    everywhere (relative and absolute, as ``assert_allclose``)."""
+    diff = (got - want).abs()
+    ok = bool((diff <= tol * (1 + want.abs())).all()) and \
+        bool(torch.isfinite(got).all())
+    err = float(diff.max())
+    log(f"[kernels] {name:44s} max_abs_err {err:.3e} (<= {tol:.0e}·(1+|x|))"
+        f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"kernel {name} disagrees with its plain version")
+    return err
+
+
+def slstm_cases(torch, randn, rows):
+    """``slstm_scan`` against its plain version.  The gates are the four
+    d-major views of one (B, S, d, 4) pre-activation, as the serving
+    mixer hands them in (channel stride 4), input/forget gates scaled by
+    2.5 as in the reference kernel test; the last case copies them
+    apart into contiguous tensors."""
+    from repro_torch.kernels import slstm
+
+    def state(b, d, warm):
+        if warm:
+            return (randn(b, d), 1.0 + randn(b, d).abs(), randn(b, d))
+        return (torch.zeros(b, d, device=DEVICE),
+                torch.ones(b, d, device=DEVICE),
+                torch.zeros(b, d, device=DEVICE))
+
+    scale = torch.tensor([1.0, 2.5, 2.5, 1.0], device=DEVICE)
+    for b, s, d, warm, contiguous, label, main in (
+            (1, 64, 1024, False, False, "prefill bucket 64, cold (n0 = 1)",
+             True),
+            (4, 1, 1024, True, False, "decode, 4 slots, warm", False),
+            (2, 96, 256, True, False, "S not a power of two, warm", False),
+            (16, 4096, 1024, True, False, "reference traffic shape, warm",
+             False),
+            (2, 96, 256, True, True, "contiguous gates, warm", False)):
+        gates = (randn(b, s, d, 4) * scale).unbind(-1)
+        if contiguous:
+            gates = [g.contiguous() for g in gates]
+        st = state(b, d, warm)
+        name = f"slstm_scan ({b}, {s}, {d}) {label}"
+        got = slstm.slstm_scan(*gates, *st)
+        want = slstm._slstm_scan_plain(*gates, *st)
+        err = slstm_close(torch, name + " y", got[0], want[0], SLSTM_Y_TOL)
+        err_s = max(slstm_close(torch, f"{name} {k}1", g, w,
+                                SLSTM_STATE_TOL)
+                    for k, g, w in zip("cnm", got[1:], want[1:]))
+        nbytes = slstm.hbm_traffic_bytes(b, s, d)["fused_bytes"]
+        bound, by = bound_ms(nbytes, SLSTM_OPS_PER_STEP * b * s * d)
+        row = {"case": f"({b}, {s}, {d}) {label}", "main": main,
+               "max_abs_err": err, "max_abs_err_state": err_s,
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "ms": cuda_ms(torch, lambda: slstm.slstm_scan(*gates, *st)),
+               "plain_ms": cuda_ms(torch, lambda: slstm._slstm_scan_plain(
+                   *gates, *st))}
+        log(f"[kernels]   ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}"
+            f"  library none  bound {bound:.4f} ({by}; S = {s} dependent "
+            f"steps also set a latency floor)")
+        rows.append(row)
+
+
 # --------------------------------------------------------------------------
-# phase 4: serve stablelm-1.6b at full width with the whitening cache
+# phases 4-5: serve at full width with the whitening cache
 # --------------------------------------------------------------------------
-def serve_phase(torch):
-    from repro_torch.kernels import trigrid
+def run_serve(torch, arch):
+    """Serve 8 requests of 8–47 prompt tokens on 4 slots (s_max 256, 16
+    new tokens, one tenant, whitening cache with refresh stride 2); the
+    launch counts are set to 0 just before and read just after."""
+    from repro_torch.kernels import counts
     from repro_torch.launch.serve import serve
     args = argparse.Namespace(
-        arch="stablelm-1.6b", smoke=False, device=DEVICE, requests=8,
+        arch=arch, smoke=False, device=DEVICE, requests=8,
         slots=4, s_max=256, max_new=16, prompt_lo=8, prompt_hi=48,
         tenants=1, whiten="cache", refresh_stride=2, no_eos=True, seed=0)
-    trigrid.reset_launch_counts()
+    counts.reset_launch_counts()
     out = serve(args)
-    launches = trigrid.launch_counts()
-    log(f"[serve] {out['arch']} layers {out['layers']} d_model "
+    launches = counts.launch_counts()
+    tag = f"[{arch}]"
+    log(f"{tag} {out['arch']} layers {out['layers']} d_model "
         f"{out['d_model']} vocab {out['vocab']} on {out['device']}")
-    log(f"[serve] completed {out['completed']}/{out['requests']}  tokens/s "
+    log(f"{tag} completed {out['completed']}/{out['requests']}  tokens/s "
         f"{out['tokens_per_s']:.2f}  ttft p50 {out['p50_ttft_s']:.4f} s "
         f"p99 {out['p99_ttft_s']:.4f} s  startup {out['startup_s']:.2f} s")
-    log(f"[serve] host s (each ends in a sync): serve {out['serve_s']:.4f}"
+    log(f"{tag} host s (each ends in a sync): serve {out['serve_s']:.4f}"
         f"  prefill {out['prefill_s']:.4f}  embed {out['embed_s']:.4f}"
         f"  decode {out['decode_s']:.4f} over {out['decode_steps']} steps")
-    log(f"[serve] refreshes {out['cache']['refreshes']} (s: "
+    log(f"{tag} refreshes {out['cache']['refreshes']} (s: "
         f"{[round(s, 4) for s in out['refresh_s']]})  ns_fallbacks "
-        f"{out['cache']['ns_fallbacks']}  launches {launches}")
-    assert (out["layers"], out["d_model"], out["vocab"]) == (24, 2048,
-                                                             100352)
+        f"{out['cache']['ns_fallbacks']}  forwards {out['model_forwards']}"
+        f" ({out['warmup_forwards']} warm-up)  launches {launches}, of "
+        f"which after warm-up {out['kernel_launches']}")
     assert out["completed"] == out["requests"], out
     assert out["embeddings_finite"], "non-finite embedding"
     assert out["cache"]["factors_ready"] >= 1 and \
@@ -326,14 +416,94 @@ def serve_phase(torch):
     return out, launches
 
 
+def serve_phase(torch):
+    out, launches = run_serve(torch, "stablelm-1.6b")
+    assert (out["layers"], out["d_model"], out["vocab"]) == (24, 2048,
+                                                             100352)
+    assert launches["slstm_scan"] == 0, launches
+    return out, launches
+
+
+def xlstm_phase(torch):
+    from repro_torch.configs import get_config
+    cfg = get_config("xlstm-350m")
+    n_slstm = sum(cfg.pattern[i % cfg.period].mixer == "slstm"
+                  for i in range(cfg.n_layers))
+    out, launches = run_serve(torch, "xlstm-350m")
+    assert (out["layers"], out["d_model"], out["vocab"]) == (24, 1024,
+                                                             50304)
+    assert n_slstm == 6
+    # every forward (ladder warm-ups, admits, decode steps) ran every
+    # sLSTM layer on the kernel, once
+    assert launches["slstm_scan"] == n_slstm * out["model_forwards"], \
+        (launches, out["model_forwards"])
+    assert out["kernel_launches"]["slstm_scan"] == n_slstm * (
+        out["model_forwards"] - out["warmup_forwards"]), out
+    log(f"[xlstm] slstm_scan launches {launches['slstm_scan']} = "
+        f"{n_slstm} x {out['model_forwards']} forwards")
+    out["prefill_split"] = prefill_split(torch, cfg)
+    return out, launches
+
+
+def prefill_split(torch, cfg):
+    """Host seconds by block kind in one full-width prefill per bucket
+    and one 4-slot decode step, with a sync after every block (so the
+    split, not the sum, is the point)."""
+    from repro_torch.models.model import init_model
+    model = init_model(cfg, seed=0, device=DEVICE)
+    split = {}
+
+    def timed(fn):
+        by_kind, t0 = {}, [0.0]    # blocks run one after another
+
+        def pre(_m, _a):
+            torch.cuda.synchronize()
+            t0[0] = time.perf_counter()
+
+        def post(blk, _a, _o):
+            torch.cuda.synchronize()
+            kind = blk.spec.mixer
+            by_kind[kind] = by_kind.get(kind, 0.0) + \
+                time.perf_counter() - t0[0]
+        handles = []
+        for blk in model.blocks:
+            handles += [blk.register_forward_pre_hook(pre),
+                        blk.register_forward_hook(post)]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - start
+        for h in handles:
+            h.remove()
+        return {"total_s": total, **{f"{k}_s": v for k, v in
+                                     by_kind.items()}}
+
+    for bucket in (16, 64, 128, 256):
+        toks = torch.ones((1, bucket), dtype=torch.long, device=DEVICE)
+        model.prefill(toks, 256)                       # warm
+        split[f"prefill {bucket}"] = timed(lambda: model.prefill(toks, 256))
+    cache = model.init_cache(4, 256)
+    tok = torch.ones((4, 1), dtype=torch.long, device=DEVICE)
+    model.decode_step(tok, tok, cache)
+    split["decode 4 slots"] = timed(lambda: model.decode_step(tok, tok,
+                                                              cache))
+    for k, v in split.items():
+        log(f"[xlstm] {k}: " + "  ".join(f"{n} {x:.4f}" for n, x in
+                                         v.items()))
+    del model
+    torch.cuda.empty_cache()
+    return split
+
+
 # --------------------------------------------------------------------------
-# phase 5: the port on the card against references
+# phase 6: the port on the card against references
 # --------------------------------------------------------------------------
 def check_phase(torch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import init_model
     from repro_torch.optim.gram import packed_gram, whitening_from_packed
-    from repro_torch.kernels import trigrid
+    from repro_torch.kernels import counts
 
     # reduced model: same weights on the card and on the CPU
     cfg = get_smoke_config("stablelm-1.6b")
@@ -353,10 +523,10 @@ def check_phase(torch):
     # full-width NS whitening on the kernels vs the eigh oracle
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     x = torch.randn(2048, 4096, generator=gen, device=DEVICE)
-    before = trigrid.launch_counts()
+    before = counts.launch_counts()
     g = packed_gram(x)
     w = whitening_from_packed(g, 2048, eps=1e-3, method="ns")
-    after = trigrid.launch_counts()
+    after = counts.launch_counts()
     we = whitening_from_packed(g, 2048, eps=1e-3, method="eigh")
     rel = float(torch.linalg.norm(w - we) / torch.linalg.norm(we))
     log(f"[check] NS whitening d=2048 vs eigh: rel {rel:.3e} (<= 1e-3); "
@@ -364,6 +534,44 @@ def check_phase(torch):
     assert rel <= 1e-3, rel
     assert after["rank_update"] > before["rank_update"] and \
         after["sym_stream"] > before["sym_stream"]
+    xlstm_check(torch)
+
+
+def xlstm_check(torch):
+    """The xlstm smoke model (three mLSTM blocks and one sLSTM block at
+    d_model 64: a ragged 128-channel block for the kernel) on the card
+    against the same weights on the CPU: prefill and 4 decode steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import counts
+    from repro_torch.models.model import init_model
+
+    cfg = get_smoke_config("xlstm-350m")
+    m_cpu = init_model(cfg, seed=0, device="cpu")
+    m_gpu = init_model(cfg, seed=1, device=DEVICE)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    toks = torch.randint(1, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    before = counts.launch_counts()["slstm_scan"]
+    lc, cc, hc = m_cpu.prefill(toks, 64, return_hidden=True)
+    lg, cg, hg = m_gpu.prefill(toks.to(DEVICE), 64, return_hidden=True)
+    errs = [float((lg.cpu() - lc).abs().max())]
+    h_err = float((hg.cpu().float() - hc.float()).abs().max())
+    nxt = lc[:, -1].argmax(-1)[:, None]
+    for k in range(4):
+        pos = torch.full((2, 1), 40 + k)
+        lc, cc = m_cpu.decode_step(nxt, pos, cc)
+        lg, cg = m_gpu.decode_step(nxt.to(DEVICE), pos.to(DEVICE), cg)
+        errs.append(float((lg.cpu() - lc).abs().max()))
+        assert bool(torch.isfinite(lg).all())
+        nxt = lc[:, -1].argmax(-1)[:, None]
+    launched = counts.launch_counts()["slstm_scan"] - before
+    log(f"[check] xlstm smoke card vs cpu: logits max_abs_err prefill "
+        f"{errs[0]:.3e}, decode {[f'{e:.3e}' for e in errs[1:]]} "
+        f"(<= 5e-2), hidden {h_err:.3e} (<= 6.25e-2); slstm_scan "
+        f"launches {launched} (1 sLSTM layer x 5 forwards)")
+    assert lg.shape == (2, 1, cfg.vocab)
+    assert max(errs) <= 5e-2 and h_err <= 6.25e-2, (errs, h_err)
+    assert launched == 5, launched
 
 
 def main() -> int:
@@ -377,16 +585,19 @@ def main() -> int:
     card = probe(torch)
     build_s = build()
     cases = kernel_phase(torch)
-    out, launches = serve_phase(torch)
+    _, launches = serve_phase(torch)
+    xout, xlaunches = xlstm_phase(torch)
     check_phase(torch)
 
     kernels = []
     for name, rows in cases.items():
-        main_row = next(r for r in rows if "ms" in r and (
-            "2048x2048" in r["case"] or "2048^2 x 2048^2" in r["case"]))
+        [main_row] = [r for r in rows if r["main"]]
+        by_path = {"stablelm-1.6b": launches[name],
+                   "xlstm-350m": xlaunches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -395,6 +606,8 @@ def main() -> int:
             "shape": main_row["case"], "cases": rows})
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"xlstm_serve": {k: v for k, v in xout.items()
+                                    if k not in ("cache",)}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config``.
 
 Port of :mod:`repro.configs` for the archs the port can run so far
-(stablelm-1.6b); the other archs wait for their blocks (MLA, MoE, SSM).
+(stablelm-1.6b, xlstm-350m); the other archs wait for their blocks
+(MLA, MoE, Mamba).
 Each module exposes ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests).
 """
@@ -10,9 +11,9 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-ARCHS: List[str] = ["stablelm_1_6b"]
+ARCHS: List[str] = ["stablelm_1_6b", "xlstm_350m"]
 
-_ALIASES = {"stablelm-1.6b": "stablelm_1_6b"}
+_ALIASES = {"stablelm-1.6b": "stablelm_1_6b", "xlstm-350m": "xlstm_350m"}
 
 
 def canonical(arch: str) -> str:

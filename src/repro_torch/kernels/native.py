@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("rank_update.cu", "sym_stream.cu")
+SOURCES = ("rank_update.cu", "sym_stream.cu", "slstm_scan.cu")
 HEADERS = ("tile_mma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C signature of every entry point: (name, argtypes)
 SIGNATURES = {
     "rank_update.cu": ("repro_rank_update",
@@ -38,9 +39,12 @@ SIGNATURES = {
                         _I, _P]),
     "sym_stream.cu": ("repro_sym_stream",
                       [_I, _P, _P, _I, _I, _P, _P, _F, _P, _I, _P]),
+    "slstm_scan.cu": ("repro_slstm_scan",
+                      [_P, _L, _L, _L] * 4 + [_P] * 7 + [_I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
 #: what the last :func:`load` did: seconds spent building and the
 #: compiler's resource report (registers, shared memory, spills)
@@ -121,6 +125,24 @@ def load() -> Dict[str, ctypes._CFuncPtr]:
             fn.restype = ctypes.c_int
             _FUNCS[name] = fn
         return _FUNCS
+
+
+def count_launch(fn) -> None:
+    """Add one to a wrapper's ``launches`` count; called right after
+    the wrapper's kernel launched, and nowhere else."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+
+
+def zero_launch_counts(fns) -> None:
+    with _COUNT_LOCK:
+        for fn in fns:
+            fn.launches = 0
+
+
+def read_launch_counts(fns) -> Dict[str, int]:
+    with _COUNT_LOCK:
+        return {fn.__name__: fn.launches for fn in fns}
 
 
 def check(rc: int, what: str) -> None:

@@ -11,13 +11,12 @@ wrapper raises.
 Each wrapper counts its launches in a plain integer attribute
 (``rank_update.launches``, ``sym_stream.launches``), incremented only
 where the kernel is launched, so a run can show that its path went
-through the kernels.
+through the kernels (``kernels.counts`` reads and resets them).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -28,8 +27,6 @@ from . import native
 
 KERNEL_BMS = (8, 16, 32, 64, 128)
 OUT_DTYPES = (torch.float32, torch.bfloat16)
-
-_COUNT_LOCK = threading.Lock()
 
 
 # --------------------------------------------------------------------------
@@ -120,11 +117,6 @@ def _check_cuda(x: torch.Tensor, bm: int, out_dtype) -> None:
                             f"{OUT_DTYPES}")
 
 
-def _count(fn) -> None:
-    with _COUNT_LOCK:
-        fn.launches += 1
-
-
 def _stream(device: torch.device) -> int:
     # The current stream of the calling thread: the serving cache's
     # refresh runs on its executor thread, and its launches land on that
@@ -196,7 +188,7 @@ def rank_update(body: str, a: torch.Tensor, b: Optional[torch.Tensor] = None,
                 out.data_ptr(), int(ep.out_dtype == torch.bfloat16),
                 _stream(a.device))
     native.check(rc, f"rank_update[{body}, bm={bm}]")
-    _count(rank_update)
+    native.count_launch(rank_update)
     return out
 
 
@@ -269,20 +261,9 @@ def sym_stream(a_tiles: torch.Tensor, b: torch.Tensor, *, bm: int,
                 out.data_ptr(), int(out_dtype == torch.bfloat16),
                 _stream(b.device))
     native.check(rc, f"sym_stream[bm={bm}]")
-    _count(sym_stream)
+    native.count_launch(sym_stream)
     return out
 
 
 sym_stream.launches = 0
 
-
-def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        rank_update.launches = 0
-        sym_stream.launches = 0
-
-
-def launch_counts() -> dict:
-    with _COUNT_LOCK:
-        return {"rank_update": rank_update.launches,
-                "sym_stream": sym_stream.launches}

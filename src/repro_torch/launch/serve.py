@@ -2,16 +2,21 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --arch stablelm-1.6b --whiten cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --arch xlstm-350m --whiten cache
 
 Requests with variable prompt lengths and a tenant id are packed into
 fixed decode slots; prefill runs right-padded at a bucketed length
 (16·2^k up to s_max) and writes the sequence's KV cache into its slot;
 decode advances every live slot one token per step and refills finished
-slots from the queue (continuous batching).  With ``--whiten cache``
-each admitted prompt's final-norm features update the per-(tenant,
-arch, layer) packed Gram EMA (the SYRK kernel) and its embedding is the
-latest ready whitening factor applied to the pooled features (the SYMM
-kernel); the factor refresh (coupled Newton–Schulz on the SYMM/SYRK
+slots from the queue (continuous batching).  For a recurrent model
+(xlstm) the slot holds the sequence's recurrent state instead of a KV
+cache; as in the reference, the right-padded prefill feeds the pad
+tokens into that state and the first token is read at the bucket's last
+position.  With ``--whiten cache`` each admitted prompt's final-norm
+features update the per-(tenant, arch, layer) packed Gram EMA (the SYRK
+kernel) and its embedding is the latest ready whitening factor applied
+to the pooled features (the SYMM kernel); the factor refresh (coupled Newton–Schulz on the SYMM/SYRK
 kernels) runs on the cache's background worker.  ``--whiten sync`` is
 the uncached baseline (from-scratch Gram + eigh per request), ``off``
 skips statistics.  Generated tokens never depend on the whiten mode.
@@ -32,7 +37,7 @@ import torch
 from .. import blas
 from ..configs import get_config, get_smoke_config
 from ..device import DeviceLike, describe, resolve_device
-from ..kernels import trigrid
+from ..kernels import counts
 from ..models.model import Model, init_model
 from ..optim.gram import packed_gram, whitening_from_packed
 from .serving_cache import ServingGramCache
@@ -97,6 +102,8 @@ class Server:
         self.last_tok = np.zeros((slots, 1), np.int32)
         #: host seconds per phase; each phase ends in a device sync
         self.timing = {"prefill_s": 0.0, "embed_s": 0.0, "decode_s": 0.0}
+        #: model forwards run (prefills and decode steps), warm-up included
+        self.forwards = 0
 
     def _bucket(self, n: int) -> int:
         b = 16
@@ -122,6 +129,7 @@ class Server:
         for b in self.bucket_ladder():
             toks = torch.zeros((1, b), dtype=torch.long, device=self.device)
             out = self.prefill(toks)
+            self.forwards += 1
             if self.whiten != "off":
                 feats, pooled = self._prep(out[2], b)
                 packed_gram(feats)
@@ -129,6 +137,7 @@ class Server:
                            device=self.device)
         self.decode(zero, zero, self.model.init_cache(self.slots,
                                                       self.s_max))
+        self.forwards += 1
         if self.whiten != "off":
             blas.symm(torch.eye(d, device=self.device), pooled[:, None])
             whitening_from_packed(
@@ -168,6 +177,7 @@ class Server:
         toks[0, :L] = req.prompt
         t0 = time.perf_counter()
         out = self.prefill(torch.as_tensor(toks, device=self.device))
+        self.forwards += 1
         logits, cache1 = out[0], out[1]
         for dst, src in zip(self.cache, cache1):
             for name in dst:
@@ -191,6 +201,7 @@ class Server:
                               device=self.device)
         t0 = time.perf_counter()
         nxt, _, self.cache = self.decode(tok, pos, self.cache)
+        self.forwards += 1
         nxt = nxt.cpu().numpy()
         now = time.perf_counter()
         self.timing["decode_s"] += now - t0
@@ -250,7 +261,10 @@ def serve(args, device: DeviceLike = None) -> Dict:
         # the clock starts when the server can admit: bring-up (weights,
         # warm-up) is reported as startup_s
         srv.warm_up()
-        trigrid.reset_launch_counts()
+        warmup_forwards = srv.forwards
+        # launches of the serve proper; the counts themselves run on, so
+        # a caller that zeroed them before serve() also sees the warm-up's
+        before = counts.launch_counts()
         t0 = time.perf_counter()
         for r in reqs:
             r.arrived = t0
@@ -258,7 +272,8 @@ def serve(args, device: DeviceLike = None) -> Dict:
         t1 = time.perf_counter()
         if gram_cache is not None:
             gram_cache.drain()
-        launches = trigrid.launch_counts()
+        launches = {k: n - before[k]
+                    for k, n in counts.launch_counts().items()}
     finally:
         if gram_cache is not None:
             gram_cache.close()
@@ -278,6 +293,8 @@ def serve(args, device: DeviceLike = None) -> Dict:
            "p50_ttft_s": pct(ttfts, 50), "p99_ttft_s": pct(ttfts, 99),
            "p50_latency_s": pct(lats, 50), "p99_latency_s": pct(lats, 99),
            "serve_s": t1 - t0, **srv.timing,
+           "model_forwards": srv.forwards,
+           "warmup_forwards": warmup_forwards,
            "kernel_launches": launches,
            "embeddings_finite": all(
                r.embedding is not None and bool(np.isfinite(r.embedding)

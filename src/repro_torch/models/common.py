@@ -1,7 +1,8 @@
 """Shared model infrastructure: config schema, norms, RoPE, initialisers.
 
-Port of :mod:`repro.models.common` for the attention + dense-MLP
-blocks of the serving slice.  Tensors keep the reference's layouts
+Port of :mod:`repro.models.common` for the blocks the port serves:
+attention + dense MLP (stablelm) and the xLSTM mixers with no MLP
+(xlstm).  Tensors keep the reference's layouts
 ((B, S, d) activations, (B, S, H, D) heads) and dtypes (bf16 weights
 and activations, f32 norm parameters and f32 softmax).
 """
@@ -19,8 +20,8 @@ import torch
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class BlockSpec:
-    mixer: str = "attn"          # attn (mamba | mlstm | slstm wait)
-    mlp: str = "dense"           # dense (moe | none wait)
+    mixer: str = "attn"          # attn | mlstm | slstm (mamba waits)
+    mlp: str = "dense"           # dense | none (moe waits)
     local_window: int = 0        # sliding-window size; 0 = global attention
 
 

@@ -1,5 +1,6 @@
 """Decoder model: blocks -> final norm -> LM head (port of
-:mod:`repro.models.model` for attention + dense-MLP blocks).
+:mod:`repro.models.model` for attention + dense-MLP blocks and the
+xLSTM blocks, an mLSTM or sLSTM mixer with no MLP).
 
     model = init_model(cfg, seed=0)                      # on the GPU
     logits, cache = model.prefill(tokens, s_max)         # (B, 1, V)
@@ -9,7 +10,9 @@ The reference stacks layers into scanned periods; here layer
 ``p·period + i`` is ``blocks[p·period + i]``.  :func:`from_jax_params`
 loads the reference's ``init_params`` tree (as numpy arrays), so the
 tests can run both packages on the same weights.  The KV cache is a
-list with one ``{"k", "v"}`` dict per layer, updated in place.
+list with one dict per layer, updated in place: ``{"k", "v"}`` for
+attention, the recurrent state (``models.ssm``) for mLSTM / sLSTM, batch
+on dim 0 in both.
 """
 from __future__ import annotations
 
@@ -24,8 +27,11 @@ from .attention import GQA, gqa_cache_init
 from .common import (ArchConfig, BlockSpec, apply_norm, dense_init,
                      embed_init, softcap)
 from .moe import MLP
+from .ssm import MLSTM, SLSTM, mlstm_state_init, slstm_state_init
 
 Cache = List[Dict[str, torch.Tensor]]
+
+MIXERS = {"attn": GQA, "mlstm": MLSTM, "slstm": SLSTM}
 
 
 class Norm(nn.Module):
@@ -47,24 +53,37 @@ class Block(nn.Module):
     def __init__(self, cfg: ArchConfig, spec: BlockSpec,
                  gen: torch.Generator, device: torch.device):
         super().__init__()
-        if spec.mixer != "attn" or spec.mlp != "dense":
+        if spec.mixer not in MIXERS or spec.mlp not in ("dense", "none"):
             raise NotImplementedError(
-                f"block {spec} is not ported yet (attn + dense only)")
-        if cfg.attn_kind != "gqa":
+                f"block {spec} is not ported yet (mixers {sorted(MIXERS)},"
+                f" mlp dense | none)")
+        if spec.mixer == "attn" and cfg.attn_kind != "gqa":
             raise NotImplementedError(f"attn_kind={cfg.attn_kind!r} waits")
         self.cfg, self.spec = cfg, spec
         self.norm1 = Norm(cfg, cfg.d_model, device)
-        self.mixer = GQA(cfg, gen, device)
-        self.norm2 = Norm(cfg, cfg.d_model, device)
-        self.mlp = MLP(cfg, gen, device)
+        self.mixer = MIXERS[spec.mixer](cfg, gen, device)
+        if spec.mlp == "dense":
+            self.norm2 = Norm(cfg, cfg.d_model, device)
+            self.mlp = MLP(cfg, gen, device)
 
     def forward(self, x, positions, cache):
         cfg = self.cfg
         h = apply_norm(cfg, self.norm1, x)
         y, cache = self.mixer(self.spec, h, positions, cache)
         x = x + y
+        if self.spec.mlp == "none":
+            return x, cache
         h = apply_norm(cfg, self.norm2, x)
         return x + self.mlp(h), cache
+
+    def init_cache(self, batch: int, s_max: int,
+                   device: torch.device) -> Dict[str, torch.Tensor]:
+        """This layer's cache: KV for attention, recurrent state else."""
+        if self.spec.mixer == "mlstm":
+            return mlstm_state_init(self.cfg, batch, device)
+        if self.spec.mixer == "slstm":
+            return slstm_state_init(self.cfg, batch, device)
+        return gqa_cache_init(self.cfg, batch, s_max, device)
 
 
 class Model(nn.Module):
@@ -91,8 +110,8 @@ class Model(nn.Module):
 
     # -- helpers -----------------------------------------------------------
     def init_cache(self, batch: int, s_max: int) -> Cache:
-        return [gqa_cache_init(self.cfg, batch, s_max, self.device)
-                for _ in self.blocks]
+        return [blk.init_cache(batch, s_max, self.device)
+                for blk in self.blocks]
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return softcap(x.float() @ self.unembed.float(),
@@ -173,10 +192,10 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ArchConfig,
         src = np_tree["periods"][f"b{i}"]
         take = lambda a: np.asarray(a)[p]       # noqa: E731
         for name in ("norm1", "norm2"):
-            put_norm(getattr(blk, name),
-                     {k: take(v) for k, v in src[name].items()})
-        for name, v in src["mixer"].items():
-            put(getattr(blk.mixer, name), take(v))
-        for name, v in src["mlp"].items():
-            put(getattr(blk.mlp, name), take(v))
+            if name in src:
+                put_norm(getattr(blk, name),
+                         {k: take(v) for k, v in src[name].items()})
+        for part in ("mixer", "mlp"):
+            for name, v in src.get(part, {}).items():
+                put(getattr(getattr(blk, part), name), take(v))
     return model

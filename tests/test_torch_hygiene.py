@@ -1,5 +1,5 @@
 """The port stands alone: importing repro_torch and every module of the
-serving slice loads neither jax nor the JAX package, and the entry
+serving slices (stablelm and xlstm) loads neither jax nor the JAX package, and the entry
 points refuse to run on the host unless asked."""
 import os
 import subprocess
@@ -22,6 +22,8 @@ MODULES = [
     "repro_torch.models.attention", "repro_torch.models.moe",
     "repro_torch.models.model", "repro_torch.launch.steps",
     "repro_torch.launch.serving_cache", "repro_torch.launch.serve",
+    "repro_torch.kernels.slstm", "repro_torch.models.ssm",
+    "repro_torch.configs.xlstm_350m", "repro_torch.kernels.counts",
 ]
 
 _PROBE = r"""

@@ -17,7 +17,7 @@ from repro.kernels.symm import symm_tiles as j_symm
 from repro.kernels.syr2k import syr2k_tiles as j_syr2k
 from repro.kernels.syrk import syrk_tiles as j_syrk
 from repro_torch.core.packing import TriTiles
-from repro_torch.kernels import trigrid
+from repro_torch.kernels import counts, trigrid
 from repro_torch.kernels.symm import symm_tiles
 from repro_torch.kernels.syr2k import syr2k_tiles
 from repro_torch.kernels.syrk import syrk_tiles
@@ -168,11 +168,12 @@ def test_wrappers_check_inputs():
 
 def test_launch_counters_only_count_kernel_launches():
     """On the CPU the plain versions run and nothing is counted."""
-    trigrid.reset_launch_counts()
+    counts.reset_launch_counts()
     syrk_tiles(torch.ones(16, 4), bm=8)
     symm_tiles(TriTiles.from_tril(torch.ones(16, 16), 8).tiles,
                torch.ones(16, 2), bm=8)
-    assert trigrid.launch_counts() == {"rank_update": 0, "sym_stream": 0}
+    assert counts.launch_counts() == {"rank_update": 0, "sym_stream": 0,
+                                       "slstm_scan": 0}
 
 
 @pytest.mark.parametrize("op", ["syrk", "syr2k", "symm"])
