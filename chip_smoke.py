@@ -14,10 +14,12 @@ Phases (any failure exits non-zero):
              ``slstm_scan`` (the sLSTM recurrence) on the card at the
              serving paths' shapes and holds each against its plain
              PyTorch version on the same inputs, with the tolerance
-             printed beside the error; times the kernel, the plain
-             version and, where one exists, one PyTorch call computing
-             the same function (``torch.matmul``; none for the sLSTM
-             recurrence);
+             printed beside the error (and a 1xTF32 emulation that must
+             miss it); times the kernel, the plain version and, where
+             one exists, one PyTorch call computing the same function
+             (``torch.matmul``; none for the sLSTM recurrence), and the
+             embedding and Gram update also inside a CUDA graph (device
+             time without the host);
 4. serve   — serves stablelm-1.6b at full width (24 layers, d_model
              2048, vocab 100352; random weights from a seed) with the
              whitening cache on, and asserts that every request
@@ -31,7 +33,8 @@ Phases (any failure exits non-zero):
              block kind (host clock, a sync after every block);
 6. check   — reduced stablelm and xlstm models on the card against the
              same weights on the CPU, and the full-width Newton–Schulz
-             whitening on the kernels against the eigh oracle.
+             whitening on the kernels against the eigh oracle, then
+             timed alone at d = 2048 and 1024.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -48,9 +51,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32
-#: FLOP/s outside the tensor cores — the f32 parity path uses no TF32
+#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense TF32
+#: tensor-core FLOP/s, and FP32 FLOP/s outside the tensor cores.  The
+#: symmetric kernels reach f32 accuracy with three TF32 products per
+#: product (3xTF32), so their least time is max(bytes / HBM rate,
+#: 3 · flops / TF32 rate); ``ffma_bound_ms`` keeps the FFMA-only bound
+#: (flops / FP32 rate) of the earlier rows beside it.
 PEAK_BYTES_S = 3.35e12
+PEAK_TF32_FLOP_S = 495e12
 PEAK_FP32_FLOP_S = 67e12
 DEVICE = "cuda"
 TOL_F32 = 2e-5      # max |kernel − plain| / max(1, max |plain|), f32 out
@@ -150,20 +158,46 @@ def cuda_ms(torch, fn, window_ms: float = 25.0, warmup: int = 3) -> float:
     return timed(max(10, int(window_ms / max(est, 1e-3)) + 1))
 
 
-def bound_ms(nbytes: float, flops: float):
+def graph_ms(torch, fn, reps: int = 50) -> float:
+    """Device ms per call with the host out of the way: ``reps`` calls
+    captured in one CUDA graph, replayed and timed with events.  For a
+    call whose back-to-back rate (``cuda_ms``) is set by its host cost."""
+    fn()                                  # lazy set-up outside the graph
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(torch, graph.replay) / reps
+
+
+def bound_ms(nbytes: float, flops: float, tensor: bool = True):
+    """(least ms, what bounds it) for moving ``nbytes`` through HBM and
+    doing ``flops`` f32-accurate operations: on the tensor cores in
+    3xTF32 (``tensor``), else in FP32 FFMA."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_S * 1e3
+    t_ops = (3 * flops / PEAK_TF32_FLOP_S if tensor else
+             flops / PEAK_FP32_FLOP_S) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
 
-def compare(torch, name, got, want, out_dtype):
-    err = float((got.float() - want.float()).abs().max())
-    scale = max(1.0, float(want.float().abs().max()))
+def compare(torch, name, got, want, out_dtype, nans=False):
+    """got within the tolerance of want, and finite; with ``nans``, NaN
+    exactly where want has NaN (somewhere) and within it elsewhere."""
+    got, want = got.float(), want.float()
+    where_nan = torch.isnan(want)
+    nan_ok = bool(torch.equal(torch.isnan(got), where_nan))
+    if nans:
+        nan_ok = nan_ok and bool(where_nan.any())
+        got, want = got[~where_nan], want[~where_nan]
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
     tol = TOL_BF16 if out_dtype == torch.bfloat16 else TOL_F32
-    ok = err / scale <= tol and bool(torch.isfinite(got.float()).all())
+    ok = err / scale <= tol and bool(torch.isfinite(got).all()) and nan_ok
     log(f"[kernels] {name:44s} max_abs_err {err:.3e} (rel {err / scale:.2e}"
-        f" <= {tol:.0e}) {'ok' if ok else 'FAIL'}")
+        f" <= {tol:.0e}){' NaN where plain has' if nans else ''} "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"kernel {name} disagrees with its plain version")
     return err
@@ -183,6 +217,16 @@ def kernel_phase(torch):
     f32, bf16 = torch.float32, torch.bfloat16
     cases = {"rank_update": [], "sym_stream": [], "slstm_scan": []}
 
+    def timing(row, kernel, plain, library, nbytes, flops, tensor=True):
+        row["ms"] = cuda_ms(torch, kernel)
+        row["plain_ms"] = cuda_ms(torch, plain)
+        row["library_ms"] = cuda_ms(torch, library)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, tensor)
+        log(f"[kernels]   ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}"
+            f"  library {row['library_ms']:.4f}  bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}; FFMA "
+            f"{row['ffma_bound_ms']:.4f})")
+
     def rank_case(label, body, a, b=None, bm=128, ep=None, c0=None,
                   timed=False, main=False):
         ep = ep or trigrid.Epilogue()
@@ -197,22 +241,15 @@ def kernel_phase(torch):
         nbytes = m * n1 * n2 * 4 + out_b + (out_b if c0 is not None else 0)
         flops = m * n1 * (n1 + 1) * n2        # useful half, 2 flops / FMA
         row = {"case": label, "max_abs_err": err, "main": main,
-               "bound_ms": bound_ms(nbytes, flops)[0]}
+               "bound_ms": bound_ms(nbytes, flops)[0],
+               "ffma_bound_ms": bound_ms(nbytes, flops, False)[0]}
         if timed:
-            row["ms"] = cuda_ms(torch, lambda: trigrid.rank_update(
-                body, a, b, bm=bm, epilogue=ep, c0=c0))
-            row["plain_ms"] = cuda_ms(torch, lambda: trigrid.
-                                      _rank_update_plain(body, a, b, bm, ep,
-                                                         c0))
-            if body == "syrk":
-                row["library_ms"] = cuda_ms(torch, lambda: a @ a.T)
-            else:
-                row["library_ms"] = cuda_ms(torch, lambda: torch.addmm(
-                    a @ b.T, b, a.T))
-            row["bound_by"] = bound_ms(nbytes, flops)[1]
-            log(f"[kernels]   ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}"
-                f"  library {row['library_ms']:.4f}  bound "
-                f"{row['bound_ms']:.4f} ({row['bound_by']})")
+            lib = (lambda: a @ a.T) if body == "syrk" else \
+                (lambda: torch.addmm(a @ b.T, b, a.T))
+            timing(row, lambda: trigrid.rank_update(
+                body, a, b, bm=bm, epilogue=ep, c0=c0),
+                lambda: trigrid._rank_update_plain(body, a, b, bm, ep, c0),
+                lib, nbytes, flops)
         cases["rank_update"].append(row)
 
     def symm_case(label, tiles, b, bm, ds=1.0, out_dtype=f32, dense=None,
@@ -226,31 +263,42 @@ def kernel_phase(torch):
         nbytes = tiles.numel() * 4 + n1 * n2 * 4 + n1 * n2 * (
             2 if out_dtype == bf16 else 4)
         flops = 2 * n1 * n1 * n2
+        # n2 <= 8 runs the FFMA matrix-vector kernel, wider B 3xTF32
+        tensor = n2 > trigrid.NARROW_MAX_N2
         row = {"case": label, "max_abs_err": err, "main": main,
-               "bound_ms": bound_ms(nbytes, flops)[0]}
+               "bound_ms": bound_ms(nbytes, flops, tensor)[0],
+               "ffma_bound_ms": bound_ms(nbytes, flops, False)[0]}
         if timed:
-            row["ms"] = cuda_ms(torch, lambda: trigrid.sym_stream(
-                tiles, b, bm=bm, out_dtype=out_dtype, diag_scale=ds))
-            row["plain_ms"] = cuda_ms(torch, lambda: trigrid.
-                                      _sym_stream_plain(tiles, b, nt, ds,
-                                                        out_dtype))
-            row["library_ms"] = cuda_ms(torch, lambda: dense @ b)
-            row["bound_by"] = bound_ms(nbytes, flops)[1]
-            log(f"[kernels]   ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}"
-                f"  library {row['library_ms']:.4f}  bound "
-                f"{row['bound_ms']:.4f} ({row['bound_by']})")
+            timing(row, lambda: trigrid.sym_stream(
+                tiles, b, bm=bm, out_dtype=out_dtype, diag_scale=ds),
+                lambda: trigrid._sym_stream_plain(tiles, b, nt, ds,
+                                                  out_dtype),
+                lambda: dense @ b, nbytes, flops, tensor)
         cases["sym_stream"].append(row)
+        return got
 
     d = 2048
     # Gram updates: feats (2048, bucket) for every prefill bucket
     for bucket in (16, 32, 64, 128, 256):
         rank_case(f"syrk packed 2048x{bucket}", "syrk", randn(d, bucket),
                   timed=bucket == 64)
+    gram = cases["rank_update"][2]
+    a_g = randn(d, 64)
+    gram["device_ms"] = graph_ms(torch, lambda: trigrid.rank_update(
+        "syrk", a_g, bm=128))
+    gram["library_device_ms"] = graph_ms(torch, lambda: a_g @ a_g.T)
+    log(f"[kernels]   in a CUDA graph (device time, no host): ms "
+        f"{gram['device_ms']:.4f}  library {gram['library_device_ms']:.4f}")
     # Newton–Schulz T² (fill="full") and the SYR2K body
     t = randn(d, d) / d ** 0.5
     rank_case("syrk full 2048x2048 (NS T^2)", "syrk", t, timed=True,
               main=True)
     rank_case("syr2k 2048x2048", "syr2k", t, randn(d, d) / d ** 0.5,
+              timed=True)
+    # xlstm's refresh at d = 1024: 64-blocks
+    t1 = randn(1024, 1024) / 1024 ** 0.5
+    rank_case("syrk full 1024x1024 (xlstm NS T^2)", "syrk", t1, timed=True)
+    rank_case("syrk packed 1024x64 (xlstm Gram)", "syrk", randn(1024, 64),
               timed=True)
     # epilogue variants: alpha, beta·C0, diag_scale, bf16 out, every bm
     a64, b64 = randn(d, 64), randn(d, 64)
@@ -263,15 +311,27 @@ def kernel_phase(torch):
               ep=trigrid.Epilogue(diag_scale=2.0, out_dtype=bf16))
     rank_case("syrk bf16 out beta c0", "syrk", a64, ep=trigrid.Epilogue(
         beta=1.0, accumulate=True, out_dtype=bf16), c0=c0)
+    c0_nan = randn(36, 128, 128)
+    up = torch.triu(torch.ones(128, 128, device=dev, dtype=torch.bool), 1)
+    diag_t = torch.arange(8, device=dev) * (torch.arange(8, device=dev) + 3)
+    c0_nan[diag_t // 2] = torch.where(up, float("nan"), c0_nan[diag_t // 2])
+    rank_case("syrk 1024x64 beta c0, NaN in C0's upper halves", "syrk",
+              randn(1024, 64), ep=trigrid.Epilogue(
+                  beta=0.5, accumulate=True), c0=c0_nan)
     for bm in (8, 16, 32, 64):
         n = 16 * bm
         rank_case(f"syrk {n}x40 bm {bm} ragged k", "syrk", randn(n, 40),
                   bm=bm)
         rank_case(f"syr2k {n}x24 bm {bm}", "syr2k", randn(n, 24),
                   randn(n, 24), bm=bm)
+    rank_case("syrk 160x37 bm 32 (4 B copies, ragged blocks)", "syrk",
+              randn(160, 37), bm=32)
+    rank_case("syr2k 1024x37 bm 128 (4 B copies)", "syr2k",
+              randn(1024, 37), randn(1024, 37))
 
     # SYMM: NS seed (Gram TriTiles bm 32 times I), NS products (bm 128),
-    # the embedding (n2 = 1 padded to 128, and unpadded), poison
+    # the embedding (n2 = 1, unpadded as the serve calls it, and padded to
+    # 128), poison
     g = randn(d, d)
     g = (g + g.T) / 2
     gt = TriTiles.from_tril(g, 32).tiles.contiguous()
@@ -281,36 +341,129 @@ def kernel_phase(torch):
     x = randn(d, d) / d ** 0.5
     xt = pack_tril_tiles(x, 128).contiguous()
     xs = torch.tril(x) + torch.tril(x, -1).T
-    symm_case("dense 2048^2 x 2048^2 (NS)", xt, randn(d, d), 128, dense=xs,
-              timed=True, main=True)
+    y = randn(d, d)
+    got_ns = symm_case("dense 2048^2 x 2048^2 (NS)", xt, y, 128, dense=xs,
+                       timed=True, main=True)
+    tf32_case(torch, got_ns, xs, y)
     p = torch.zeros(d, 128, device=dev)
     p[:, 0] = randn(d)
     symm_case("2048^2 x (2048, 1) padded to 128", xt, p, 128, dense=xs,
               timed=True)
-    symm_case("2048^2 x (2048, 1) unpadded", xt,
-              p[:, :1].contiguous(), 128)
+    p1 = p[:, :1].contiguous()
+    symm_case("2048^2 x (2048, 1) unpadded (embedding)", xt, p1, 128,
+              dense=xs, timed=True)
+    emb = cases["sym_stream"][-1]
+    emb["device_ms"] = graph_ms(torch, lambda: trigrid.sym_stream(
+        xt, p1, bm=128))
+    emb["library_device_ms"] = graph_ms(torch, lambda: xs @ p1)
+    log(f"[kernels]   in a CUDA graph (device time, no host): ms "
+        f"{emb['device_ms']:.4f}  library {emb['library_device_ms']:.4f}")
     symm_case("diag_scale 2 bf16 out", xt, randn(d, 96), 128, ds=2.0,
               out_dtype=bf16)
     for bm in (8, 16, 64):
         n = 16 * bm
         a = randn(n, n)
         symm_case(f"{n}^2 x {n}x72 bm {bm}", pack_tril_tiles(
-            a, bm).contiguous(), randn(n, 72), bm)
-    # poison: the upper halves of diagonal tiles are never read
+            a, bm).contiguous(), randn(n, 72), bm,
+            ds=2.0 if bm == 8 else 1.0)
+    # xlstm's refresh at d = 1024
+    g1 = randn(1024, 1024)
+    g1 = (g1 + g1.T) / 2
+    symm_case("1024 TriTiles bm 32 x I (xlstm NS seed)", TriTiles.from_tril(
+        g1, 32).tiles.contiguous(), torch.eye(1024, device=dev), 32,
+        dense=g1, timed=True)
+    x1s = torch.tril(t1) + torch.tril(t1, -1).T
+    symm_case("dense 1024^2 x 1024^2 (xlstm NS)", pack_tril_tiles(
+        t1, 128).contiguous(), randn(1024, 1024), 128, dense=x1s,
+        timed=True)
+    # ragged shapes: rows past a 128-block, 4 B copies, narrow widths
+    a160 = randn(160, 160)
+    t160 = pack_tril_tiles(a160, 32).contiguous()
+    symm_case("160^2 x 160x50 bm 32 (4 B copies)", t160, randn(160, 50), 32)
+    for bm, n2 in ((8, 3), (32, 8), (128, 2), (16, 5)):
+        n = 16 * bm if bm < 128 else 1024
+        symm_case(f"{n}^2 x {n}x{n2} bm {bm} (matrix-vector)",
+                  pack_tril_tiles(randn(n, n), bm).contiguous(),
+                  randn(n, n2), bm, ds=0.5 if n2 == 5 else 1.0)
+    # poison: the upper halves of diagonal tiles never reach the output
     clean = TriTiles.from_tril(randn(512, 512), 32).tiles.contiguous()
     poisoned = clean.clone()
     ii = torch.arange(16, device=dev)
     up = torch.triu(torch.ones(32, 32, device=dev, dtype=torch.bool), 1)
     diag = poisoned[ii * (ii + 3) // 2]
     poisoned[ii * (ii + 3) // 2] = torch.where(up, float("nan"), diag)
-    bb = randn(512, 64)
-    got = trigrid.sym_stream(poisoned, bb, bm=32)
-    want = trigrid._sym_stream_plain(clean, bb, 16, 1.0, f32)
-    compare(torch, "sym_stream poison (NaN upper halves)", got, want, f32)
+    for n2 in (64, 1):
+        bb = randn(512, n2)
+        got = trigrid.sym_stream(poisoned, bb, bm=32)
+        want = trigrid._sym_stream_plain(clean, bb, 16, 1.0, f32)
+        compare(torch, f"sym_stream poison (NaN upper halves), n2 {n2}",
+                got, want, f32)
+    nan_cases(torch, dev, t, x, y)
 
     slstm_cases(torch, randn, cases["slstm_scan"])
     torch.cuda.synchronize()
     return cases
+
+
+def nan_cases(torch, dev, t, x, y):
+    """A NaN in a live element of an operand reaches the output where the
+    plain version puts it, through every symmetric kernel at the NS
+    shapes: 0/0 made on the card and a NaN with every bit set (bits the
+    TF32 rounding must not carry into a number) in A, the latter in B."""
+    from repro_torch.core.packing import pack_tril_tiles
+    from repro_torch.kernels import trigrid
+    zero = torch.zeros((), device=dev)
+    nan_a = zero / zero
+    nan_b = torch.tensor(-1, dtype=torch.int32, device=dev).view(
+        torch.float32)
+    log(f"[kernels] NaN cases: 0/0 on the card has bits "
+        f"{int(nan_a.view(torch.int32)) & 0xFFFFFFFF:#010x}, B's NaN "
+        f"{int(nan_b.view(torch.int32)) & 0xFFFFFFFF:#010x}")
+    ta, tb = t.clone(), t.clone().T.contiguous()
+    ta[1000, 77] = nan_a
+    ta[600, 1999] = nan_b
+    tb[300, 1500] = nan_b
+    ep = trigrid.Epilogue()
+    for body, b in (("syrk", None), ("syr2k", tb)):
+        got = trigrid.rank_update(body, ta, b, bm=128, epilogue=ep)
+        want = trigrid._rank_update_plain(body, ta, b, 128, ep, None)
+        compare(torch, f"rank_update {body} 2048^2, NaN in a live element",
+                got, want, torch.float32, nans=True)
+    # A: an off-diagonal tile and the lower half of a diagonal tile
+    xa = x.clone()
+    xa[1000, 300] = nan_a
+    xa[130, 129] = nan_b
+    yb = y.clone()
+    yb[5, 77] = nan_b
+    for bm, b in ((128, yb), (32, yb), (128, yb[:, :1].contiguous())):
+        tiles = pack_tril_tiles(xa, bm).contiguous()
+        got = trigrid.sym_stream(tiles, b, bm=bm)
+        want = trigrid._sym_stream_plain(tiles, b, 2048 // bm, 1.0,
+                                         torch.float32)
+        where = "A and B" if bool(torch.isnan(b).any()) else "A"
+        compare(torch, f"sym_stream bm {bm} n2 {b.shape[1]}, NaN in {where}",
+                got, want, torch.float32, nans=True)
+
+
+def tf32_case(torch, got, dense, b):
+    """The tolerance has teeth: at the NS shape one TF32 product
+    (emulated, ``trigrid.matmul_tf32(passes=1)``) misses ``TOL_F32``
+    against the IEEE f32 product, while the kernel (3xTF32) and its
+    emulation meet it.  No global TF32 flag is touched."""
+    from repro_torch.kernels import trigrid
+    want = dense @ b
+    scale = max(1.0, float(want.abs().max()))
+
+    def rel(x):
+        return float((x - want).abs().max()) / scale
+    one, three, kern = rel(trigrid.matmul_tf32(dense, b, 1)), \
+        rel(trigrid.matmul_tf32(dense, b, 3)), rel(got)
+    ok = one > TOL_F32 and three <= TOL_F32 and kern <= TOL_F32
+    log(f"[kernels] 1xTF32 emulation rel {one:.2e} (> {TOL_F32:.0e}), "
+        f"3xTF32 emulation {three:.2e}, kernel {kern:.2e} (<= "
+        f"{TOL_F32:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the 1xTF32 tolerance case failed")
 
 
 def slstm_close(torch, name, got, want, tol):
@@ -363,10 +516,12 @@ def slstm_cases(torch, randn, rows):
                                 SLSTM_STATE_TOL)
                     for k, g, w in zip("cnm", got[1:], want[1:]))
         nbytes = slstm.hbm_traffic_bytes(b, s, d)["fused_bytes"]
-        bound, by = bound_ms(nbytes, SLSTM_OPS_PER_STEP * b * s * d)
+        bound, by = bound_ms(nbytes, SLSTM_OPS_PER_STEP * b * s * d,
+                             tensor=False)
         row = {"case": f"({b}, {s}, {d}) {label}", "main": main,
                "max_abs_err": err, "max_abs_err_state": err_s,
-               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "bound_ms": bound, "bound_by": by, "ffma_bound_ms": bound,
+               "library_ms": None,
                "ms": cuda_ms(torch, lambda: slstm.slstm_scan(*gates, *st)),
                "plain_ms": cuda_ms(torch, lambda: slstm._slstm_scan_plain(
                    *gates, *st))}
@@ -527,6 +682,17 @@ def check_phase(torch):
     g = packed_gram(x)
     w = whitening_from_packed(g, 2048, eps=1e-3, method="ns")
     after = counts.launch_counts()
+    alone = {}
+    for d in (2048, 1024):        # one refresh's NS alone, nothing beside
+        gd = packed_gram(x[:d])
+        whitening_from_packed(gd, d, eps=1e-3, method="ns")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whitening_from_packed(gd, d, eps=1e-3, method="ns")
+        torch.cuda.synchronize()
+        alone[d] = time.perf_counter() - t0
+    log(f"[check] NS whitening alone (host s, ends in a sync): d=2048 "
+        f"{alone[2048]:.4f}  d=1024 {alone[1024]:.4f}")
     we = whitening_from_packed(g, 2048, eps=1e-3, method="eigh")
     rel = float(torch.linalg.norm(w - we) / torch.linalg.norm(we))
     log(f"[check] NS whitening d=2048 vs eigh: rel {rel:.3e} (<= 1e-3); "
@@ -602,6 +768,7 @@ def main() -> int:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
+            "ffma_bound_ms": main_row["ffma_bound_ms"],
             "library_ms": main_row["library_ms"],
             "shape": main_row["case"], "cases": rows})
     log(f"[done] build {build_s:.2f} s, total "

@@ -4,8 +4,11 @@ cache waits).
 
 On the port ``bm`` is the packed tile format the kernels read and write
 (any power of two from 8 to 128); ``bk`` is the contraction padding the
-reference applies before a rank update, and the column padding of B
-before a SYMM (``bn``)."""
+reference applies before a rank update.  For a SYMM the second entry is
+``bn``, the granule B's columns are padded to: the kernels mask ragged
+columns, so B is padded at most to n2 rounded up to 8 (rows stay 32 B
+aligned for the copies) and not at all for n2 <= 8, which the
+matrix-vector kernel takes as it is."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -25,5 +28,6 @@ def heuristic_tiles(op: str, n1: int, n2: int) -> Tiles:
     """Full 128 tiles for big problems, shrink-to-fit powers of two for
     small ones."""
     bm = _round_up_tile(n1)
-    bk = _round_up_tile(n2 if op != "symm" else max(n2, n1))
-    return bm, bk
+    if op == "symm":
+        return bm, 1 if n2 <= 8 else 8
+    return bm, _round_up_tile(n2)

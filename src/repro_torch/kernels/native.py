@@ -32,15 +32,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
-#: C signature of every entry point: (name, argtypes)
+#: C signature of every entry point, by source: {name: argtypes}
 SIGNATURES = {
-    "rank_update.cu": ("repro_rank_update",
-                       [_I, _I, _P, _P, _I, _P, _P, _I, _P, _F, _F, _F, _P,
-                        _I, _P]),
-    "sym_stream.cu": ("repro_sym_stream",
-                      [_I, _P, _P, _I, _I, _P, _P, _F, _P, _I, _P]),
-    "slstm_scan.cu": ("repro_slstm_scan",
-                      [_P, _L, _L, _L] * 4 + [_P] * 7 + [_I, _I, _I, _P]),
+    "rank_update.cu": {
+        "repro_rank_update": [_I, _I, _P, _P, _I, _I, _P, _I, _P, _F, _F,
+                              _F, _P, _I, _P]},
+    "sym_stream.cu": {
+        "repro_sym_stream": [_I, _I, _I, _P, _P, _I, _I, _P, _F, _P, _I,
+                             _P],
+        "repro_sym_stream_narrow": [_I, _P, _P, _I, _I, _P, _P, _F, _P, _P,
+                                    _I, _P]},
+    "slstm_scan.cu": {
+        "repro_slstm_scan": [_P, _L, _L, _L] * 4 + [_P] * 7 + [_I, _I, _I,
+                                                                _P]},
 }
 
 _LOCK = threading.Lock()
@@ -119,11 +123,11 @@ def load() -> Dict[str, ctypes._CFuncPtr]:
                           ptxas="\n".join(reports))
         for src in SOURCES:
             lib = ctypes.CDLL(str(_lib_path(src)))
-            name, argtypes = SIGNATURES[src]
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _FUNCS[name] = fn
+            for name, argtypes in SIGNATURES[src].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _FUNCS[name] = fn
         return _FUNCS
 
 

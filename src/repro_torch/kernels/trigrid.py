@@ -11,10 +11,20 @@ wrapper raises.
 Each wrapper counts its launches in a plain integer attribute
 (``rank_update.launches``, ``sym_stream.launches``), incremented only
 where the kernel is launched, so a run can show that its path went
-through the kernels (``kernels.counts`` reads and resets them).
+through the kernels (``kernels.counts`` reads and resets them).  One
+wrapper call counts one launch, also where it makes two CUDA launches
+(``sym_stream`` at n2 <= ``NARROW_MAX_N2``: partials, then their sums).
+
+The kernels' output blocks are sized for the card, not by the packed
+format ``bm``: the tables that map them onto the packed tiles
+(:func:`rank_blocks`, :func:`symm_subtiles`) are built here, cached, and
+copied to the device once per shape.  :func:`matmul_tf32` emulates the
+kernels' 3xTF32 tensor-core arithmetic in plain PyTorch (tests and
+``chip_smoke.py`` only).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional, Tuple
@@ -27,6 +37,17 @@ from . import native
 
 KERNEL_BMS = (8, 16, 32, 64, 128)
 OUT_DTYPES = (torch.float32, torch.bfloat16)
+#: the contraction depth of one pipeline stage of both kernels (kBK in
+#: csrc/tile_mma.cuh)
+PANEL_K = 32
+#: ``rank_update``'s output block side (kBO in csrc/rank_update.cu)
+RANK_BLOCK = 64
+#: ``sym_stream``'s output blocks (rows, columns), in order of preference
+SYMM_BLOCKS = ((128, 128), (64, 64))
+#: widest B that ``sym_stream`` multiplies with its matrix-vector kernel,
+#: and the tile rows one of its blocks reads (kSlab in csrc/sym_stream.cu)
+NARROW_MAX_N2 = 8
+NARROW_SLAB = 32
 
 
 # --------------------------------------------------------------------------
@@ -60,10 +81,121 @@ def symm_lookup(nt: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_tables(kind: str, nt: int, device: str
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    pair = tri_coords(nt) if kind == "tri" else symm_lookup(nt)
-    return tuple(torch.as_tensor(np.array(x), device=device) for x in pair)
+def rank_blocks(nt: int, bm: int) -> np.ndarray:
+    """``rank_update``'s block table for an (nt·bm)² lower triangle cut
+    into bo × bo output blocks (bo = RANK_BLOCK): int32 rows (row0, col0),
+    one per block (I, J) with I ≥ J.
+
+    The kernel writes each element (r, c) of a block with r, c < n1 to
+    packed tile (r // bm, c // bm) at (r % bm, c % bm) when
+    r // bm ≥ c // bm.  Where bo < bm, a block with I > J inside one
+    diagonal tile also stores the zeros of its mirror image (c, r): the
+    strict upper half that no block computes."""
+    n1, bo = nt * bm, RANK_BLOCK
+    nb = -(-n1 // bo)
+    rows = [(i * bo, j * bo) for i in range(nb) for j in range(i + 1)]
+    out = np.ascontiguousarray(rows, dtype=np.int32).reshape(-1, 2)
+    out.setflags(write=False)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def symm_subtiles(nt: int, bm: int, rows: int) -> np.ndarray:
+    """``sym_stream``'s sub-tile table for ``rows``-row output blocks:
+    for each block I, each PANEL_K-deep contraction panel p and each
+    h × w sub-tile (s, cs) of that panel (h = min(bm, rows),
+    w = min(bm, PANEL_K)), the packed tile and mode from
+    :func:`symm_lookup` as ``flat << 2 | mode``; mode 3 marks a sub-tile
+    past the matrix edge (staged as zeros).  Shape (n_blocks, n_panels,
+    rows // h, PANEL_K // w), int32."""
+    n1 = nt * bm
+    h, w = min(bm, rows), min(bm, PANEL_K)
+    nb, npan = -(-n1 // rows), -(-n1 // PANEL_K)
+    sr, sc = rows // h, PANEL_K // w
+    flat, mode = symm_lookup(nt)
+    ti = ((np.arange(nb)[:, None] * rows + np.arange(sr)[None, :] * h)
+          // bm)[:, None, :, None]
+    tk = ((np.arange(npan)[:, None] * PANEL_K + np.arange(sc)[None, :] * w)
+          // bm)[None, :, None, :]
+    ti, tk = np.broadcast_arrays(ti, tk)
+    inside = (ti < nt) & (tk < nt)
+    idx = np.where(inside, ti * nt + tk, 0)
+    codes = np.where(inside, (flat[idx] << 2) | mode[idx], 3)
+    codes = np.ascontiguousarray(codes, dtype=np.int32)
+    codes.setflags(write=False)
+    return codes
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(kind: str, nt: int, device: str, bm: int = 0,
+                   rows: int = 0) -> Tuple[torch.Tensor, ...]:
+    if kind == "tri":
+        arrays = tri_coords(nt)
+    elif kind == "symm":
+        arrays = symm_lookup(nt)
+    elif kind == "blocks":
+        arrays = (rank_blocks(nt, bm),)
+    else:
+        arrays = (symm_subtiles(nt, bm, rows),)
+    return tuple(torch.as_tensor(np.array(x), device=device) for x in arrays)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: str) -> int:
+    return torch.cuda.get_device_properties(
+        torch.device(device)).multi_processor_count
+
+
+def symm_block(n1: int, n2: int, sms: int) -> Tuple[int, int]:
+    """``sym_stream``'s output block (rows, columns) for C (n1, n2) on a
+    card with ``sms`` SMs: the first of SYMM_BLOCKS whose blocks fill a
+    wave of the SMs, else the last."""
+    for rows, cols in SYMM_BLOCKS:
+        if -(-n1 // rows) * -(-n2 // cols) >= sms:
+            return rows, cols
+    return SYMM_BLOCKS[-1]
+
+
+# --------------------------------------------------------------------------
+# the kernels' tensor-core arithmetic, emulated (tests, chip_smoke.py)
+# --------------------------------------------------------------------------
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 explicit mantissa bits), ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds, by the kernels' own
+    bit operation (``rna_tf32`` in csrc/tile_mma.cuh): add half an ulp,
+    clear the low 13 bits.  A NaN may come out as a number (0x7FFFFFFF
+    as -0); :func:`matmul_tf32` keeps it in the small part."""
+    x = x.float().contiguous()
+    u = x.view(torch.int32).long() & 0xFFFFFFFF          # as uint32
+    bits = (u + 0x1000) & 0xFFFFE000
+    bits = bits - ((bits >> 31) << 32)                   # back to int32
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 value the tensor cores read from an f32 operand: its top
+    19 bits (the low 13 cleared, toward zero).  A quiet NaN, which every
+    NaN-making f32 operation yields, stays a NaN."""
+    bits = x.float().contiguous().view(torch.int32) & -0x2000
+    return bits.view(torch.float32)
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor,
+                passes: int = 3) -> torch.Tensor:
+    """a @ b as the kernels' tensor cores compute it, in IEEE f32
+    products and sums: ``passes=3`` splits each operand into
+    big = tf32(x), rounded, and small = x − big, which the tensor cores
+    truncate (a NaN x makes small NaN, whatever big became), and adds
+    small·big′ + big·small′ + big·big′ (3xTF32);
+    ``passes=1`` is one TF32 product, tf32(a)·tf32(b), which the port
+    does not use."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = tf32_truncate(a - a_big), tf32_truncate(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
 
 
 # --------------------------------------------------------------------------
@@ -115,6 +247,20 @@ def _check_cuda(x: torch.Tensor, bm: int, out_dtype) -> None:
         if out_dtype not in OUT_DTYPES:
             raise TypeError(f"kernel output dtype {out_dtype} not in "
                             f"{OUT_DTYPES}")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x itself when its data is 16 B-aligned (the kernels' cp.async and
+    float4 loads need it), else a fresh copy, which is."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _on(device: torch.device):
+    """The device's context, or none when it is already current (the
+    common case: entering a device context costs host time per call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _stream(device: torch.device) -> int:
@@ -177,12 +323,12 @@ def rank_update(body: str, a: torch.Tensor, b: Optional[torch.Tensor] = None,
         return _rank_update_plain(body, a, b, bm, ep, c0)
 
     fn = native.load()["repro_rank_update"]
-    imap, jmap = _device_tables("tri", nt, str(a.device))
+    blocks, = _device_tables("blocks", nt, str(a.device), bm)
     out = torch.empty((T, bm, bm), dtype=ep.out_dtype, device=a.device)
-    with torch.cuda.device(a.device):
+    with _on(a.device):
         rc = fn(0 if body == "syrk" else 1, bm, a.data_ptr(),
-                None if b is None else b.data_ptr(), n2, imap.data_ptr(),
-                jmap.data_ptr(), T,
+                None if b is None else b.data_ptr(), n1, n2,
+                blocks.data_ptr(), blocks.shape[0],
                 c0.data_ptr() if ep.accumulate else None,
                 ep.alpha, ep.beta if ep.accumulate else 0.0, ep.diag_scale,
                 out.data_ptr(), int(ep.out_dtype == torch.bfloat16),
@@ -234,9 +380,10 @@ def sym_stream(a_tiles: torch.Tensor, b: torch.Tensor, *, bm: int,
                out_dtype=torch.float32,
                diag_scale: float = 1.0) -> torch.Tensor:
     """C = sym_s(A)·B with A as packed lower-triangle tiles
-    (T, bm, bm) f32 (diagonal tiles tril-valid: their upper halves are
-    never read) and B (n1, n2) f32, n1 = nt·bm.  Returns (n1, n2) in
-    ``out_dtype`` (f32 accumulation)."""
+    (T, bm, bm) f32 (diagonal tiles tril-valid: their upper halves never
+    reach the result) and B (n1, n2) f32, n1 = nt·bm.  Returns (n1, n2)
+    in ``out_dtype`` (f32 accumulation).  On the card, n2 <= 8 runs the
+    matrix-vector kernel, wider B the tensor-core kernel."""
     n1, n2 = b.shape
     if n1 % bm:
         raise ValueError(f"n1={n1} is not a multiple of bm={bm}")
@@ -252,15 +399,29 @@ def sym_stream(a_tiles: torch.Tensor, b: torch.Tensor, *, bm: int,
     if b.device.type == "cpu":
         return _sym_stream_plain(a_tiles, b, nt, diag_scale, out_dtype)
 
-    fn = native.load()["repro_sym_stream"]
-    flat, mode = _device_tables("symm", nt, str(b.device))
+    funcs = native.load()
+    dev = str(b.device)
+    a_tiles = _aligned(a_tiles)
     out = torch.empty((n1, n2), dtype=out_dtype, device=b.device)
-    with torch.cuda.device(b.device):
-        rc = fn(bm, a_tiles.data_ptr(), b.data_ptr(), nt, n2,
-                flat.data_ptr(), mode.data_ptr(), diag_scale,
-                out.data_ptr(), int(out_dtype == torch.bfloat16),
+    bf16 = int(out_dtype == torch.bfloat16)
+    with _on(b.device):
+        if n2 <= NARROW_MAX_N2:
+            imap, jmap = _device_tables("tri", nt, dev)
+            slabs = bm // min(bm, NARROW_SLAB)    # U, then V per slab
+            part = torch.empty((a_tiles.shape[0], 1 + slabs, bm, n2),
+                               dtype=torch.float32, device=b.device)
+            rc = funcs["repro_sym_stream_narrow"](
+                bm, a_tiles.data_ptr(), b.data_ptr(), nt, n2,
+                imap.data_ptr(), jmap.data_ptr(), diag_scale,
+                part.data_ptr(), out.data_ptr(), bf16, _stream(b.device))
+        else:
+            rows, cols = symm_block(n1, n2, _sm_count(dev))
+            sub, = _device_tables("subtiles", nt, dev, bm, rows)
+            rc = funcs["repro_sym_stream"](
+                bm, rows, cols, a_tiles.data_ptr(), b.data_ptr(), nt, n2,
+                sub.data_ptr(), diag_scale, out.data_ptr(), bf16,
                 _stream(b.device))
-    native.check(rc, f"sym_stream[bm={bm}]")
+    native.check(rc, f"sym_stream[bm={bm}, n2={n2}]")
     native.count_launch(sym_stream)
     return out
 

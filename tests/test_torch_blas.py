@@ -126,14 +126,14 @@ def test_routing():
     r = tb.plan_route("syrk", 16, 8, device=cpu, tile=(8, 8))
     assert (r.path, r.tiles) == ("kernel", (8, 8))
     assert tb.plan_route("symm", 64, 64, device=cpu, kernel=True).tiles \
-        == (64, 64)
+        == (64, 8)                        # B padded to a multiple of 8
     cuda = torch.device("cuda")           # planning never touches a device
     assert tb.plan_route("syrk", KERNEL_MIN_N1, 64,
                          device=cuda).path == "kernel"
     assert tb.plan_route("syrk", KERNEL_MIN_N1 - 1, 64,
                          device=cuda).path == "dense"
     r = tb.plan_route("symm", 2048, 1, device=cuda)
-    assert r.tiles == (128, 128)          # n2 = 1 padded to 128 columns
+    assert r.tiles == (128, 1)            # n2 = 1 not padded
     with tb.capture_routes() as log:
         tb.syrk(torch.ones(8, 4), fill="packed")
     assert [x.op for x in log] == ["syrk"]
