@@ -19,7 +19,13 @@ Phases (any failure exits non-zero):
              one exists, one PyTorch call computing the same function
              (``torch.matmul``; none for the sLSTM recurrence), and the
              embedding and Gram update also inside a CUDA graph (device
-             time without the host);
+             time without the host).  ``slstm_scan`` runs f32 and bf16
+             gates in the mixer's quad layout and in other views, its
+             edges (S = 1, S below the ring's lookahead, S not a
+             multiple of the step group, ragged d, n0 in (0, 1)) and a
+             long single prefill, every case also in a CUDA graph,
+             beside its byte bound and an issue bound read from the
+             SASS of its step loop;
 4. serve   — serves stablelm-1.6b at full width (24 layers, d_model
              2048, vocab 100352; random weights from a seed) with the
              whitening cache on, and asserts that every request
@@ -28,9 +34,11 @@ Phases (any failure exits non-zero):
 5. xlstm   — serves xlstm-350m at full width (24 layers, d_model 1024,
              vocab 50304, 6 sLSTM layers; random weights from a seed)
              the same way, and asserts that ``slstm_scan`` launched
-             exactly 6 times per model forward the server ran, and both
-             symmetric kernels launched; then times one prefill per
-             block kind (host clock, a sync after every block);
+             exactly 6 times per model forward the server ran, always
+             on the mixer's bf16 quad views and never through its plain
+             version, and both symmetric kernels launched; then times
+             one prefill per block kind (host clock, a sync after every
+             block);
 6. check   — reduced stablelm and xlstm models on the card against the
              same weights on the CPU, and the full-width Newton–Schulz
              whitening on the kernels against the eigh oracle, then
@@ -44,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -89,19 +98,22 @@ def log(*a):
     print(*a, flush=True)
 
 
-def smi() -> str:
+def smi(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip() \
+        .splitlines()[0]
 
 
 # --------------------------------------------------------------------------
 # phase 1: probe
 # --------------------------------------------------------------------------
-def probe(torch) -> str:
+def probe(torch):
+    """The card's name and power limit, and its highest SM clock in MHz
+    (the issue rate of the sLSTM kernel's bound)."""
     card = smi()
-    log(f"[probe] gpu: {card}")
+    clock = float(smi("clocks.max.sm").split()[0])
+    log(f"[probe] gpu: {card}, max SM clock {clock:.0f} MHz")
     log(f"[probe] python {sys.version.split()[0]}  torch {torch.__version__}"
         f"  cuda {torch.version.cuda}  device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -114,7 +126,7 @@ def probe(torch) -> str:
         log(f"[probe] triton {triton.__version__}")
     except ImportError:
         log("[probe] triton not importable")
-    return card
+    return card, clock
 
 
 # --------------------------------------------------------------------------
@@ -203,7 +215,7 @@ def compare(torch, name, got, want, out_dtype, nans=False):
     return err
 
 
-def kernel_phase(torch):
+def kernel_phase(torch, card_clock_mhz):
     from repro_torch.core.packing import TriTiles, pack_tril_tiles
     from repro_torch.kernels import trigrid
 
@@ -400,7 +412,7 @@ def kernel_phase(torch):
                 got, want, f32)
     nan_cases(torch, dev, t, x, y)
 
-    slstm_cases(torch, randn, cases["slstm_scan"])
+    slstm_cases(torch, randn, cases["slstm_scan"], card_clock_mhz)
     torch.cuda.synchronize()
     return cases
 
@@ -473,61 +485,215 @@ def slstm_close(torch, name, got, want, tol):
     ok = bool((diff <= tol * (1 + want.abs())).all()) and \
         bool(torch.isfinite(got).all())
     err = float(diff.max())
-    log(f"[kernels] {name:44s} max_abs_err {err:.3e} (<= {tol:.0e}·(1+|x|))"
+    log(f"[kernels] {name:60s} max_abs_err {err:.3e} (<= {tol:.0e}·(1+|x|))"
         f" {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"kernel {name} disagrees with its plain version")
     return err
 
 
-def slstm_cases(torch, randn, rows):
-    """``slstm_scan`` against its plain version.  The gates are the four
-    d-major views of one (B, S, d, 4) pre-activation, as the serving
-    mixer hands them in (channel stride 4), input/forget gates scaled by
-    2.5 as in the reference kernel test; the last case copies them
-    apart into contiguous tensors."""
-    from repro_torch.kernels import slstm
+def resource_usage(lib: str) -> dict:
+    """{kernel: (registers, static shared bytes, local bytes)} from
+    ``cuobjdump -res-usage`` of a built library (local memory holds any
+    spills)."""
+    from pathlib import Path
+    from repro_torch.kernels import native
+    tool = str(Path(native.nvcc_path()).parent / "cuobjdump")
+    text = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                          text=True, check=True).stdout
+    table, name = {}, None
+    for ln in text.splitlines():
+        ln = ln.strip()
+        if ln.startswith("Function "):
+            name = ln[len("Function "):].rstrip(":")
+        elif ln.startswith("REG:") and name:
+            f = dict(kv.split(":", 1) for kv in ln.split() if ":" in kv)
+            table[name] = (int(f["REG"]), int(f.get("SHARED", 0)),
+                           int(f.get("LOCAL", 0)))
+            name = None
+    return table
 
-    def state(b, d, warm):
-        if warm:
-            return (randn(b, d), 1.0 + randn(b, d).abs(), randn(b, d))
-        return (torch.zeros(b, d, device=DEVICE),
-                torch.ones(b, d, device=DEVICE),
-                torch.zeros(b, d, device=DEVICE))
 
+def sass_loop_sizes(lib: str) -> dict:
+    """{kernel: instructions in its longest innermost loop} from
+    ``cuobjdump -sass`` of a built library: a loop is a branch back to a
+    lower address, innermost if no other loop lies inside it, and its
+    size counts every instruction between target and branch (both sides
+    of any branch inside; subroutines called from it excluded)."""
+    from pathlib import Path
+    from repro_torch.kernels import native
+    tool = str(Path(native.nvcc_path()).parent / "cuobjdump")
+    return loop_sizes(subprocess.run([tool, "-sass", lib],
+                                     capture_output=True, text=True,
+                                     check=True).stdout)
+
+
+def loop_sizes(text: str) -> dict:
+    """``sass_loop_sizes`` of cuobjdump's text."""
+    sizes, fn, labels, branches, pending = {}, None, {}, [], []
+
+    def close():
+        if fn:
+            loops = {(labels.get(t, t), a) for a, t in branches
+                     if isinstance(labels.get(t, t), int) and
+                     labels.get(t, t) <= a}
+            inner = [(a - t) // 16 + 1 for t, a in loops
+                     if not any(o != (t, a) and t <= o[0] and o[1] <= a
+                                for o in loops)]
+            sizes[fn] = max(inner, default=0)
+    for ln in text.splitlines():
+        ln = ln.strip()
+        if ln.startswith("Function :"):
+            close()
+            fn, labels, branches, pending = ln.split(":", 1)[1].strip(), \
+                {}, [], []
+        elif ln.startswith(".L") and ln.endswith(":"):
+            pending.append(ln[:-1])
+        elif ln.startswith("/*") and "*/" in ln and fn:
+            head = ln[2:ln.index("*/")]
+            try:
+                addr = int(head, 16)
+            except ValueError:
+                continue
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            body = ln[ln.index("*/") + 2:].split(";")[0]
+            if re.search(r"\bBRA\b", body):    # target: the last operand
+                tgt = body.split("BRA", 1)[1].split(",")[-1]
+                lab = re.search(r"\((\.L\w+)\)", tgt)
+                num = re.search(r"0x[0-9a-fA-F]+", tgt)
+                if lab or num:
+                    branches.append((addr, lab.group(1) if lab else
+                                     int(num.group(0), 16)))
+    close()
+    return sizes
+
+
+#: steps in one iteration of the kernel's step loop (kGroup)
+SLSTM_GROUP = 8
+
+
+def slstm_issue(card_clock_mhz):
+    """Instructions per step of the kernel (quad layout, f32 and bf16
+    gates) from the SASS of its loop body, and the ms a B·S·d scan needs
+    to issue them: instructions a step × steps / 32 lanes / (132 SMs × 4
+    schedulers × clock)."""
+    from repro_torch.kernels import native
+    sizes = sass_loop_sizes(str(native._lib_path("slstm_scan.cu")))
+    for k, v in sizes.items():
+        if "slstm_kernel" in k:
+            log(f"[kernels] SASS {k[-24:]}: longest innermost loop {v} "
+                f"instructions")
+    per_step = {}
+    for tag, key in (("F32", "f32"), ("BF16", "bf16")):
+        found = [v for k, v in sizes.items() if "slstm_kernel" in k and
+                 re.search(rf"{len(tag)}{tag}E?Lb1E", k)]
+        if len(found) != 1 or not found[0]:
+            raise SystemExit(f"no step loop of the {key} quad kernel in "
+                             f"the SASS: {sizes}")
+        per_step[key] = found[0] / SLSTM_GROUP
+    log(f"[kernels] slstm_scan, SASS of the step loop: "
+        f"{per_step} instructions a step (step loop / {SLSTM_GROUP}; "
+        f"issue at {card_clock_mhz} MHz)")
+    rate = 132 * 4 * card_clock_mhz * 1e6          # warp instructions / s
+
+    def issue_ms(dtype, steps):
+        return per_step[dtype] * steps / 32 / rate * 1e3
+    return per_step, issue_ms
+
+
+#: (B, S, d, gate dtype, layout, state, label).  "quad": the four views of
+#: one (B, S, d, 4) tensor, as the serving mixer hands them; "separate":
+#: four contiguous tensors; "gate-major": views of a (B, S, 4, d) tensor.
+#: The kernel runs 8 steps at a time and its ring 24 steps ahead.
+SLSTM_CASES = (
+    (1, 64, 1024, "bf16", "quad", "cold", "prefill bucket 64"),
+    (1, 256, 1024, "bf16", "quad", "cold", "prefill bucket 256"),
+    (4, 1, 1024, "bf16", "quad", "warm", "decode, 4 slots (S = 1)"),
+    (16, 4096, 1024, "bf16", "quad", "warm", "reference traffic shape"),
+    (1, 64, 1024, "f32", "quad", "cold", "prefill bucket 64"),
+    (4, 1, 1024, "f32", "quad", "warm", "decode, 4 slots"),
+    (2, 96, 256, "f32", "quad", "warm", "S not a power of two"),
+    (16, 4096, 1024, "f32", "quad", "warm", "reference traffic shape"),
+    (2, 96, 256, "f32", "separate", "warm", "general path"),
+    (2, 96, 256, "bf16", "gate-major", "warm", "general path"),
+    (2, 5, 256, "bf16", "quad", "warm", "S below the ring's lookahead"),
+    (2, 99, 200, "bf16", "quad", "warm", "S not a multiple of 8, ragged d"),
+    (2, 100, 256, "f32", "quad", "n0<1", "n0 in (0, 1)"),
+    (2, 100, 256, "f32", "separate", "n0<1", "n0 in (0, 1), general path"),
+    (1, 4096, 1024, "bf16", "quad", "warm", "long single prefill"),
+)
+SLSTM_MAIN = 0          # the serve's prefill: the kernels line's row
+
+
+def slstm_cases(torch, randn, rows, card_clock_mhz):
+    """``slstm_scan`` against its plain version (on the f32 upcast of the
+    same gates), input/forget gates scaled by 2.5 as in the reference
+    kernel test; each case timed back to back, inside a CUDA graph
+    (device time) and as the plain version."""
+    from repro_torch.kernels import native, slstm
+    ring = native.load()["repro_slstm_ring_bytes"]
+    usage = resource_usage(str(native._lib_path("slstm_scan.cu")))
+    if sum("slstm_kernel" in k for k in usage) != 4:
+        raise SystemExit(f"not the 4 slstm_scan kernels' resources: {usage}")
+    for k, (regs, smem, local) in usage.items():
+        if "slstm_kernel" in k:
+            dyn = ring(int("BF16" in k)) if "Lb1E" in k else 0
+            log(f"[build] {k}: {regs} registers, {smem} B static smem "
+                f"(+ {dyn} B ring), {local} B local (spills)")
+    _, issue_ms = slstm_issue(card_clock_mhz)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     scale = torch.tensor([1.0, 2.5, 2.5, 1.0], device=DEVICE)
-    for b, s, d, warm, contiguous, label, main in (
-            (1, 64, 1024, False, False, "prefill bucket 64, cold (n0 = 1)",
-             True),
-            (4, 1, 1024, True, False, "decode, 4 slots, warm", False),
-            (2, 96, 256, True, False, "S not a power of two, warm", False),
-            (16, 4096, 1024, True, False, "reference traffic shape, warm",
-             False),
-            (2, 96, 256, True, True, "contiguous gates, warm", False)):
-        gates = (randn(b, s, d, 4) * scale).unbind(-1)
-        if contiguous:
-            gates = [g.contiguous() for g in gates]
-        st = state(b, d, warm)
-        name = f"slstm_scan ({b}, {s}, {d}) {label}"
-        got = slstm.slstm_scan(*gates, *st)
-        want = slstm._slstm_scan_plain(*gates, *st)
+    for i, (b, s, d, dt, layout, kind, label) in enumerate(SLSTM_CASES):
+        pre = (randn(b, s, d, 4) * scale).to(dtypes[dt])
+        if layout == "quad":
+            gates = pre.unbind(-1)
+        elif layout == "separate":
+            gates = [g.contiguous() for g in pre.unbind(-1)]
+        else:
+            gates = pre.permute(0, 1, 3, 2).contiguous().unbind(2)
+        if kind == "cold":
+            st = (torch.zeros(b, d, device=DEVICE),
+                  torch.ones(b, d, device=DEVICE),
+                  torch.zeros(b, d, device=DEVICE))
+        elif kind == "warm":
+            st = (randn(b, d), 1.0 + randn(b, d).abs(), randn(b, d))
+        else:
+            st = (0.3 * randn(b, d), 0.05 + 0.9 * torch.rand(
+                b, d, device=DEVICE), randn(b, d))
+
+        def run(gates=gates, st=st):
+            return slstm.slstm_scan(*gates, *st)
+        f32_gates = [g.float() for g in gates]
+        name = f"slstm_scan ({b}, {s}, {d}) {dt} {layout} {label}"
+        assert (slstm._quad_base(gates) is not None) == (layout == "quad")
+        got = run()
+        want = slstm._slstm_scan_plain(*f32_gates, *st)
         err = slstm_close(torch, name + " y", got[0], want[0], SLSTM_Y_TOL)
         err_s = max(slstm_close(torch, f"{name} {k}1", g, w,
                                 SLSTM_STATE_TOL)
                     for k, g, w in zip("cnm", got[1:], want[1:]))
-        nbytes = slstm.hbm_traffic_bytes(b, s, d)["fused_bytes"]
-        bound, by = bound_ms(nbytes, SLSTM_OPS_PER_STEP * b * s * d,
+        del want
+        steps = b * s * d
+        nbytes = steps * (4 * pre.element_size() + 4) + 6 * b * d * 4
+        bound, by = bound_ms(nbytes, SLSTM_OPS_PER_STEP * steps,
                              tensor=False)
-        row = {"case": f"({b}, {s}, {d}) {label}", "main": main,
-               "max_abs_err": err, "max_abs_err_state": err_s,
-               "bound_ms": bound, "bound_by": by, "ffma_bound_ms": bound,
-               "library_ms": None,
-               "ms": cuda_ms(torch, lambda: slstm.slstm_scan(*gates, *st)),
+        row = {"case": f"({b}, {s}, {d}) {dt} {layout} {label}",
+               "main": i == SLSTM_MAIN, "dtype": dt, "layout": layout,
+               "max_abs_err": err,
+               "max_abs_err_state": err_s, "bound_ms": bound,
+               "bound_by": by, "ffma_bound_ms": bound,
+               "issue_bound_ms": issue_ms(dt, steps), "library_ms": None,
+               "ms": cuda_ms(torch, run),
+               "device_ms": graph_ms(torch, run,
+                                     reps=10 if steps > 1e7 else 50),
                "plain_ms": cuda_ms(torch, lambda: slstm._slstm_scan_plain(
-                   *gates, *st))}
-        log(f"[kernels]   ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}"
-            f"  library none  bound {bound:.4f} ({by}; S = {s} dependent "
-            f"steps also set a latency floor)")
+                   *f32_gates, *st))}
+        log(f"[kernels]   ms {row['ms']:.4f}  device "
+            f"{row['device_ms']:.4f}  plain {row['plain_ms']:.4f}  library "
+            f"none  bound {bound:.4f} ({by})  issue bound "
+            f"{row['issue_bound_ms']:.4f}")
         rows.append(row)
 
 
@@ -551,8 +717,10 @@ def run_serve(torch, arch):
     log(f"{tag} {out['arch']} layers {out['layers']} d_model "
         f"{out['d_model']} vocab {out['vocab']} on {out['device']}")
     log(f"{tag} completed {out['completed']}/{out['requests']}  tokens/s "
-        f"{out['tokens_per_s']:.2f}  ttft p50 {out['p50_ttft_s']:.4f} s "
-        f"p99 {out['p99_ttft_s']:.4f} s  startup {out['startup_s']:.2f} s")
+        f"{out['tokens_per_s']:.2f}  ttft (embedding included) mean "
+        f"{out['mean_ttft_s']:.4f} p50 {out['p50_ttft_s']:.4f} s p99 "
+        f"{out['p99_ttft_s']:.4f} s  latency mean {out['mean_latency_s']:.4f}"
+        f" s  startup {out['startup_s']:.2f} s")
     log(f"{tag} host s (each ends in a sync): serve {out['serve_s']:.4f}"
         f"  prefill {out['prefill_s']:.4f}  embed {out['embed_s']:.4f}"
         f"  decode {out['decode_s']:.4f} over {out['decode_steps']} steps")
@@ -584,7 +752,26 @@ def xlstm_phase(torch):
     cfg = get_config("xlstm-350m")
     n_slstm = sum(cfg.pattern[i % cfg.period].mixer == "slstm"
                   for i in range(cfg.n_layers))
-    out, launches = run_serve(torch, "xlstm-350m")
+    from repro_torch.kernels import slstm
+    from repro_torch.models import ssm
+    seen = set()
+    scan, plain = ssm.slstm_scan, slstm._slstm_scan_plain
+
+    def spy(*args, **kw):            # the gates the mixer hands the kernel
+        seen.add((str(args[0].dtype), slstm._quad_base(args[:4])
+                  is not None))
+        return scan(*args, **kw)
+
+    def guard(*args):
+        assert not args[0].is_cuda, "a CUDA tensor reached the plain scan"
+        return plain(*args)
+    ssm.slstm_scan, slstm._slstm_scan_plain = spy, guard
+    try:
+        out, launches = run_serve(torch, "xlstm-350m")
+    finally:
+        ssm.slstm_scan, slstm._slstm_scan_plain = scan, plain
+    log(f"[xlstm] slstm_scan gates (dtype, quad views): {sorted(seen)}")
+    assert seen == {("torch.bfloat16", True)}, seen
     assert (out["layers"], out["d_model"], out["vocab"]) == (24, 1024,
                                                              50304)
     assert n_slstm == 6
@@ -748,9 +935,9 @@ def main() -> int:
     from repro_torch.device import ieee_f32
     ieee_f32()
     t_start = time.perf_counter()
-    card = probe(torch)
+    card, clock = probe(torch)
     build_s = build()
-    cases = kernel_phase(torch)
+    cases = kernel_phase(torch, clock)
     _, launches = serve_phase(torch)
     xout, xlaunches = xlstm_phase(torch)
     check_phase(torch)

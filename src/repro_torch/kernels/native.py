@@ -43,8 +43,11 @@ SIGNATURES = {
         "repro_sym_stream_narrow": [_I, _P, _P, _I, _I, _P, _P, _F, _P, _P,
                                     _I, _P]},
     "slstm_scan.cu": {
-        "repro_slstm_scan": [_P, _L, _L, _L] * 4 + [_P] * 7 + [_I, _I, _I,
-                                                                _P]},
+        "repro_slstm_scan_quad": [_I, _P, _L, _L] + [_P] * 5 + [_I] * 3
+        + [_P],
+        "repro_slstm_scan": [_I] + [_P, _L, _L, _L] * 4 + [_P] * 5
+        + [_I] * 3 + [_P],
+        "repro_slstm_ring_bytes": [_I]},
 }
 
 _LOCK = threading.Lock()

@@ -183,11 +183,14 @@ class Server:
             for name in dst:
                 dst[name][slot] = src[name][0]
         nxt = int(torch.argmax(logits[0, -1]))
-        req.first_token_t = t1 = time.perf_counter()
+        t1 = time.perf_counter()
         self.timing["prefill_s"] += t1 - t0
         if self.whiten != "off":
             self._embed(req, out[2], L)
             self.timing["embed_s"] += time.perf_counter() - t1
+        # as the reference: stamped once the admit's statistics are done,
+        # so a request's TTFT includes its embedding
+        req.first_token_t = time.perf_counter()
         req.generated.append(nxt)
         self.live[slot] = req
         self.pos[slot] = L
@@ -290,8 +293,11 @@ def serve(args, device: DeviceLike = None) -> Dict:
            "completed": len(done), "decode_steps": steps,
            "total_new_tokens": toks, "tokens_per_s": toks / (t1 - t0),
            "startup_s": t0 - t_build,
+           "mean_ttft_s": float(np.mean(ttfts)) if ttfts else None,
            "p50_ttft_s": pct(ttfts, 50), "p99_ttft_s": pct(ttfts, 99),
+           "mean_latency_s": float(np.mean(lats)) if lats else None,
            "p50_latency_s": pct(lats, 50), "p99_latency_s": pct(lats, 99),
+           "bucket_ladder": srv.bucket_ladder(),
            "serve_s": t1 - t0, **srv.timing,
            "model_forwards": srv.forwards,
            "warmup_forwards": warmup_forwards,

@@ -3,8 +3,9 @@ memory).  Port of the xLSTM half of :mod:`repro.models.ssm`; Mamba
 waits.
 
 Both share the attention mixer's calling convention and run eagerly.
-Projections are bf16 (``x @ W``) and cast to f32 before the recurrence,
-as in the reference.  State layouts (per layer, batch on dim 0, f32):
+Projections are bf16 (``x @ W``) and become f32 before the recurrence,
+as in the reference (sLSTM: inside ``slstm_scan``, which takes the bf16
+gates).  State layouts (per layer, batch on dim 0, f32):
 
   mlstm : C (B, H, hd, hd), n (B, H, hd), m (B, H)
   slstm : c, n, m (B, d)
@@ -186,9 +187,10 @@ def slstm_mixer(cfg: ArchConfig, p, x: torch.Tensor,
     """``p`` holds wx (d, 4d) and wo (d, d), bf16."""
     b, s, d = x.shape
     # d-major gate layout, as the reference: (B,S,4d) -> (B,S,d,4), gate
-    # g is channel stride 4 at offset g; the four strided views go into
-    # the kernel as they are
-    pre = (x @ p.wx).reshape(b, s, d, 4).float()
+    # g is channel stride 4 at offset g; the four strided bf16 views go
+    # into the kernel as they are (it reads one quad a step and upcasts in
+    # registers; on the CPU the wrapper upcasts the quads to f32)
+    pre = (x @ p.wx).reshape(b, s, d, 4)
     z, ig, fg, og = pre.unbind(-1)
     st = state if state is not None else slstm_state_init(cfg, b, x.device)
     ys, c, n, m = slstm_scan(z, ig, fg, og, st["c"], st["n"], st["m"])

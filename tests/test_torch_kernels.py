@@ -190,3 +190,29 @@ def test_dense_oracles_match_reference(op):
         got = tref.symm_ref(torch.tensor(a), torch.tensor(b))
         want = jref.symm_ref(jnp.asarray(a), jnp.asarray(b))
     _close(got, want, F32)
+
+
+def _kernel_ab():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "kernel_ab.py")
+    spec = importlib.util.spec_from_file_location("kernel_ab", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+KERNEL_AB = _kernel_ab()
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_AB.VARIANTS))
+def test_kernel_ab_variants_edit_the_sources(name):
+    """Every source variant ``tools/kernel_ab.py`` times finds each of its
+    texts exactly once in the kernels' sources, and changes them."""
+    from repro_torch.kernels import native
+    edits = KERNEL_AB.VARIANTS[name]
+    texts = KERNEL_AB.variant_sources(native.CSRC, edits)
+    assert set(texts) == set(edits)
+    for f, text in texts.items():
+        assert text != (native.CSRC / f).read_text()
