@@ -42,7 +42,23 @@ Phases (any failure exits non-zero):
 6. check   — reduced stablelm and xlstm models on the card against the
              same weights on the CPU, and the full-width Newton–Schulz
              whitening on the kernels against the eigh oracle, then
-             timed alone at d = 2048 and 1024.
+             timed alone at d = 2048 and 1024;
+7. train   — ``rank_update`` (SYRK, with and without the accumulate
+             epilogue) and ``sym_stream`` on stacks of 4 matrices at the
+             Muon shapes against their plain versions, each matrix bit
+             for bit against its own launch, timed against 4 launches
+             and ``torch.bmm``; autodiff through ``blas.syrk`` /
+             ``syr2k`` / ``symm`` (every fill) on the kernels against the
+             dense IEEE route; one Muon NS of a (24, 2048, 5632) momentum
+             on the kernels against the plain versions, and one of each
+             leaf shape of the model, timed (where the optimizer's time
+             goes); then trains stablelm-1.6b at full width (24 layers,
+             d_model 2048, d_ff 5632, vocab 100352; random bf16 init from
+             seed 0; 8 x 256 tokens a step) for 6 Muon steps and 2 AdamW
+             steps, printing the losses, the split of each step,
+             tokens/s, peak memory, the kernels' launches a step and the
+             captured routes, and asserting that every NS SYRK / SYMM
+             with n1 >= 256 ran on the kernels, one launch per blas call.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -51,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -927,6 +944,318 @@ def xlstm_check(torch):
     assert launched == 5, launched
 
 
+# --------------------------------------------------------------------------
+# phase 7: train stablelm-1.6b at full width with Muon on the kernels
+# --------------------------------------------------------------------------
+#: the Muon NS check's bound: the reference's own (tests/test_optim.py,
+#: 1D NS against the reference NS), |got − want| ≤ 2e-3 + 2e-3·|want|
+MUON_TOL = 2e-3
+
+
+#: (k, n2, accumulate epilogue cases) of the stacked checks: k = 4 with
+#: and without the epilogue, the train path's own k = 24 stacks (the 24
+#: layers' (2048, 2048) and (2048, 5632) leaves), and k = 1 at the
+#: short side of the (100352, 2048) embeddings, which NS takes unbatched
+BATCHED_CASES = ((4, 2048, (False, True)), (4, 5632, (False, True)),
+                 (24, 2048, (False,)), (24, 5632, (False,)),
+                 (1, 100352, (False,)))
+
+
+def batched_cases(torch, cases):
+    """``rank_update`` (SYRK) and ``sym_stream`` at every shape the Muon
+    step gives them (``BATCHED_CASES``): each against its plain version
+    on the same inputs within ``TOL_F32``, each matrix of a stack bit for
+    bit against its own unbatched launch, one launch a call, and timed
+    against k unbatched launches and one ``torch.bmm`` (``torch.matmul``
+    for k = 1) in IEEE f32."""
+    from repro_torch.core.packing import pack_tril_tiles
+    from repro_torch.kernels import trigrid
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    d = 2048
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def checked_row(name, label, k, got, want, singles, run, library,
+                    nbytes, flops):
+        err = compare(torch, f"{name} {label}", got, want, torch.float32)
+        row = {"case": label, "max_abs_err": err, "main": False,
+               "batch": k}
+        if k > 1:
+            same = all(torch.equal(got[i], singles(i)) for i in range(k))
+            log(f"[train]   each matrix bit-equal to its unbatched launch: "
+                f"{same}")
+            if not same:
+                raise SystemExit(f"{name} {label}: a batched matrix differs"
+                                 " from its unbatched launch")
+            row["bit_equal_unbatched"] = same
+        before = getattr(trigrid, name).launches
+        run()
+        assert getattr(trigrid, name).launches == before + 1
+        row["ms"] = cuda_ms(torch, run)
+        if k > 1:
+            row["unbatched_ms"] = cuda_ms(
+                torch, lambda: [singles(i) for i in range(k)])
+        row["library_ms"] = cuda_ms(torch, library)
+        row["library"] = "torch.bmm" if k > 1 else "torch.matmul"
+        row["ffma_bound_ms"] = bound_ms(nbytes, flops, False)[0]
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        log(f"[train]   ms {row['ms']:.4f} (k = {k})"
+            + (f"  {k} unbatched {row['unbatched_ms']:.4f}" if k > 1
+               else "")
+            + f"  {row['library']} {row['library_ms']:.4f}  bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']})")
+        cases[name].append(row)
+
+    for k, n2, accs in BATCHED_CASES:
+        lead = (k,) if k > 1 else ()
+        shape = str(lead + (d, n2)).replace(",)", ")")
+        kind = "batched" if k > 1 else "unbatched"
+        mm = torch.bmm if k > 1 else torch.matmul
+        a = randn(*lead, d, n2) / n2 ** 0.5
+        T = (d // 128) * (d // 128 + 1) // 2
+        out_b = k * T * 128 * 128 * 4
+        flops = k * d * (d + 1) * n2
+        for acc in accs:
+            c0 = randn(*lead, T, 128, 128) if acc else None
+            ep = trigrid.Epilogue(beta=1.0, accumulate=True) if acc else \
+                trigrid.Epilogue()
+
+            def run(a=a, ep=ep, c0=c0):
+                return trigrid.rank_update("syrk", a, bm=128, epilogue=ep,
+                                           c0=c0)
+
+            def single(i, a=a, ep=ep, c0=c0):
+                return trigrid.rank_update(
+                    "syrk", a[i], bm=128, epilogue=ep,
+                    c0=None if c0 is None else c0[i])
+            checked_row(
+                "rank_update", f"syrk {shape} {kind}"
+                + (" beta c0" if acc else ""), k, run(),
+                trigrid._rank_update_plain("syrk", a, None, 128, ep, c0),
+                single, run, lambda a=a: mm(a, a.mT),
+                k * d * n2 * 4 + out_b * (2 if acc else 1), flops)
+        # the NS products: S·S (n2 = d) and sym(Y)·X (n2 > d)
+        s = randn(*lead, d, d) / d ** 0.5
+        tiles = pack_tril_tiles(s, 128).contiguous()
+        sym = torch.tril(s) + torch.tril(s, -1).mT
+        del s
+        b = randn(*lead, d, n2)
+
+        def srun(tiles=tiles, b=b):
+            return trigrid.sym_stream(tiles, b, bm=128)
+
+        def ssingle(i, tiles=tiles, b=b):
+            return trigrid.sym_stream(tiles[i], b[i], bm=128)
+        checked_row(
+            "sym_stream", f"{str(lead + (d, d)).replace(',)', ')')} x "
+            f"{shape} {kind}", k, srun(),
+            trigrid._sym_stream_plain(tiles, b, d // 128, 1.0,
+                                      torch.float32),
+            ssingle, srun, lambda sym=sym, b=b: mm(sym, b),
+            tiles.numel() * 4 + 2 * k * d * n2 * 4, 2 * k * d * d * n2)
+        del a, tiles, sym, b
+        torch.cuda.empty_cache()
+
+
+def autodiff_check(torch):
+    """``torch.autograd.grad`` through ``blas.syrk`` / ``syr2k`` / ``symm``
+    at n1 = 2048, n2 = 512 on the kernel route, every fill, against the
+    same on the dense IEEE route.  The loss is linear in the output
+    (⟨C, W⟩), so the backward ops' kernels alone make the difference."""
+    from repro_torch import blas
+    from repro_torch.blas.routing import Route
+    from repro_torch.kernels import counts
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    n1, n2 = 2048, 512
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+    a, b = randn(n1, n2) / n2 ** 0.5, randn(n1, n2) / n2 ** 0.5
+    s = randn(n1, n1) / n1 ** 0.5
+    worst = 0.0
+    for op in ("syrk", "syr2k", "symm"):
+        for fill in (("tril", "full", "packed") if op != "symm" else
+                     ("dense", "tritiles")):
+            def run(dense, op=op, fill=fill):
+                xs = [t.clone().requires_grad_(True) for t in
+                      ((a,) if op == "syrk" else (a, b) if op == "syr2k"
+                       else (s, b))]
+                oracle = Route(op, "dense", "the dense IEEE oracle", n1, n2)
+                with blas.pinned(oracle if dense else None):
+                    if op == "syrk":
+                        c = blas.syrk(xs[0], fill=fill)
+                    elif op == "syr2k":
+                        c = blas.syr2k(xs[0], xs[1], fill=fill)
+                    else:
+                        sa = xs[0] if fill == "dense" else \
+                            blas.TriTiles.from_tril(xs[0], 128)
+                        c = blas.symm(sa, xs[1])
+                w = torch.randn(c.shape, generator=torch.Generator(
+                    device=DEVICE).manual_seed(5), device=DEVICE)
+                return torch.autograd.grad((c * w).sum(), xs)
+            before = counts.launch_counts()
+            got = run(False)
+            after = counts.launch_counts()
+            want = run(True)
+            errs = [float((g - r).abs().max()) / max(1.0, float(
+                r.abs().max())) for g, r in zip(got, want)]
+            ok = max(errs) <= TOL_F32 and all(
+                bool(torch.isfinite(g).all()) for g in got)
+            launched = {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]}
+            log(f"[train] autodiff {op} {fill:8s} kernel vs dense IEEE: rel "
+                f"{max(errs):.2e} (<= {TOL_F32:.0e}), kernel launches "
+                f"{launched} {'ok' if ok else 'FAIL'}")
+            if not ok or not launched:
+                raise SystemExit(f"autodiff of {op} ({fill}) on the card "
+                                 "disagrees with the dense route")
+            worst = max(worst, max(errs))
+    return worst
+
+
+def muon_check(torch):
+    """One Muon orthogonalisation of a (24, 2048, 5632) momentum (5 NS
+    steps) on the kernels against the same on their plain versions (the
+    wrappers swapped for the plain functions on the card)."""
+    from repro_torch.kernels import counts, trigrid
+    from repro_torch.optim.muon import orthogonalize_reference
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    m = torch.randn(24, 2048, 5632, generator=gen, device=DEVICE)
+    before = counts.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = orthogonalize_reference(m, steps=5)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = counts.launch_counts()
+    rank, sym = trigrid.rank_update, trigrid.sym_stream
+
+    def rank_plain(body, a, b=None, *, bm, epilogue=None, c0=None):
+        return trigrid._rank_update_plain(body, a, b, bm,
+                                          epilogue or trigrid.Epilogue(), c0)
+
+    def sym_plain(a_tiles, b, *, bm, out_dtype=torch.float32,
+                  diag_scale=1.0):
+        return trigrid._sym_stream_plain(a_tiles, b, b.shape[-2] // bm,
+                                         diag_scale, out_dtype)
+    trigrid.rank_update, trigrid.sym_stream = rank_plain, sym_plain
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = orthogonalize_reference(m, steps=5)
+        torch.cuda.synchronize()
+        plain_secs = time.perf_counter() - t0
+    finally:
+        trigrid.rank_update, trigrid.sym_stream = rank, sym
+    diff = (got - want).abs()
+    err = float(diff.max())
+    ok = bool((diff <= MUON_TOL + MUON_TOL * want.abs()).all()) and \
+        bool(torch.isfinite(got).all())
+    launched = {k: after[k] - before[k] for k in after}
+    log(f"[train] Muon NS (24, 2048, 5632), 5 steps, kernels vs plain: "
+        f"max_abs_err {err:.3e} (<= {MUON_TOL:.0e} + {MUON_TOL:.0e}|x|), "
+        f"max |x| {float(want.abs().max()):.3f}; host s {secs:.4f} (plain "
+        f"{plain_secs:.4f}); launches {launched} {'ok' if ok else 'FAIL'}")
+    assert launched["rank_update"] == 5 and launched["sym_stream"] == 10, \
+        launched
+    if not ok:
+        raise SystemExit("Muon NS on the kernels disagrees with the plain "
+                         "versions")
+    return {"max_abs_err": err, "s": secs, "plain_s": plain_secs}
+
+
+def muon_split(torch):
+    """Where a Muon step's optimizer time goes: one orthogonalisation (5
+    NS steps, kernels) of each distinct leaf shape of stablelm-1.6b's
+    tree, host clock around work that ends in a sync, times the leaves
+    of that shape."""
+    from repro_torch.optim.muon import orthogonalize_reference
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    leaves = (((24, 2048, 2048), 4, "attention wq wk wv wo"),
+              ((24, 2048, 5632), 2, "mlp wi wg"),
+              ((24, 5632, 2048), 1, "mlp wo"),
+              ((100352, 2048), 1, "embed"), ((2048, 100352), 1, "unembed"),
+              ((24, 2048), 4, "norm scales and biases (dense route)"))
+    rows, total = [], 0.0
+    for shape, count, what in leaves:
+        m = torch.randn(shape, generator=gen, device=DEVICE)
+        orthogonalize_reference(m)                      # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orthogonalize_reference(m)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        total += secs * count
+        rows.append({"shape": list(shape), "leaves": count, "what": what,
+                     "s_each": secs})
+        log(f"[train] Muon NS {str(shape):18s} x {count} ({what}): "
+            f"{secs:.4f} s each")
+        del m
+    log(f"[train] Muon NS, all matrix leaves: {total:.4f} s a step")
+    torch.cuda.empty_cache()
+    return {"leaves": rows, "total_s": total}
+
+
+def run_train(torch, optimizer, steps):
+    """stablelm-1.6b at its published widths (nothing cut), random bf16
+    init from seed 0, global batch 8 x 256 tokens; the launch counts set
+    to 0 just before and read just after (inside ``train``)."""
+    from repro_torch.launch.train import build_argparser, train
+    args = build_argparser().parse_args([
+        "--arch", "stablelm-1.6b", "--full", "--device", DEVICE,
+        "--optimizer", optimizer, "--steps", str(steps),
+        "--global-batch", "8", "--seq-len", "256", "--loss-chunk", "256",
+        "--seed", "0", "--log-every", "1"])
+    out = train(args)
+    tag = f"[train {optimizer}]"
+    log(f"{tag} {out['arch']} layers {out['layers']} d_model "
+        f"{out['d_model']} d_ff {out['d_ff']} vocab {out['vocab']} params "
+        f"{out['params']} on {out['device']}")
+    log(f"{tag} losses {[round(x, 4) for x in out['losses']]}")
+    for i, (t, sp) in enumerate(zip(out["step_s"], out["split_s"])):
+        log(f"{tag} step {i}{' (warm-up)' if i == 0 else ''}: "
+            f"{t:.4f} s = loss+backward {sp['loss_backward_s']:.4f} + clip "
+            f"{sp['clip_s']:.4f} + optimizer {sp['opt_s']:.4f}")
+    launches = out["kernel_launches"]
+    per_step = {k: v / steps for k, v in launches.items()}
+    log(f"{tag} tokens/s {out['tokens_per_s']:.1f} (after warm-up); peak "
+        f"memory {out['peak_memory_bytes'] / 2**30:.2f} GiB; launches "
+        f"{launches} ({per_step} a step)")
+    assert (out["layers"], out["d_model"], out["d_ff"], out["vocab"]) == \
+        (24, 2048, 5632, 100352), out
+    assert all(map(math.isfinite, out["losses"])), out["losses"]
+    return out, launches
+
+
+def train_phase(torch, cases):
+    batched_cases(torch, cases)
+    grad_err = autodiff_check(torch)
+    muon = muon_check(torch)
+    muon["split"] = muon_split(torch)
+    torch.cuda.empty_cache()
+    out, launches = run_train(torch, "muon", 6)
+    routes = out["routes"]                 # [op, n1, n2, path, batched, n]
+    big = [r for r in routes if r[1] >= 256]
+    log("[train muon] routes (op, n1, n2, path, batched): calls over the "
+        "run: " + "; ".join(f"{tuple(r[:5])}: {r[5]}" for r in routes))
+    assert big and all(r[3] == "kernel" for r in big), routes
+    # one launch per blas call on the kernel route, stacks included
+    n_syrk = sum(r[5] for r in big if r[0] == "syrk")
+    n_symm = sum(r[5] for r in big if r[0] == "symm")
+    assert launches["rank_update"] == n_syrk and \
+        launches["sym_stream"] == n_symm, (launches, n_syrk, n_symm)
+    assert launches["rank_update"] > 0 and launches["sym_stream"] > 0
+    assert launches["slstm_scan"] == 0, launches
+    torch.cuda.empty_cache()
+    adamw, _ = run_train(torch, "adamw", 2)
+    torch.cuda.empty_cache()
+    return {"muon": {k: v for k, v in out.items() if k != "routes"},
+            "adamw": {k: v for k, v in adamw.items() if k != "routes"},
+            "autodiff_rel_err": grad_err, "muon_ns": muon}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -941,12 +1270,19 @@ def main() -> int:
     _, launches = serve_phase(torch)
     xout, xlaunches = xlstm_phase(torch)
     check_phase(torch)
+    tout, tlaunches = train_phase(torch, cases)
+    log(f"[done] build {build_s:.2f} s, total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"xlstm_serve": {k: v for k, v in xout.items()
+                                    if k not in ("cache",)}}))
+    log(json.dumps({"train": tout}))
 
     kernels = []
     for name, rows in cases.items():
         [main_row] = [r for r in rows if r["main"]]
         by_path = {"stablelm-1.6b": launches[name],
-                   "xlstm-350m": xlaunches[name]}
+                   "xlstm-350m": xlaunches[name],
+                   "train stablelm-1.6b muon": tlaunches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -958,10 +1294,6 @@ def main() -> int:
             "ffma_bound_ms": main_row["ffma_bound_ms"],
             "library_ms": main_row["library_ms"],
             "shape": main_row["case"], "cases": rows})
-    log(f"[done] build {build_s:.2f} s, total "
-        f"{time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"xlstm_serve": {k: v for k, v in xout.items()
-                                    if k not in ("cache",)}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""The public symmetric-BLAS surface: ``syrk`` / ``syr2k`` / ``symm``.
+"""The public symmetric-BLAS surface: ``syrk`` / ``syr2k`` / ``symm``,
+and ``explain``.
 
-Port of the single-device forward half of :mod:`repro.blas.api`.  Each
-call is routed by :func:`repro_torch.blas.routing.plan_route`:
+Port of the single-device half of :mod:`repro.blas.api`.  Each call is
+routed by :func:`repro_torch.blas.routing.plan_route`:
 
   dense  — IEEE-f32 ``torch.matmul`` (small shapes, CPU);
   kernel — the triangular flat-grid Hopper kernels
@@ -9,6 +10,9 @@ call is routed by :func:`repro_torch.blas.routing.plan_route`:
 
 Contracts (those of the reference):
   * accumulation is always f32; ``out_dtype=None`` returns f32;
+  * leading batch dims are supported, shared by all operands: on the
+    kernel route a stack is one kernel launch (the reference vmaps its
+    Pallas kernels, which adds one grid axis);
   * SYRK/SYR2K ``fill``: "tril" (default), "full" (symmetrised dense) or
     "packed" (row-major packed lower triangle);
   * SYMM reads only the lower triangle of its symmetric operand, which
@@ -17,10 +21,12 @@ Contracts (those of the reference):
   * SYRK/SYR2K take ``c``/``beta``/``alpha``:
     ``C_out = alpha·op(A[,B]) + beta·C`` with ``c`` in the output's fill
     (only its lower triangle is read); on the kernel route the
-    scale-and-accumulate runs in the kernel epilogue.
+    scale-and-accumulate runs in the kernel epilogue;
+  * every call is differentiable (``blas/grad.py``): the backward ops
+    are again SYRK / SYR2K / SYMM calls on the forward's route.
 
-Waiting for later slices: autodiff (``blas/grad.py``), leading batch
-dims, the mesh routes and ``fill="sharded"``.
+Waiting for later slices: the mesh routes, ``fill="sharded"`` and the
+measured ``tile="auto"`` cache.
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ from ..core.packing import (PackedTriangle, TriTiles, pack_tril,
 from ..kernels.symm import symm_tiles
 from ..kernels.syr2k import syr2k_tiles
 from ..kernels.syrk import syrk_tiles
-from .routing import plan_route
+from . import grad
+from .routing import Route, pinned, plan_route
 
 _FILLS = ("tril", "full", "packed")
 
@@ -44,12 +51,11 @@ def _check_fill(fill: str) -> None:
         raise ValueError(f"fill must be one of {_FILLS}, got {fill!r}")
 
 
-def _check_2d(*xs: torch.Tensor) -> None:
+def _check_rank(*xs: torch.Tensor) -> None:
     for x in xs:
-        if x.ndim != 2:
-            raise ValueError("repro_torch.blas takes 2-D operands (leading "
-                             f"batch dims are not ported yet), got "
-                             f"{tuple(x.shape)}")
+        if x.ndim < 2:
+            raise ValueError("repro_torch.blas takes (..., n1, n2) "
+                             f"operands, got {tuple(x.shape)}")
 
 
 def _out(x: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -57,13 +63,13 @@ def _out(x: torch.Tensor, out_dtype) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# fill conversions
+# fill conversions (leading dims pass through)
 # --------------------------------------------------------------------------
 def _tril_to_fill(tril: torch.Tensor, fill: str) -> torch.Tensor:
     if fill == "tril":
         return tril
     if fill == "full":
-        return tril + torch.tril(tril, -1).T
+        return tril + torch.tril(tril, -1).mT
     return pack_tril(tril)
 
 
@@ -75,12 +81,12 @@ def _tiles_to_fill(tiles: torch.Tensor, n1: int, bm: int,
         return tiles_to_packed(tiles, n1)
     npad = -(-n1 // bm) * bm
     dense = unpack_tril_tiles(tiles, npad, bm, symmetric=(fill == "full"))
-    return dense[:n1, :n1]
+    return dense[..., :n1, :n1]
 
 
 def _fill_to_tiles(c: torch.Tensor, n1: int, bm: int,
                    fill: str) -> torch.Tensor:
-    """Fill-format C -> packed (T, bm, bm) tiles for the in-kernel
+    """Fill-format C -> packed (..., T, bm, bm) tiles for the in-kernel
     beta-accumulate (lower triangle only; the epilogue masks after)."""
     if fill == "packed":
         return packed_to_tiles(c, n1, bm).contiguous()
@@ -98,51 +104,44 @@ def _combine_fill(base: torch.Tensor, c: Optional[torch.Tensor],
         return base + beta * c
     if fill == "tril":
         return base + beta * torch.tril(c)
-    return base + beta * (torch.tril(c) + torch.tril(c, -1).T)
+    return base + beta * (torch.tril(c) + torch.tril(c, -1).mT)
 
 
 # --------------------------------------------------------------------------
-# executors
+# executors (the primal bodies; grad.py wraps them in autograd Functions)
 # --------------------------------------------------------------------------
 def _syrk_dense(a32: torch.Tensor, fill: str) -> torch.Tensor:
-    g = a32 @ a32.T
+    g = a32 @ a32.mT
     return g if fill == "full" else _tril_to_fill(torch.tril(g), fill)
 
 
 def _syr2k_dense(a32: torch.Tensor, b32: torch.Tensor,
                  fill: str) -> torch.Tensor:
-    g = a32 @ b32.T
-    g = g + g.T
+    g = a32 @ b32.mT
+    g = g + g.mT
     return g if fill == "full" else _tril_to_fill(torch.tril(g), fill)
 
 
 def _symm_dense(a32: torch.Tensor, b32: torch.Tensor) -> torch.Tensor:
-    sym = torch.tril(a32) + torch.tril(a32, -1).T
+    sym = torch.tril(a32) + torch.tril(a32, -1).mT
     return sym @ b32
 
 
-def _syrk_kernel(a32, c32, fill: str, tiles: Tuple[int, int], alpha: float,
-                 beta: float, out_dtype) -> torch.Tensor:
+def _rank_kernel(body: str, a32, b32, c32, fill: str,
+                 tiles: Tuple[int, int], alpha: float, beta: float,
+                 out_dtype, diag_scale: float = 1.0) -> torch.Tensor:
     bm, bk = tiles
-    n1 = a32.shape[0]
+    n1 = a32.shape[-2]
     ap = pad2d(a32, bm, bk).contiguous()
     c0 = _fill_to_tiles(c32, n1, bm, fill) \
         if c32 is not None and beta != 0.0 else None
-    packed = syrk_tiles(ap, bm=bm, c0=c0, alpha=alpha, beta=beta,
-                        out_dtype=out_dtype)
-    return _tiles_to_fill(packed, n1, bm, fill)
-
-
-def _syr2k_kernel(a32, b32, c32, fill: str, tiles: Tuple[int, int],
-                  alpha: float, beta: float, out_dtype) -> torch.Tensor:
-    bm, bk = tiles
-    n1 = a32.shape[0]
-    ap = pad2d(a32, bm, bk).contiguous()
-    bp = pad2d(b32, bm, bk).contiguous()
-    c0 = _fill_to_tiles(c32, n1, bm, fill) \
-        if c32 is not None and beta != 0.0 else None
-    packed = syr2k_tiles(ap, bp, bm=bm, c0=c0, alpha=alpha, beta=beta,
-                         out_dtype=out_dtype)
+    if body == "syrk":
+        packed = syrk_tiles(ap, bm=bm, c0=c0, alpha=alpha, beta=beta,
+                            out_dtype=out_dtype)
+    else:
+        bp = pad2d(b32, bm, bk).contiguous()
+        packed = syr2k_tiles(ap, bp, bm=bm, c0=c0, alpha=alpha, beta=beta,
+                             out_dtype=out_dtype, diag_scale=diag_scale)
     return _tiles_to_fill(packed, n1, bm, fill)
 
 
@@ -152,19 +151,63 @@ def _symm_kernel(a32, b32, tiles: Tuple[int, int],
     grid tiles are never gathered, diagonal tiles are symmetrised from
     their lower halves in the kernel)."""
     bm, bn = tiles
-    n1, n2 = b32.shape
+    n1, n2 = b32.shape[-2:]
     packed = pack_tril_tiles(pad2d(a32, bm, bm), bm).contiguous()
     bp = pad2d(b32, bm, bn).contiguous()
-    return symm_tiles(packed, bp, bm=bm, out_dtype=out_dtype)[:n1, :n2]
+    return symm_tiles(packed, bp, bm=bm, out_dtype=out_dtype)[..., :n1, :n2]
 
 
-def _symm_kernel_tiles(a: TriTiles, b32, bn: int,
-                       out_dtype) -> torch.Tensor:
-    """Pre-packed A: its tiles flow straight into the kernel."""
+def _symm_kernel_tiles(a_tiles: torch.Tensor, n1: int, bm: int, b32,
+                       bn: int, out_dtype,
+                       diag_scale: float = 1.0) -> torch.Tensor:
+    """Pre-packed A: its tiles flow straight into the kernel, with the
+    diagonal scaled in the kernel's prologue."""
     n2 = b32.shape[-1]
-    bp = pad2d(b32, a.bm, bn).contiguous()
-    return symm_tiles(a.tiles.contiguous(), bp, bm=a.bm,
-                      out_dtype=out_dtype)[:a.n, :n2]
+    bp = pad2d(b32, bm, bn).contiguous()
+    return symm_tiles(a_tiles.contiguous(), bp, bm=bm, out_dtype=out_dtype,
+                      diag_scale=diag_scale)[..., :n1, :n2]
+
+
+def _execute_syrk(a32, c32, *, fill: str, alpha: float, beta: float,
+                  route: Route, out_dtype=None) -> torch.Tensor:
+    if route.path == "kernel":
+        return _rank_kernel("syrk", a32, None, c32, fill, route.tiles,
+                            alpha, beta, out_dtype or torch.float32)
+    return _combine_fill(_syrk_dense(a32, fill), c32, alpha, beta, fill)
+
+
+def _execute_syr2k(a32, b32, c32, *, fill: str, alpha: float, beta: float,
+                   route: Route, out_dtype=None,
+                   diag_scale: float = 1.0) -> torch.Tensor:
+    if route.path == "kernel":
+        return _rank_kernel("syr2k", a32, b32, c32, fill, route.tiles,
+                            alpha, beta, out_dtype or torch.float32,
+                            diag_scale)
+    out = _combine_fill(_syr2k_dense(a32, b32, fill), c32, alpha, beta,
+                        fill)
+    return grad.scale_matrix_diag(out, fill, a32.shape[-2], diag_scale)
+
+
+def _execute_symm(a32: torch.Tensor, b32: torch.Tensor, *, route: Route,
+                  out_dtype=None, diag_scale: float = 1.0) -> torch.Tensor:
+    """Dense tril-valid A; a diag_scale is one elementwise pass on it."""
+    a32 = grad.scale_matrix_diag(a32, "tril", a32.shape[-1], diag_scale)
+    if route.path == "kernel":
+        return _symm_kernel(a32, b32, route.tiles,
+                            out_dtype or torch.float32)
+    return _symm_dense(a32, b32)
+
+
+def _execute_symm_tiles(a_tiles: torch.Tensor, n1: int, bm: int, b32, *,
+                        route: Route, out_dtype=None,
+                        diag_scale: float = 1.0) -> torch.Tensor:
+    """Packed A (``TriTiles.tiles``): straight into the kernel, the
+    diagonal scale in its prologue; the dense route rebuilds sym(A)."""
+    if route.path == "kernel":
+        return _symm_kernel_tiles(a_tiles, n1, bm, b32, route.tiles[1],
+                                  out_dtype or torch.float32, diag_scale)
+    full = TriTiles(a_tiles, n1, bm).to_full()
+    return grad.scale_matrix_diag(full, "full", n1, diag_scale) @ b32
 
 
 # --------------------------------------------------------------------------
@@ -180,10 +223,10 @@ def _resolve_beta(c, beta) -> float:
     return beta
 
 
-def _check_c(c, fill: str, n1: int) -> None:
+def _check_c(c, fill: str, n1: int, lead: Tuple[int, ...]) -> None:
     if c is None:
         return
-    want = (tril_size(n1),) if fill == "packed" else (n1, n1)
+    want = lead + ((tril_size(n1),) if fill == "packed" else (n1, n1))
     if tuple(c.shape) != want:
         raise ValueError(f"accumulator c for fill={fill!r} must have "
                          f"shape {want}, got {tuple(c.shape)}")
@@ -192,93 +235,113 @@ def _check_c(c, fill: str, n1: int) -> None:
 def syrk(a: torch.Tensor, *, out_dtype=None, fill: str = "tril", tile=None,
          kernel: bool = False, c: Optional[torch.Tensor] = None,
          alpha: float = 1.0, beta: Optional[float] = None) -> torch.Tensor:
-    """C = alpha·A·Aᵀ + beta·C₀ for A (n1, n2), f32 accumulation.
+    """C = alpha·A·Aᵀ + beta·C₀ for A (..., n1, n2), f32 accumulation.
 
     ``c`` is an accumulator in the output's fill (lower triangle read);
     ``beta`` defaults to 1.0 when it is given.  ``tile=(bm, bk)`` or
-    ``kernel=True`` forces the kernel route."""
+    ``kernel=True`` forces the kernel route.  Differentiable: the
+    backward is a SYMM on the same route (:mod:`repro_torch.blas.grad`).
+    """
     _check_fill(fill)
-    _check_2d(a)
-    n1, n2 = a.shape
+    _check_rank(a)
+    n1, n2 = a.shape[-2:]
     beta = _resolve_beta(c, beta)
-    _check_c(c, fill, n1)
-    route = plan_route("syrk", n1, n2, device=a.device, tile=tile,
-                       kernel=kernel)
-    a32 = a.float()
+    _check_c(c, fill, n1, tuple(a.shape[:-2]))
+    route = plan_route("syrk", n1, n2, device=a.device, batch=a.ndim > 2,
+                       tile=tile, kernel=kernel)
     c32 = None if c is None else c.float()
-    if route.path == "kernel":
-        out = _syrk_kernel(a32, c32, fill, route.tiles, alpha, beta,
-                           out_dtype or torch.float32)
-    else:
-        out = _combine_fill(_syrk_dense(a32, fill), c32, alpha, beta, fill)
-    return _out(out, out_dtype)
+    return _out(grad.syrk_call(a.float(), c32, fill=fill, alpha=alpha,
+                               beta=beta, route=route, kernel=kernel,
+                               out_dtype=out_dtype), out_dtype)
 
 
 def syr2k(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
           fill: str = "tril", tile=None, kernel: bool = False,
           c: Optional[torch.Tensor] = None, alpha: float = 1.0,
-          beta: Optional[float] = None) -> torch.Tensor:
-    """C = alpha·(A·Bᵀ + B·Aᵀ) + beta·C₀ for A, B (n1, n2)."""
+          beta: Optional[float] = None,
+          _diag_scale: float = 1.0) -> torch.Tensor:
+    """C = alpha·(A·Bᵀ + B·Aᵀ) + beta·C₀ for A, B (..., n1, n2).
+
+    ``_diag_scale`` (internal, used by the SYMM backward) scales the
+    matrix diagonal of the output: in the kernel's epilogue on the
+    kernel route, one elementwise pass on the dense route; it does not
+    combine with an accumulator ``c``."""
     _check_fill(fill)
-    _check_2d(a, b)
+    _check_rank(a, b)
     if a.shape != b.shape:
         raise ValueError(f"syr2k operands must match: {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
-    n1, n2 = a.shape
+    if _diag_scale != 1.0 and c is not None:
+        raise ValueError("_diag_scale is incompatible with an "
+                         "accumulator c")
+    n1, n2 = a.shape[-2:]
     beta = _resolve_beta(c, beta)
-    _check_c(c, fill, n1)
-    route = plan_route("syr2k", n1, n2, device=a.device, tile=tile,
-                       kernel=kernel)
-    a32, b32 = a.float(), b.float()
+    _check_c(c, fill, n1, tuple(a.shape[:-2]))
+    route = plan_route("syr2k", n1, n2, device=a.device, batch=a.ndim > 2,
+                       tile=tile, kernel=kernel)
     c32 = None if c is None else c.float()
-    if route.path == "kernel":
-        out = _syr2k_kernel(a32, b32, c32, fill, route.tiles, alpha, beta,
-                            out_dtype or torch.float32)
-    else:
-        out = _combine_fill(_syr2k_dense(a32, b32, fill), c32, alpha, beta,
-                            fill)
-    return _out(out, out_dtype)
+    return _out(grad.syr2k_call(a.float(), b.float(), c32, fill=fill,
+                                alpha=alpha, beta=beta, route=route,
+                                kernel=kernel, out_dtype=out_dtype,
+                                diag_scale=_diag_scale), out_dtype)
 
 
 def symm(a_sym: Union[torch.Tensor, TriTiles, PackedTriangle],
          b: torch.Tensor, *, out_dtype=None, tile=None,
-         kernel: bool = False) -> torch.Tensor:
-    """C = sym(A)·B for tril-valid A (n1, n1) and B (n1, n2).
+         kernel: bool = False, _diag_scale: float = 1.0) -> torch.Tensor:
+    """C = sym(A)·B for tril-valid A (..., n1, n1) and B (..., n1, n2).
 
     ``a_sym`` is a dense tensor (only its lower triangle is read), a
     :class:`TriTiles` (fed to the kernel as it is) or a
-    :class:`PackedTriangle` (re-tiled by one gather, then as
-    TriTiles)."""
-    _check_2d(b)
-    n1, n2 = b.shape
+    :class:`PackedTriangle` (re-tiled by one gather, then as TriTiles).
+    ``_diag_scale`` (internal, the packed cotangent's prologue) computes
+    sym_s(A)·B with the matrix diagonal of sym(A) scaled by s.
+    Differentiable: dB is a SYMM and dA a tril-projected SYR2K on the
+    same route (dA comes back as TriTiles when A was one)."""
+    _check_rank(b)
+    n1, n2 = b.shape[-2:]
+    lead = tuple(b.shape[:-2])
     if isinstance(a_sym, PackedTriangle):
         bm = tile[0] if tile else min(128, max(8, -(-a_sym.n // 8) * 8))
         a_sym = TriTiles.from_packed(a_sym.vec, a_sym.n, bm)
+    route = plan_route("symm", n1, n2, device=b.device, batch=b.ndim > 2,
+                       tile=tile, kernel=kernel)
+    b32 = b.float()
     if isinstance(a_sym, TriTiles):
-        if a_sym.n != n1 or a_sym.batch_shape:
+        if a_sym.n != n1 or a_sym.batch_shape != lead:
             raise ValueError(f"symm shapes: TriTiles(n={a_sym.n}, "
                              f"batch={a_sym.batch_shape}) vs b "
                              f"{tuple(b.shape)}")
-        route = plan_route("symm", n1, n2, device=b.device, tile=tile,
-                           kernel=kernel)
-        a_t = a_sym.to(torch.float32)
-        b32 = b.float()
-        if route.path == "kernel":
-            out = _symm_kernel_tiles(a_t, b32, route.tiles[1],
-                                     out_dtype or torch.float32)
-        else:
-            out = a_t.to_full() @ b32
+        out = grad.symm_tiles_call(a_sym.tiles.float(), a_sym.n, a_sym.bm,
+                                   b32, route=route, kernel=kernel,
+                                   out_dtype=out_dtype,
+                                   diag_scale=_diag_scale)
         return _out(out, out_dtype)
-    _check_2d(a_sym)
-    if tuple(a_sym.shape) != (n1, n1):
+    _check_rank(a_sym)
+    if tuple(a_sym.shape) != lead + (n1, n1):
         raise ValueError(f"symm shapes: a {tuple(a_sym.shape)} vs b "
                          f"{tuple(b.shape)}")
-    route = plan_route("symm", n1, n2, device=b.device, tile=tile,
-                       kernel=kernel)
-    a32, b32 = a_sym.float(), b.float()
-    if route.path == "kernel":
-        out = _symm_kernel(a32, b32, route.tiles,
-                           out_dtype or torch.float32)
-    else:
-        out = _symm_dense(a32, b32)
-    return _out(out, out_dtype)
+    return _out(grad.symm_call(a_sym.float(), b32, route=route,
+                               kernel=kernel, out_dtype=out_dtype,
+                               diag_scale=_diag_scale), out_dtype)
+
+
+def explain(op: str, n1: int, n2: int, *, device=None,
+            grad: bool = False) -> str:
+    """Human-readable routing decision for (op, n1, n2) on ``device``
+    (default: the card when one is present, else the CPU).  With
+    ``grad=True``, one more line per backward-pass op: the route each
+    cotangent takes when autograd flows through the call, planned under
+    the forward Route's pin as the backward plans it."""
+    from .grad import COTANGENT_OPS
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    r = plan_route(op, n1, n2, device=torch.device(device))
+    if not grad:
+        return r.describe()
+    lines = [r.describe()]
+    for wrt, bop in COTANGENT_OPS[op]:
+        with pinned(r):
+            br = plan_route(bop, n1, n2, device=torch.device(device))
+        lines.append(f"  d{wrt}: {br.describe()}")
+    return "\n".join(lines)

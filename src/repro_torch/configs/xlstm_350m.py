@@ -11,6 +11,7 @@ _M = BlockSpec(mixer="mlstm", mlp="none")
 _S = BlockSpec(mixer="slstm", mlp="none")
 
 CONFIG = ArchConfig(
+    remat_policy="dots",    # saves the projections' outputs, as the reference
     name="xlstm-350m",
     n_layers=24, d_model=1024, n_heads=4, n_kv_heads=4,
     d_ff=0, vocab=50304,

@@ -1,0 +1,154 @@
+"""Sequential SYRK / SYR2K / SYMM (paper Algs 4–6) with an explicit
+two-level-memory simulator.
+
+The numeric work is vectorized (block-level numpy) but the read/write
+counters model the algorithms *exactly*: one resident triangle block of the
+symmetric matrix per outer iteration, column panels of the non-symmetric
+matrices streamed through fast memory, padded (zero) indices neither
+computed nor communicated (§VII-C).
+
+These are the faithful-reproduction reference for the sequential lower
+bounds (Cor 3–5): ``benchmarks/bench_seq_bounds.py`` verifies
+reads / lower_bound → 1 as sizes grow.
+
+A copy of :mod:`repro.core.seq` for the port: same names,
+same results.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+
+from .triangle import (TrianglePartition, best_r_for_memory, optimal_partition,
+                       padded_partition, trivial_partition)
+
+
+@dataclass
+class SeqResult:
+    C: np.ndarray
+    reads: int = 0
+    writes: int = 0
+    r: int = 0
+    K: int = 0
+    peak_resident: int = 0
+    construction: str = ""
+
+    @property
+    def words_moved(self) -> int:
+        return self.reads + self.writes
+
+
+def _partition_for(n1: int, M: int, m: int,
+                   partition: Optional[TrianglePartition]) -> TrianglePartition:
+    if partition is not None:
+        return partition
+    return optimal_partition(n1, M, m)
+
+
+def _real(idx: List[int], n1: int) -> np.ndarray:
+    """Indices of the block that are real (unpadded)."""
+    return np.array([i for i in idx if i < n1], dtype=np.int64)
+
+
+def seq_syrk(A: np.ndarray, C: Optional[np.ndarray] = None, *,
+             M: int = 1 << 16,
+             partition: Optional[TrianglePartition] = None) -> SeqResult:
+    """C += A·Aᵀ (lower triangle), Alg 4.  Returns result + exact counters."""
+    n1, n2 = A.shape
+    C = np.zeros((n1, n1), dtype=A.dtype) if C is None else C.copy()
+    part = _partition_for(n1, M, 1, partition)
+    res = SeqResult(C=C, r=part.r, K=part.num_blocks,
+                    construction=part.construction)
+    for k, R in enumerate(part.blocks):
+        idx = _real(R, n1)
+        if idx.size == 0:
+            continue
+        dlist = [d for d in part.diag[k] if d < n1]
+        tb_elems = idx.size * (idx.size - 1) // 2 + len(dlist)
+        res.reads += tb_elems                      # load TB(R_k) (+D_k)
+        # stream all n2 columns; counting is per-column, compute vectorized
+        res.reads += n2 * idx.size                 # panel loads of A
+        res.peak_resident = max(res.peak_resident, tb_elems + idx.size)
+        # vectorized numerics for the whole block
+        Ak = A[idx, :]                             # (r', n2)
+        G = Ak @ Ak.T                              # (r', r')
+        ii, jj = np.tril_indices(idx.size, -1)
+        C[idx[ii], idx[jj]] += G[ii, jj]
+        for d in dlist:
+            pos = int(np.where(idx == d)[0][0])
+            C[d, d] += G[pos, pos]
+        res.writes += tb_elems                     # write TB back
+    res.C = C
+    return res
+
+
+def seq_syr2k(A: np.ndarray, B: np.ndarray, C: Optional[np.ndarray] = None, *,
+              M: int = 1 << 16,
+              partition: Optional[TrianglePartition] = None) -> SeqResult:
+    """C += A·Bᵀ + B·Aᵀ (lower triangle), Alg 5."""
+    n1, n2 = A.shape
+    assert B.shape == A.shape
+    C = np.zeros((n1, n1), dtype=A.dtype) if C is None else C.copy()
+    part = _partition_for(n1, M, 2, partition)
+    res = SeqResult(C=C, r=part.r, K=part.num_blocks,
+                    construction=part.construction)
+    for k, R in enumerate(part.blocks):
+        idx = _real(R, n1)
+        if idx.size == 0:
+            continue
+        dlist = [d for d in part.diag[k] if d < n1]
+        tb_elems = idx.size * (idx.size - 1) // 2 + len(dlist)
+        res.reads += tb_elems
+        res.reads += n2 * 2 * idx.size             # panels of A and B
+        res.peak_resident = max(res.peak_resident, tb_elems + 2 * idx.size)
+        Ak, Bk = A[idx, :], B[idx, :]
+        G = Ak @ Bk.T + Bk @ Ak.T
+        ii, jj = np.tril_indices(idx.size, -1)
+        C[idx[ii], idx[jj]] += G[ii, jj]
+        for d in dlist:
+            pos = int(np.where(idx == d)[0][0])
+            C[d, d] += G[pos, pos]
+        res.writes += tb_elems
+    res.C = C
+    return res
+
+
+def seq_symm(A: np.ndarray, B: np.ndarray, C: Optional[np.ndarray] = None, *,
+             M: int = 1 << 16,
+             partition: Optional[TrianglePartition] = None) -> SeqResult:
+    """C += A·B with A symmetric (only lower triangle accessed), Alg 6.
+
+    A is passed as a full array but only its lower triangle is read —
+    the counters charge only tril(A) loads."""
+    n1 = A.shape[0]
+    n2 = B.shape[1]
+    assert A.shape == (n1, n1) and B.shape[0] == n1
+    C = np.zeros((n1, n2), dtype=B.dtype) if C is None else C.copy()
+    part = _partition_for(n1, M, 2, partition)
+    res = SeqResult(C=C, r=part.r, K=part.num_blocks,
+                    construction=part.construction)
+    Asym = np.tril(A) + np.tril(A, -1).T           # computation reference
+    for k, R in enumerate(part.blocks):
+        idx = _real(R, n1)
+        if idx.size == 0:
+            continue
+        dlist = [d for d in part.diag[k] if d < n1]
+        tb_elems = idx.size * (idx.size - 1) // 2 + len(dlist)
+        res.reads += tb_elems                      # load TB(R_k) of A
+        res.reads += n2 * 2 * idx.size             # stream B rows + C rows
+        res.writes += n2 * idx.size                # write C rows back
+        res.peak_resident = max(res.peak_resident, tb_elems + 2 * idx.size)
+        # block numerics: contributions of pairs within this triangle block
+        sub = np.zeros((idx.size, idx.size), dtype=A.dtype)
+        ii, jj = np.tril_indices(idx.size, -1)
+        sub[ii, jj] = Asym[idx[ii], idx[jj]]
+        sub[jj, ii] = Asym[idx[ii], idx[jj]]       # mirrored use of same elems
+        for d in dlist:
+            pos = int(np.where(idx == d)[0][0])
+            sub[pos, pos] = Asym[d, d]
+        C[idx, :] += sub @ B[idx, :]
+    res.C = C
+    return res

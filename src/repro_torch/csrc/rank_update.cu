@@ -36,6 +36,11 @@
 // diagonal SYRK block stages its one operand once.  Rows past n1 and
 // columns past n2 are zero-filled by the copies, so any n2 works (4 B
 // copies when rows are not 16 B-aligned).
+// A stack of matrices is one launch (the Newton-Schulz Grams of a
+// stacked layer weight, 24 x 2048 x 5632 in Muon): grid (blocks, batch),
+// blockIdx.y picks the matrix, and each is computed exactly as its own
+// launch computes it, so the results agree bit for bit.  A single
+// matrix runs an instance compiled without the stack offsets (STACK).
 #include <cstdint>
 
 #include "tile_mma.cuh"
@@ -61,7 +66,7 @@ struct RankSmem {
   static constexpr int bytes = stages * panels * kBO * kLD * 4;
 };
 
-template <int BODY, bool VEC, typename OutT>
+template <int BODY, bool VEC, bool STACK, typename OutT>
 __global__ void __launch_bounds__(kRankThreads)
 rank_update_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    int n1, int n2, int log_bm,
@@ -71,6 +76,21 @@ rank_update_kernel(const float* __restrict__ a, const float* __restrict__ b,
   constexpr int NP = RankSmem<BODY>::panels;
   constexpr int BO = kBO, LD = kLD;
   extern __shared__ __align__(16) float smem[];
+
+  // matrix blockIdx.y of a stack: its operands and packed tiles, each
+  // matrix exactly as an unbatched launch computes it.  A launch of one
+  // matrix compiles without the offsets: with them ptxas schedules the
+  // NS SYRK's mainloop differently, 16 % slower at 2048^2 on the card
+  // (PERF.md §6)
+  if constexpr (STACK) {
+    const long z = blockIdx.y;
+    const long nt = n1 >> log_bm;
+    a += z * n1 * n2;
+    if (BODY == 1) b += z * n1 * n2;
+    const long tiles = (nt * (nt + 1) / 2) << (2 * log_bm);
+    if (c0 != nullptr) c0 += z * tiles;
+    out += z * tiles;
+  }
 
   const int row0 = blocks[2 * blockIdx.x];
   const int col0 = blocks[2 * blockIdx.x + 1];
@@ -152,29 +172,45 @@ rank_update_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-template <int BODY, bool VEC, typename OutT>
-static int launch(const float* a, const float* b, int n1, int n2, int log_bm,
-                  const int* blocks, int nblocks, const float* c0,
-                  float alpha, float beta, float diag_scale, void* out,
-                  cudaStream_t stream) {
+template <int BODY, bool VEC, bool STACK, typename OutT>
+static int launch_one(const float* a, const float* b, int n1, int n2,
+                      int batch, int log_bm, const int* blocks, int nblocks,
+                      const float* c0, float alpha, float beta,
+                      float diag_scale, void* out, cudaStream_t stream) {
   constexpr int smem = RankSmem<BODY>::bytes;
-  auto kernel = rank_update_kernel<BODY, VEC, OutT>;
+  auto kernel = rank_update_kernel<BODY, VEC, STACK, OutT>;
   const int rc = allow_smem(kernel, smem);
   if (rc != 0) return rc;
-  kernel<<<nblocks, kRankThreads, smem, stream>>>(
+  kernel<<<dim3(nblocks, batch), kRankThreads, smem, stream>>>(
       a, b, n1, n2, log_bm, blocks, c0, alpha, beta, diag_scale,
       static_cast<OutT*>(out));
   return (int)cudaGetLastError();
 }
 
+template <int BODY, bool VEC, typename OutT>
+static int launch(const float* a, const float* b, int n1, int n2, int batch,
+                  int log_bm, const int* blocks, int nblocks, const float* c0,
+                  float alpha, float beta, float diag_scale, void* out,
+                  cudaStream_t stream) {
+  return batch > 1
+             ? launch_one<BODY, VEC, true, OutT>(a, b, n1, n2, batch, log_bm,
+                                                 blocks, nblocks, c0, alpha,
+                                                 beta, diag_scale, out,
+                                                 stream)
+             : launch_one<BODY, VEC, false, OutT>(a, b, n1, n2, 1, log_bm,
+                                                  blocks, nblocks, c0, alpha,
+                                                  beta, diag_scale, out,
+                                                  stream);
+}
+
 template <int BODY, typename OutT>
 static int dispatch_vec(bool vec, const float* a, const float* b, int n1,
-                        int n2, int log_bm, const int* blocks, int nblocks,
-                        const float* c0, float alpha, float beta, float ds,
-                        void* out, cudaStream_t s) {
-  return vec ? launch<BODY, true, OutT>(a, b, n1, n2, log_bm, blocks,
+                        int n2, int batch, int log_bm, const int* blocks,
+                        int nblocks, const float* c0, float alpha,
+                        float beta, float ds, void* out, cudaStream_t s) {
+  return vec ? launch<BODY, true, OutT>(a, b, n1, n2, batch, log_bm, blocks,
                                         nblocks, c0, alpha, beta, ds, out, s)
-             : launch<BODY, false, OutT>(a, b, n1, n2, log_bm, blocks,
+             : launch<BODY, false, OutT>(a, b, n1, n2, batch, log_bm, blocks,
                                          nblocks, c0, alpha, beta, ds, out,
                                          s);
 }
@@ -182,12 +218,14 @@ static int dispatch_vec(bool vec, const float* a, const float* b, int n1,
 }  // namespace repro_torch
 
 // Plain C entry point (bound with ctypes).  body: 0 SYRK, 1 SYR2K (b
-// required); bm: packed tile (8..128, a power of two); a, b: (n1, n2) row-major f32, n1 = nt * bm; blocks:
-// (nblocks, 2) int32 device table (row0, col0); c0:
-// (T, bm, bm) f32 or null; out: (T, bm, bm) f32 (out_bf16 = 0) or bf16
-// (1).  Returns the launch's CUDA error code (0 on success).
+// required); bm: packed tile (8..128, a power of two); a, b: batch
+// stacked (n1, n2) row-major f32 matrices, n1 = nt * bm; blocks:
+// (nblocks, 2) int32 device table (row0, col0); c0: batch stacked
+// (T, bm, bm) f32 or null; out: batch stacked (T, bm, bm) f32
+// (out_bf16 = 0) or bf16 (1).  One launch, grid (nblocks, batch).
+// Returns the launch's CUDA error code (0 on success).
 extern "C" int repro_rank_update(int body, int bm, const void* a,
-                                 const void* b, int n1, int n2,
+                                 const void* b, int n1, int n2, int batch,
                                  const void* blocks, int nblocks,
                                  const void* c0, float alpha, float beta,
                                  float diag_scale, void* out, int out_bf16,
@@ -200,7 +238,8 @@ extern "C" int repro_rank_update(int body, int bm, const void* a,
   auto s = static_cast<cudaStream_t>(stream);
   int log_bm = 0;
   while ((1 << log_bm) < bm) ++log_bm;
-  if (nblocks <= 0 || n1 <= 0 || n2 <= 0 || bm < 8 || bm > 128 ||
+  if (nblocks <= 0 || n1 <= 0 || n2 <= 0 || batch <= 0 || batch > 65535 ||
+      bm < 8 || bm > 128 ||
       (1 << log_bm) != bm || n1 % bm != 0 || (body == 1 && B == nullptr) ||
       (body != 0 && body != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -208,18 +247,19 @@ extern "C" int repro_rank_update(int body, int bm, const void* a,
   const bool vec = n2 % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(B) % 16 == 0;
   if (body == 0) {
-    return out_bf16 ? dispatch_vec<0, __nv_bfloat16>(vec, A, B, n1, n2,
-                                                     log_bm, K, nblocks, C,
-                                                     alpha, beta, diag_scale,
-                                                     out, s)
-                    : dispatch_vec<0, float>(vec, A, B, n1, n2, log_bm, K,
-                                             nblocks, C, alpha, beta,
-                                             diag_scale, out, s);
+    return out_bf16
+               ? dispatch_vec<0, __nv_bfloat16>(vec, A, B, n1, n2, batch,
+                                                log_bm, K, nblocks, C, alpha,
+                                                beta, diag_scale, out, s)
+               : dispatch_vec<0, float>(vec, A, B, n1, n2, batch, log_bm, K,
+                                        nblocks, C, alpha, beta, diag_scale,
+                                        out, s);
   }
-  return out_bf16 ? dispatch_vec<1, __nv_bfloat16>(vec, A, B, n1, n2, log_bm,
-                                                   K, nblocks, C, alpha, beta,
-                                                   diag_scale, out, s)
-                  : dispatch_vec<1, float>(vec, A, B, n1, n2, log_bm, K,
-                                           nblocks, C, alpha, beta,
-                                           diag_scale, out, s);
+  return out_bf16
+             ? dispatch_vec<1, __nv_bfloat16>(vec, A, B, n1, n2, batch,
+                                              log_bm, K, nblocks, C, alpha,
+                                              beta, diag_scale, out, s)
+             : dispatch_vec<1, float>(vec, A, B, n1, n2, batch, log_bm, K,
+                                      nblocks, C, alpha, beta, diag_scale,
+                                      out, s);
 }

@@ -8,7 +8,11 @@
 // (_sym_stream_kernel with the body kernels/symm.py:_symm_body and the
 // lookup table trigrid.py:symm_lookup).
 //
-// Two kernels behind two entry points; the wrapper picks by n2.
+// Two kernels behind two entry points; the wrapper picks by n2.  A
+// stack of products (the Newton-Schulz chain of a stacked layer weight in
+// Muon) is one launch of the wide kernel: grid z picks the matrix, each
+// computed exactly as its own launch would, bit for bit.  The narrow
+// kernel takes one matrix a launch; the wrapper loops over a stack.
 //
 // repro_sym_stream (n2 > 8): the Newton-Schulz products and seed.  Each
 // 2048^2 x 2048^2 product does 17.2 GFLOP against ~41 MB, so it is bound by
@@ -84,6 +88,12 @@ sym_stream_kernel(const float* __restrict__ tiles,
   using C = SymCfg<ROWS, BN>;
   extern __shared__ __align__(16) float smem[];
   const int bm = 1 << log_bm, mask = bm - 1;
+  {  // matrix blockIdx.z of a stack, computed exactly as alone
+    const long z = blockIdx.z, nt = n1 >> log_bm;
+    tiles += z * ((nt * (nt + 1) / 2) << (2 * log_bm));
+    b += z * n1 * n2;
+    out += z * n1 * n2;
+  }
   constexpr int kLogRows = ROWS == 128 ? 7 : 6;
   const int log_h = log_bm < kLogRows ? log_bm : kLogRows;  // sub-tile
   const int log_w = log_bm < 5 ? log_bm : 5;                // h x w
@@ -434,13 +444,13 @@ symv_reduce_kernel(const float* __restrict__ part, int nt, int log_bm,
 
 template <int ROWS, int BN, bool VEC, typename OutT>
 static int launch_wide(const float* tiles, const float* b, int n1, int n2,
-                       int log_bm, const int* sub, float ds, void* out,
-                       cudaStream_t s) {
+                       int batch, int log_bm, const int* sub, float ds,
+                       void* out, cudaStream_t s) {
   using C = SymCfg<ROWS, BN>;
   auto kernel = sym_stream_kernel<ROWS, BN, VEC, OutT>;
   const int rc = allow_smem(kernel, C::Smem);
   if (rc != 0) return rc;
-  dim3 grid((n2 + BN - 1) / BN, (n1 + ROWS - 1) / ROWS);
+  dim3 grid((n2 + BN - 1) / BN, (n1 + ROWS - 1) / ROWS, batch);
   kernel<<<grid, C::kThreads, C::Smem, s>>>(tiles, b, n1, n2, log_bm, sub,
                                             ds, static_cast<OutT*>(out));
   return (int)cudaGetLastError();
@@ -448,26 +458,27 @@ static int launch_wide(const float* tiles, const float* b, int n1, int n2,
 
 template <int ROWS, int BN, typename OutT>
 static int launch_wide_vec(bool vec, const float* tiles, const float* b,
-                           int n1, int n2, int log_bm, const int* sub,
-                           float ds, void* out, cudaStream_t s) {
-  return vec ? launch_wide<ROWS, BN, true, OutT>(tiles, b, n1, n2, log_bm,
-                                                 sub, ds, out, s)
-             : launch_wide<ROWS, BN, false, OutT>(tiles, b, n1, n2, log_bm,
-                                                  sub, ds, out, s);
+                           int n1, int n2, int batch, int log_bm,
+                           const int* sub, float ds, void* out,
+                           cudaStream_t s) {
+  return vec ? launch_wide<ROWS, BN, true, OutT>(tiles, b, n1, n2, batch,
+                                                 log_bm, sub, ds, out, s)
+             : launch_wide<ROWS, BN, false, OutT>(tiles, b, n1, n2, batch,
+                                                  log_bm, sub, ds, out, s);
 }
 
 template <typename OutT>
 static int dispatch_wide(int rows, int bn, bool vec, const float* tiles,
-                         const float* b, int n1, int n2, int log_bm,
-                         const int* sub, float ds, void* out,
+                         const float* b, int n1, int n2, int batch,
+                         int log_bm, const int* sub, float ds, void* out,
                          cudaStream_t s) {
   if (rows == 128 && bn == 128) {
-    return launch_wide_vec<128, 128, OutT>(vec, tiles, b, n1, n2, log_bm,
-                                           sub, ds, out, s);
+    return launch_wide_vec<128, 128, OutT>(vec, tiles, b, n1, n2, batch,
+                                           log_bm, sub, ds, out, s);
   }
   if (rows == 64 && bn == 64) {
-    return launch_wide_vec<64, 64, OutT>(vec, tiles, b, n1, n2, log_bm, sub,
-                                         ds, out, s);
+    return launch_wide_vec<64, 64, OutT>(vec, tiles, b, n1, n2, batch,
+                                         log_bm, sub, ds, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -498,9 +509,10 @@ static int log2_tile(int bm) {
 //
 // bn: output columns per block, 128 or 64.  sub: the sub-tile table of
 // trigrid.symm_subtiles(nt, bm), int32 (flat << 2 | mode) per (128-row
-// block, 32-deep panel, sub-tile).
+// block, 32-deep panel, sub-tile).  batch: a stack of that many
+// (tiles, b, out) triples, contiguous, in one launch (grid z).
 extern "C" int repro_sym_stream(int bm, int rows, int bn, const void* tiles,
-                                const void* b, int nt, int n2,
+                                const void* b, int nt, int n2, int batch,
                                 const void* sub, float diag_scale, void* out,
                                 int out_bf16, void* stream) {
   using namespace repro_torch;
@@ -511,15 +523,17 @@ extern "C" int repro_sym_stream(int bm, int rows, int bn, const void* tiles,
   const int log_bm = log2_tile(bm);
   const long n1 = (long)nt * bm;
   if (log_bm < 0 || nt <= 0 || n2 <= 0 || n1 > 64L * 65535 ||
+      batch <= 0 || batch > 65535 ||
       reinterpret_cast<uintptr_t>(Tl) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const bool vec = n2 % 4 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0;
   return out_bf16 ? dispatch_wide<__nv_bfloat16>(rows, bn, vec, Tl, B, n1,
-                                                 n2, log_bm, S, diag_scale,
-                                                 out, s)
+                                                 n2, batch, log_bm, S,
+                                                 diag_scale, out, s)
                   : dispatch_wide<float>(rows, bn, vec, Tl, B, n1, n2,
-                                         log_bm, S, diag_scale, out, s);
+                                         batch, log_bm, S, diag_scale, out,
+                                         s);
 }
 
 // n2 <= 8: imap/jmap: (T,) int32 tile coordinates (trigrid.tri_coords);

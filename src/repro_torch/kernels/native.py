@@ -35,11 +35,11 @@ _L = ctypes.c_longlong
 #: C signature of every entry point, by source: {name: argtypes}
 SIGNATURES = {
     "rank_update.cu": {
-        "repro_rank_update": [_I, _I, _P, _P, _I, _I, _P, _I, _P, _F, _F,
-                              _F, _P, _I, _P]},
+        "repro_rank_update": [_I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _F,
+                              _F, _F, _P, _I, _P]},
     "sym_stream.cu": {
-        "repro_sym_stream": [_I, _I, _I, _P, _P, _I, _I, _P, _F, _P, _I,
-                             _P],
+        "repro_sym_stream": [_I, _I, _I, _P, _P, _I, _I, _I, _P, _F, _P,
+                             _I, _P],
         "repro_sym_stream_narrow": [_I, _P, _P, _I, _I, _P, _P, _F, _P, _P,
                                     _I, _P]},
     "slstm_scan.cu": {

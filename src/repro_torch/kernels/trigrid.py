@@ -14,6 +14,9 @@ where the kernel is launched, so a run can show that its path went
 through the kernels (``kernels.counts`` reads and resets them).  One
 wrapper call counts one launch, also where it makes two CUDA launches
 (``sym_stream`` at n2 <= ``NARROW_MAX_N2``: partials, then their sums).
+A stack of matrices (leading dims) is one launch of either kernel,
+except ``sym_stream`` at n2 <= ``NARROW_MAX_N2``, which launches (and
+counts) once a matrix.
 
 The kernels' output blocks are sized for the card, not by the packed
 format ``bm``: the tables that map them onto the packed tiles
@@ -27,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -276,15 +280,18 @@ def _stream(device: torch.device) -> int:
 def _rank_update_plain(body: str, a: torch.Tensor, b: Optional[torch.Tensor],
                        bm: int, ep: Epilogue,
                        c0: Optional[torch.Tensor]) -> torch.Tensor:
-    n1, n2 = a.shape
+    """The same function in plain PyTorch: the product in IEEE f32, then
+    its lower tiles gathered (packed), then the epilogue.  ``a``/``b``
+    (..., n1, n2), ``c0`` (..., T, bm, bm)."""
+    n1 = a.shape[-2]
     nt = n1 // bm
     imap, jmap = (t.long() for t in _device_tables("tri", nt,
                                                    str(a.device)))
-    ab = a.reshape(nt, bm, n2)
-    acc = ab[imap] @ (ab[jmap] if body == "syrk"
-                      else b.reshape(nt, bm, n2)[jmap]).transpose(1, 2)
+    g = a @ (a if body == "syrk" else b).transpose(-1, -2)
     if body == "syr2k":
-        acc = acc + b.reshape(nt, bm, n2)[imap] @ ab[jmap].transpose(1, 2)
+        g = g + b @ a.transpose(-1, -2)
+    grid = g.reshape(g.shape[:-2] + (nt, bm, nt, bm)).transpose(-3, -2)
+    acc = grid[..., imap, jmap, :, :]
     return ep.apply(acc, c0, imap == jmap)
 
 
@@ -294,16 +301,21 @@ def rank_update(body: str, a: torch.Tensor, b: Optional[torch.Tensor] = None,
     """Symmetric rank update over the flat lower-triangle tile grid.
 
     ``body`` "syrk": Aᵢ·Aⱼᵀ; "syr2k": Aᵢ·Bⱼᵀ + Bᵢ·Aⱼᵀ, f32 accumulation
-    for every packed tile t = (imap[t], jmap[t]).  ``a``/``b``: (n1, n2)
-    f32, contiguous, n1 % bm == 0.  ``c0``: packed tiles (T, bm, bm) f32,
-    read only when ``epilogue.accumulate``.  Returns packed tiles
-    (T, bm, bm) in ``epilogue.out_dtype``, diagonal tiles lower-masked."""
+    for every packed tile t = (imap[t], jmap[t]).  ``a``/``b``:
+    (..., n1, n2) f32, contiguous, n1 % bm == 0; leading dims are a
+    stack of matrices, one launch for all of them.  ``c0``: packed tiles
+    (..., T, bm, bm) f32, read only when ``epilogue.accumulate``.
+    Returns packed tiles (..., T, bm, bm) in ``epilogue.out_dtype``,
+    diagonal tiles lower-masked."""
     ep = epilogue or Epilogue()
     if body not in ("syrk", "syr2k"):
         raise ValueError(f"body must be 'syrk' or 'syr2k', got {body!r}")
     if body == "syr2k" and b is None:
         raise ValueError("syr2k needs b")
-    n1, n2 = a.shape
+    if a.ndim < 2:
+        raise ValueError(f"a must be (..., n1, n2), got {tuple(a.shape)}")
+    lead = tuple(a.shape[:-2])
+    n1, n2 = a.shape[-2:]
     if n1 % bm:
         raise ValueError(f"n1={n1} is not a multiple of bm={bm}")
     _check_operand(a, "a")
@@ -315,25 +327,29 @@ def rank_update(body: str, a: torch.Tensor, b: Optional[torch.Tensor] = None,
     nt = n1 // bm
     T = nt * (nt + 1) // 2
     if ep.accumulate:
-        if c0 is None or tuple(c0.shape) != (T, bm, bm):
-            raise ValueError(f"c0 must be ({T}, {bm}, {bm})")
+        if c0 is None or tuple(c0.shape) != lead + (T, bm, bm):
+            raise ValueError(f"c0 must be {lead + (T, bm, bm)}")
         _check_operand(c0, "c0")
     _check_cuda(a, bm, ep.out_dtype)
     if a.device.type == "cpu":
         return _rank_update_plain(body, a, b, bm, ep, c0)
 
+    k = math.prod(lead)
+    out = torch.empty(lead + (T, bm, bm), dtype=ep.out_dtype,
+                      device=a.device)
+    if k == 0:
+        return out
     fn = native.load()["repro_rank_update"]
     blocks, = _device_tables("blocks", nt, str(a.device), bm)
-    out = torch.empty((T, bm, bm), dtype=ep.out_dtype, device=a.device)
     with _on(a.device):
         rc = fn(0 if body == "syrk" else 1, bm, a.data_ptr(),
-                None if b is None else b.data_ptr(), n1, n2,
+                None if b is None else b.data_ptr(), n1, n2, k,
                 blocks.data_ptr(), blocks.shape[0],
                 c0.data_ptr() if ep.accumulate else None,
                 ep.alpha, ep.beta if ep.accumulate else 0.0, ep.diag_scale,
                 out.data_ptr(), int(ep.out_dtype == torch.bfloat16),
                 _stream(a.device))
-    native.check(rc, f"rank_update[{body}, bm={bm}]")
+    native.check(rc, f"rank_update[{body}, bm={bm}, batch={k}]")
     native.count_launch(rank_update)
     return out
 
@@ -345,34 +361,35 @@ rank_update.launches = 0
 # packed-operand symmetric times dense (SYMM)
 # --------------------------------------------------------------------------
 def _effective_tiles(a_tiles: torch.Tensor, nt: int,
-                    diag_scale: float = 1.0) -> torch.Tensor:
-    """(nt, nt, bm, bm) tiles of sym_s(A) gathered through the lookup
-    table: as stored, transposed, or symmetrised from the lower half
-    with the diagonal scaled (the upper half of a diagonal tile is never
-    read — ``where`` selects, it does not multiply)."""
+                     diag_scale: float = 1.0) -> torch.Tensor:
+    """(..., nt, nt, bm, bm) tiles of sym_s(A) gathered through the
+    lookup table: as stored, transposed, or symmetrised from the lower
+    half with the diagonal scaled (the upper half of a diagonal tile is
+    never read — ``where`` selects, it does not multiply)."""
     bm = a_tiles.shape[-1]
     flat, mode = (t.long() for t in _device_tables("symm", nt,
                                                    str(a_tiles.device)))
-    a = a_tiles.float()[flat]                          # (nt*nt, bm, bm)
-    at = a.transpose(1, 2)
+    a = a_tiles.float()[..., flat, :, :]               # (..., nt*nt, bm, bm)
+    at = a.transpose(-1, -2)
     rows = torch.arange(bm, device=a.device)[:, None]
     cols = torch.arange(bm, device=a.device)[None, :]
     zero = torch.zeros((), device=a.device)
     a_diag = torch.where(rows >= cols, a, zero) \
-        + torch.where(rows > cols, a, zero).transpose(1, 2)
+        + torch.where(rows > cols, a, zero).transpose(-1, -2)
     if diag_scale != 1.0:
         a_diag = a_diag + (diag_scale - 1.0) * torch.where(rows == cols, a,
                                                            zero)
     md = mode[:, None, None]
     eff = torch.where(md == 0, a, torch.where(md == 1, at, a_diag))
-    return eff.reshape(nt, nt, bm, bm)
+    return eff.reshape(a.shape[:-3] + (nt, nt, bm, bm))
 
 
 def _sym_stream_plain(a_tiles: torch.Tensor, b: torch.Tensor, nt: int,
                       diag_scale: float, out_dtype) -> torch.Tensor:
     bm = a_tiles.shape[-1]
     eff = _effective_tiles(a_tiles, nt, diag_scale)
-    dense = eff.permute(0, 2, 1, 3).reshape(nt * bm, nt * bm)
+    dense = eff.transpose(-3, -2).reshape(eff.shape[:-4]
+                                          + (nt * bm, nt * bm))
     return (dense @ b).to(out_dtype)
 
 
@@ -380,17 +397,23 @@ def sym_stream(a_tiles: torch.Tensor, b: torch.Tensor, *, bm: int,
                out_dtype=torch.float32,
                diag_scale: float = 1.0) -> torch.Tensor:
     """C = sym_s(A)·B with A as packed lower-triangle tiles
-    (T, bm, bm) f32 (diagonal tiles tril-valid: their upper halves never
-    reach the result) and B (n1, n2) f32, n1 = nt·bm.  Returns (n1, n2)
-    in ``out_dtype`` (f32 accumulation).  On the card, n2 <= 8 runs the
-    matrix-vector kernel, wider B the tensor-core kernel."""
-    n1, n2 = b.shape
+    (..., T, bm, bm) f32 (diagonal tiles tril-valid: their upper halves
+    never reach the result) and B (..., n1, n2) f32, n1 = nt·bm, with
+    the same leading dims: a stack of products, one launch on the
+    tensor-core kernel.  Returns (..., n1, n2) in ``out_dtype`` (f32
+    accumulation).  On the card, n2 <= 8 runs the matrix-vector kernel
+    (one matrix a launch, looped over a stack), wider B the tensor-core
+    kernel."""
+    if b.ndim < 2:
+        raise ValueError(f"b must be (..., n1, n2), got {tuple(b.shape)}")
+    lead = tuple(b.shape[:-2])
+    n1, n2 = b.shape[-2:]
     if n1 % bm:
         raise ValueError(f"n1={n1} is not a multiple of bm={bm}")
     nt = n1 // bm
-    if tuple(a_tiles.shape) != (nt * (nt + 1) // 2, bm, bm):
+    if tuple(a_tiles.shape) != lead + (nt * (nt + 1) // 2, bm, bm):
         raise ValueError(f"a_tiles {tuple(a_tiles.shape)} does not match "
-                         f"nt={nt}, bm={bm}")
+                         f"b {tuple(b.shape)} with nt={nt}, bm={bm}")
     _check_operand(a_tiles, "a_tiles")
     _check_operand(b, "b")
     if a_tiles.device != b.device:
@@ -399,29 +422,39 @@ def sym_stream(a_tiles: torch.Tensor, b: torch.Tensor, *, bm: int,
     if b.device.type == "cpu":
         return _sym_stream_plain(a_tiles, b, nt, diag_scale, out_dtype)
 
+    k = math.prod(lead)
+    out = torch.empty(lead + (n1, n2), dtype=out_dtype, device=b.device)
+    if k == 0:
+        return out
     funcs = native.load()
     dev = str(b.device)
     a_tiles = _aligned(a_tiles)
-    out = torch.empty((n1, n2), dtype=out_dtype, device=b.device)
     bf16 = int(out_dtype == torch.bfloat16)
     with _on(b.device):
         if n2 <= NARROW_MAX_N2:
             imap, jmap = _device_tables("tri", nt, dev)
             slabs = bm // min(bm, NARROW_SLAB)    # U, then V per slab
-            part = torch.empty((a_tiles.shape[0], 1 + slabs, bm, n2),
+            part = torch.empty((a_tiles.shape[-3], 1 + slabs, bm, n2),
                                dtype=torch.float32, device=b.device)
-            rc = funcs["repro_sym_stream_narrow"](
-                bm, a_tiles.data_ptr(), b.data_ptr(), nt, n2,
-                imap.data_ptr(), jmap.data_ptr(), diag_scale,
-                part.data_ptr(), out.data_ptr(), bf16, _stream(b.device))
-        else:
-            rows, cols = symm_block(n1, n2, _sm_count(dev))
-            sub, = _device_tables("subtiles", nt, dev, bm, rows)
-            rc = funcs["repro_sym_stream"](
-                bm, rows, cols, a_tiles.data_ptr(), b.data_ptr(), nt, n2,
-                sub.data_ptr(), diag_scale, out.data_ptr(), bf16,
-                _stream(b.device))
-    native.check(rc, f"sym_stream[bm={bm}, n2={n2}]")
+            # one matrix a launch: step the pointers through the stack
+            step_a = a_tiles.shape[-3] * bm * bm * 4
+            step_b, step_o = n1 * n2 * 4, n1 * n2 * out.element_size()
+            for z in range(k):
+                rc = funcs["repro_sym_stream_narrow"](
+                    bm, a_tiles.data_ptr() + z * step_a,
+                    b.data_ptr() + z * step_b, nt, n2, imap.data_ptr(),
+                    jmap.data_ptr(), diag_scale, part.data_ptr(),
+                    out.data_ptr() + z * step_o, bf16, _stream(b.device))
+                native.check(rc, f"sym_stream[bm={bm}, n2={n2}]")
+                native.count_launch(sym_stream)
+            return out
+        rows, cols = symm_block(n1, n2, _sm_count(dev))
+        sub, = _device_tables("subtiles", nt, dev, bm, rows)
+        rc = funcs["repro_sym_stream"](
+            bm, rows, cols, a_tiles.data_ptr(), b.data_ptr(), nt, n2, k,
+            sub.data_ptr(), diag_scale, out.data_ptr(), bf16,
+            _stream(b.device))
+    native.check(rc, f"sym_stream[bm={bm}, n2={n2}, batch={k}]")
     native.count_launch(sym_stream)
     return out
 

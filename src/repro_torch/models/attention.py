@@ -58,7 +58,7 @@ class GQA(nn.Module):
         for name, shape in (("wq", (d, h * hd)), ("wk", (d, hkv * hd)),
                             ("wv", (d, hkv * hd)), ("wo", (h * hd, d))):
             setattr(self, name, nn.Parameter(
-                dense_init(shape, gen, device), requires_grad=False))
+                dense_init(shape, gen, device)))
 
     def forward(self, spec: BlockSpec, x: torch.Tensor,
                 positions: torch.Tensor,

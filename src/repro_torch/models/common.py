@@ -48,6 +48,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False
     frontend: str = "tokens"                # tokens (embeddings | vlm wait)
+    remat_policy: str = "full"              # full | dots | names
 
     @property
     def hd(self) -> int:

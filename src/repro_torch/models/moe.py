@@ -29,7 +29,7 @@ class MLP(nn.Module):
         self.act = act_fn(cfg.act)
         for name, shape in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d))):
             setattr(self, name, nn.Parameter(
-                dense_init(shape, gen, device), requires_grad=False))
+                dense_init(shape, gen, device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (self.act(x @ self.wi) * (x @ self.wg)) @ self.wo

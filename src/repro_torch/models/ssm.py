@@ -37,7 +37,7 @@ State = Dict[str, torch.Tensor]
 
 def _register(module: nn.Module, params: Dict[str, torch.Tensor]) -> None:
     for name, w in params.items():
-        setattr(module, name, nn.Parameter(w, requires_grad=False))
+        setattr(module, name, nn.Parameter(w))
 
 
 # ===========================================================================

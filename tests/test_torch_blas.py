@@ -140,5 +140,13 @@ def test_routing():
 
 
 def test_batched_operands_wait():
+    """Leading batch dims no longer wait (tests/test_torch_blas_batched.py
+    holds them to the reference); what still raises is operands whose
+    leading dims differ, or that are not matrices."""
+    a = torch.arange(64, dtype=torch.float32).reshape(2, 8, 4)
+    got = tb.syrk(a)
+    assert torch.equal(got, torch.stack([tb.syrk(a[0]), tb.syrk(a[1])]))
     with pytest.raises(ValueError):
-        tb.syrk(torch.ones(2, 8, 4))
+        tb.symm(torch.ones(2, 8, 8), torch.ones(3, 8, 4))
+    with pytest.raises(ValueError):
+        tb.syrk(torch.ones(8))

@@ -1,6 +1,8 @@
 """The port stands alone: importing repro_torch and every module of the
-serving slices (stablelm and xlstm) loads neither jax nor the JAX package, and the entry
-points refuse to run on the host unless asked."""
+serving and training slices loads neither jax, nor the JAX package, nor
+networkx (the card's machine has none; the port's triangle partitions
+match diagonals with their own Hopcroft–Karp), and the entry points
+refuse to run on the host unless asked."""
 import os
 import subprocess
 import sys
@@ -24,6 +26,13 @@ MODULES = [
     "repro_torch.launch.serving_cache", "repro_torch.launch.serve",
     "repro_torch.kernels.slstm", "repro_torch.models.ssm",
     "repro_torch.configs.xlstm_350m", "repro_torch.kernels.counts",
+    "repro_torch.core.gf", "repro_torch.core.triangle",
+    "repro_torch.core.lower_bounds", "repro_torch.core.dispatch",
+    "repro_torch.core.seq", "repro_torch.kernels.ops",
+    "repro_torch.blas.grad", "repro_torch.optim.adamw",
+    "repro_torch.optim.muon", "repro_torch.data",
+    "repro_torch.data.pipeline", "repro_torch.distributed",
+    "repro_torch.distributed.straggler", "repro_torch.launch.train",
 ]
 
 _PROBE = r"""
@@ -33,7 +42,8 @@ for m in %r:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "repro"
-             or m.startswith("repro."))
+             or m.startswith("repro.") or m == "networkx"
+             or m.startswith("networkx."))
 assert not bad, bad
 print("PORT-STANDS-ALONE", len(%r))
 """
@@ -84,6 +94,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         Server(cfg, model, slots=1, s_max=16, max_new=1)
     with pytest.raises(RuntimeError):
         init_model(cfg, device="cuda")
+    from repro_torch.launch.train import build_argparser, train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(build_argparser().parse_args(["--steps", "1"]))
 
 
 def test_tf32_is_off():

@@ -200,7 +200,7 @@ def symm_call(torch, trigrid, native, funcs, tiles, b, bm):
 
     def run():
         rc = funcs["repro_sym_stream"](
-            bm, rows, cols, tiles.data_ptr(), b.data_ptr(), nt, n2,
+            bm, rows, cols, tiles.data_ptr(), b.data_ptr(), nt, n2, 1,
             sub.data_ptr(), 1.0, out.data_ptr(), 0,
             torch.cuda.current_stream().cuda_stream)
         native.check(rc, "sym_stream")
@@ -217,7 +217,7 @@ def syrk_call(torch, trigrid, native, funcs, a, bm):
 
     def run():
         rc = funcs["repro_rank_update"](
-            0, bm, a.data_ptr(), None, n1, n2, blocks.data_ptr(),
+            0, bm, a.data_ptr(), None, n1, n2, 1, blocks.data_ptr(),
             blocks.shape[0], None, 1.0, 0.0, 1.0, out.data_ptr(), 0,
             torch.cuda.current_stream().cuda_stream)
         native.check(rc, "rank_update")
