@@ -44,10 +44,10 @@ Phases (any failure exits non-zero):
              whitening on the kernels against the eigh oracle, then
              timed alone at d = 2048 and 1024;
 7. train   — ``rank_update`` (SYRK, with and without the accumulate
-             epilogue) and ``sym_stream`` on stacks of 4 matrices at the
-             Muon shapes against their plain versions, each matrix bit
-             for bit against its own launch, timed against 4 launches
-             and ``torch.bmm``; autodiff through ``blas.syrk`` /
+             epilogue) and ``sym_stream`` at every shape the Muon step
+             gives them against their plain versions, each matrix of a
+             stack bit for bit against its own launch, timed against k
+             launches, the plain version and ``torch.bmm``; autodiff through ``blas.syrk`` /
              ``syr2k`` / ``symm`` (every fill) on the kernels against the
              dense IEEE route; one Muon NS of a (24, 2048, 5632) momentum
              on the kernels against the plain versions, and one of each
@@ -58,7 +58,27 @@ Phases (any failure exits non-zero):
              steps, printing the losses, the split of each step,
              tokens/s, peak memory, the kernels' launches a step and the
              captured routes, and asserting that every NS SYRK / SYMM
-             with n1 >= 256 ran on the kernels, one launch per blas call.
+             with n1 >= 256 ran on the kernels, one launch per blas call;
+8. mesh    — the paper's parallel schedules behind ``blas.syrk`` /
+             ``syr2k`` / ``symm(mesh=...)`` at the stablelm-1.6b MLP leaf
+             Muon grams (n1 = 2048, n2 = 5632), P ranks as processes of
+             one gloo group all on this card, the wire host-staged: 1d
+             and ring at P = 4, 2d at P = 6, 3d and 3d-limited (under an
+             ``M=`` budget the planner turns into it) at P = 12, each
+             route pinned with ``blas.pinned(Route(...))``; each case
+             against a dense f32 ``torch.matmul`` oracle on rank 0
+             (relative error <= 2e-5), with its schedule's words a rank
+             by collective kind, the words that replicate its result
+             apart, the planner's predicted words, the lower
+             bound and ms (CUDA events on rank 0, mean over a >= 25 ms
+             window of >= 3 calls); one single-device blas call of each
+             op timed beside them; the planner's own pick at each P;
+             then Muon's
+             ``orthogonalize_1d`` of a (24, 2048, 5632) stack on P = 4
+             (its column shards gathered for the check) against the
+             single-device ``orthogonalize_reference`` on the card
+             (2e-3).  The mesh path launches none of the three
+             kernels; its launch counts are printed and must read 0.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -966,8 +986,8 @@ def batched_cases(torch, cases):
     step gives them (``BATCHED_CASES``): each against its plain version
     on the same inputs within ``TOL_F32``, each matrix of a stack bit for
     bit against its own unbatched launch, one launch a call, and timed
-    against k unbatched launches and one ``torch.bmm`` (``torch.matmul``
-    for k = 1) in IEEE f32."""
+    against k unbatched launches, the plain version and one ``torch.bmm``
+    (``torch.matmul`` for k = 1) in IEEE f32."""
     from repro_torch.core.packing import pack_tril_tiles
     from repro_torch.kernels import trigrid
     dev = torch.device(DEVICE)
@@ -977,9 +997,11 @@ def batched_cases(torch, cases):
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    def checked_row(name, label, k, got, want, singles, run, library,
+    def checked_row(name, label, k, got, plain, singles, run, library,
                     nbytes, flops):
+        want = plain()
         err = compare(torch, f"{name} {label}", got, want, torch.float32)
+        del want
         row = {"case": label, "max_abs_err": err, "main": False,
                "batch": k}
         if k > 1:
@@ -997,6 +1019,7 @@ def batched_cases(torch, cases):
         if k > 1:
             row["unbatched_ms"] = cuda_ms(
                 torch, lambda: [singles(i) for i in range(k)])
+        row["plain_ms"] = cuda_ms(torch, plain)
         row["library_ms"] = cuda_ms(torch, library)
         row["library"] = "torch.bmm" if k > 1 else "torch.matmul"
         row["ffma_bound_ms"] = bound_ms(nbytes, flops, False)[0]
@@ -1004,6 +1027,7 @@ def batched_cases(torch, cases):
         log(f"[train]   ms {row['ms']:.4f} (k = {k})"
             + (f"  {k} unbatched {row['unbatched_ms']:.4f}" if k > 1
                else "")
+            + f"  plain {row['plain_ms']:.4f}"
             + f"  {row['library']} {row['library_ms']:.4f}  bound "
             f"{row['bound_ms']:.4f} ({row['bound_by']})")
         cases[name].append(row)
@@ -1033,7 +1057,8 @@ def batched_cases(torch, cases):
             checked_row(
                 "rank_update", f"syrk {shape} {kind}"
                 + (" beta c0" if acc else ""), k, run(),
-                trigrid._rank_update_plain("syrk", a, None, 128, ep, c0),
+                lambda a=a, ep=ep, c0=c0: trigrid._rank_update_plain(
+                    "syrk", a, None, 128, ep, c0),
                 single, run, lambda a=a: mm(a, a.mT),
                 k * d * n2 * 4 + out_b * (2 if acc else 1), flops)
         # the NS products: S·S (n2 = d) and sym(Y)·X (n2 > d)
@@ -1051,8 +1076,8 @@ def batched_cases(torch, cases):
         checked_row(
             "sym_stream", f"{str(lead + (d, d)).replace(',)', ')')} x "
             f"{shape} {kind}", k, srun(),
-            trigrid._sym_stream_plain(tiles, b, d // 128, 1.0,
-                                      torch.float32),
+            lambda tiles=tiles, b=b: trigrid._sym_stream_plain(
+                tiles, b, d // 128, 1.0, torch.float32),
             ssingle, srun, lambda sym=sym, b=b: mm(sym, b),
             tiles.numel() * 4 + 2 * k * d * n2 * 4, 2 * k * d * d * n2)
         del a, tiles, sym, b
@@ -1256,6 +1281,240 @@ def train_phase(torch, cases):
             "autodiff_rel_err": grad_err, "muon_ns": muon}, launches
 
 
+# --------------------------------------------------------------------------
+# phase 8: the mesh schedules on a gloo group, all ranks on this card
+# --------------------------------------------------------------------------
+MESH_N1, MESH_N2 = 2048, 5632
+MESH_TOL = 2e-5
+#: the §IX budget (f32 words a device) under which the planner turns
+#: this shape on 12 ranks into the streamed 3d-limited schedule
+MESH_M = 500_000
+#: (P, route name, path, choice kwargs); 3d-limited is planned, not pinned
+MESH_ROUTES = ((4, "1d", {}), (4, "ring", {}), (6, "2d", {"c": 2}),
+               (12, "3d", {"c": 2, "p2": 2}), (12, "3d-limited", None))
+
+
+def _mesh_choice(path, P, kw):
+    from repro_torch.core.dispatch import AlgoChoice
+    if path == "ring":
+        return AlgoChoice("ring", 3, P, p1=P, p2=1)
+    if path == "1d":
+        return AlgoChoice("1d", 1, P, p1=1, p2=P)
+    c = kw["c"]
+    return AlgoChoice(path, 3, P, c=c, p1=c * (c + 1), p2=kw.get("p2", 1))
+
+
+def _mesh_ms(torch, dist, fn, rank):
+    """Mean ms a call over a >= 25 ms window of at least 3 calls, CUDA
+    events on rank 0; every rank runs the same number of calls (the
+    collectives pair up), agreed on by an all-reduce of the first call's
+    time outside the counted collectives."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    est = torch.tensor([time.perf_counter() - t0])
+    dist.all_reduce(est, op=dist.ReduceOp.MAX)
+    reps = max(3, math.ceil(0.025 / max(float(est), 1e-6)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps if rank == 0 else None
+
+
+def _mesh_predicted(route, op, n1, n2):
+    from repro_torch.core.dispatch import (predicted_words_1d,
+                                           predicted_words_2d,
+                                           predicted_words_3d, ring_nb)
+    m, ch, P = (1 if op == "syrk" else 2), route.choice, route.P
+    if route.path == "1d":
+        return predicted_words_1d(n1, P)
+    if route.path == "ring":
+        return m * (P // 2) * ring_nb(n1, P) * n2
+    if route.path == "2d":
+        return predicted_words_2d(n1, n2, m, ch.c)
+    return predicted_words_3d(n1, n2, m, ch.c, ch.p2)
+
+
+def mesh_rank(mesh, cases, muon=False):
+    """One rank of the mesh phase: every (route, op) case, then (rank 0
+    of 4) Muon's orthogonalize_1d against the single-device chain."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import blas
+    from repro_torch.blas.routing import Route
+    from repro_torch.core.lower_bounds import memory_independent_lower_bound
+    from repro_torch.core.packing import pack_tril
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import counts
+    P, rank, dev = mesh.shape["x"], mesh.rank, mesh.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n1, n2 = MESH_N1, MESH_N2
+    a = torch.randn(n1, n2, generator=gen, device=dev)
+    b = torch.randn(n1, n2, generator=gen, device=dev)
+    s = torch.randn(n1, n1, generator=gen, device=dev)
+    out = {"cases": [], "picks": {}}
+    for op in ("syrk", "syr2k", "symm"):
+        r = blas.plan_route(op, n1, n2, device=dev, mesh=mesh)
+        out["picks"][op] = r.describe()
+    launched = {}
+    for name, path, kw in cases:
+        if kw is None:                 # planned under the budget
+            route = blas.plan_route("syrk", n1, n2, device=dev, mesh=mesh,
+                                    M=MESH_M)
+            assert route.path == path, route.describe()
+        else:
+            route = Route("syrk", path, "pinned by chip_smoke", n1, n2,
+                          P=P, axis="x", choice=_mesh_choice(path, P, kw))
+        for op in ("syrk", "syr2k", "symm"):
+            def call():
+                if op == "syrk":
+                    return blas.syrk(a, fill="packed", mesh=mesh)
+                if op == "syr2k":
+                    return blas.syr2k(a, b, fill="packed", mesh=mesh)
+                return blas.symm(s, b, mesh=mesh)
+            with blas.pinned(route):
+                assert blas.plan_route(op, n1, n2, device=dev,
+                                       mesh=mesh).path == path
+                counts.reset_launch_counts()
+                collectives.reset_word_counts()
+                got = call()
+                torch.cuda.synchronize()
+                words = collectives.word_counts()
+                launches = counts.launch_counts()
+                ms = _mesh_ms(torch, dist, call, rank)
+            for k, v in launches.items():
+                launched[k] = launched.get(k, 0) + v
+            row = {"P": P, "route": name, "op": op, "words": words,
+                   "predicted": _mesh_predicted(route, op, n1, n2),
+                   "lower_bound": memory_independent_lower_bound(
+                       n1, n2, P, 1 if op == "syrk" else 2).bound,
+                   "ms": ms, "describe": route.describe()}
+            if rank == 0:
+                if op == "symm":
+                    sym = torch.tril(s) + torch.tril(s, -1).T
+                    want = sym @ b
+                else:
+                    g = a @ (a if op == "syrk" else b).T
+                    want = pack_tril(g if op == "syrk" else g + g.T)
+                err = float((got - want).abs().max())
+                row["rel_err"] = err / float(want.abs().max())
+                row["finite"] = bool(torch.isfinite(got).all())
+                if not (row["rel_err"] <= MESH_TOL and row["finite"]):
+                    raise SystemExit(f"mesh {name} {op} P={P}: rel err "
+                                     f"{row['rel_err']:.3e} > {MESH_TOL}")
+            del got
+            out["cases"].append(row)
+    out["launches"] = launched
+    if muon:
+        out["muon"] = _mesh_muon(torch, mesh, counts, collectives)
+    return out
+
+
+def _mesh_muon(torch, mesh, counts, collectives):
+    """orthogonalize_1d of a (24, 2048, 5632) stack on this mesh against
+    the single-device orthogonalize_reference (on the kernels) on rank
+    0, at 2e-3."""
+    from repro_torch.core.onedim import gather_columns
+    from repro_torch.optim.muon import (orthogonalize_1d,
+                                        orthogonalize_reference)
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    g = torch.randn(24, 2048, 5632, generator=gen, device=dev)
+    counts.reset_launch_counts()
+    collectives.reset_word_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shard = orthogonalize_1d(g, mesh, "x", steps=5)
+    torch.cuda.synchronize()
+    res = {"s": time.perf_counter() - t0,
+           "words": collectives.word_counts(),
+           "launches": counts.launch_counts()}
+    # the result stays column-sharded; gathered here only for the check
+    got = gather_columns(shard, mesh.comm("x"))
+    if mesh.rank == 0:
+        want = orthogonalize_reference(g, steps=5)
+        diff = (got - want).abs()
+        res["max_abs_err"] = float(diff.max())
+        res["ok"] = bool((diff <= MUON_TOL + MUON_TOL * want.abs()).all()) \
+            and bool(torch.isfinite(got).all())
+        if not res["ok"]:
+            raise SystemExit("orthogonalize_1d disagrees with the single-"
+                             "device orthogonalize_reference")
+    return res
+
+
+def mesh_phase(torch):
+    """Phase 8: P gloo ranks, all on this card, one launch per P."""
+    from repro_torch import blas
+    from repro_torch.core.packing import pack_tril
+    from repro_torch.distributed.launch import run_ranks
+    card = torch.cuda.get_device_name(0)
+    # one single-device blas call of each op at the same shape (kernels)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    a = torch.randn(MESH_N1, MESH_N2, generator=gen, device=DEVICE)
+    b = torch.randn(MESH_N1, MESH_N2, generator=gen, device=DEVICE)
+    s = torch.randn(MESH_N1, MESH_N1, generator=gen, device=DEVICE)
+    single = {"syrk": cuda_ms(torch, lambda: blas.syrk(a, fill="packed")),
+              "syr2k": cuda_ms(torch, lambda: blas.syr2k(a, b,
+                                                         fill="packed")),
+              "symm": cuda_ms(torch, lambda: blas.symm(s, b))}
+    del a, b, s
+    torch.cuda.empty_cache()
+    log(f"[mesh] single-device blas at ({MESH_N1}, {MESH_N2}), kernels: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in single.items()))
+    rows, picks, launched, muon = [], {}, {}, None
+    for P in (4, 6, 12):
+        cases = [(name, name, kw) for P_, name, kw in MESH_ROUTES
+                 if P_ == P]
+        log(f"[mesh] gloo, host-staged wire, {P} ranks on one {card}")
+        t0 = time.perf_counter()
+        res = run_ranks("chip_smoke:mesh_rank", P, backend="gloo",
+                        device="cuda:0", paths=[ROOT], timeout=500,
+                        kwargs={"cases": cases, "muon": P == 4})
+        log(f"[mesh] P={P}: {len(cases) * 3} cases in "
+            f"{time.perf_counter() - t0:.1f} s (process start included)")
+        picks[P] = res[0]["picks"]
+        for op, d in picks[P].items():
+            log(f"[mesh]   planner's own pick, P={P}: {d}")
+        for i, row in enumerate(res[0]["cases"]):
+            for r in res[1:]:
+                assert r["cases"][i]["words"] == row["words"], (
+                    "ranks moved different words", row, r["cases"][i])
+            sched = {k: v for k, v in row["words"].items()
+                     if k != "replicate"}
+            log(f"[mesh]   {row['route']:10s} {row['op']:5s} P={P}: rel err "
+                f"{row['rel_err']:.2e} (<= {MESH_TOL:.0e}); schedule words a "
+                f"rank {sched} = {sum(sched.values())}, replication "
+                f"{row['words'].get('replicate', 0)}; predicted "
+                f"{row['predicted']:.6g}; lower bound "
+                f"{row['lower_bound']:.6g}; {row['ms']:.3f} ms")
+            rows.append(row)
+        for r in res:
+            for k, v in r["launches"].items():
+                launched[k] = launched.get(k, 0) + v
+        if P == 4:
+            muon = res[0]["muon"]
+            log(f"[mesh] Muon orthogonalize_1d (24, 2048, 5632), P=4, 5 NS "
+                f"steps vs single-device orthogonalize_reference: "
+                f"max_abs_err {muon['max_abs_err']:.3e} (<= {MUON_TOL:.0e} + "
+                f"{MUON_TOL:.0e}|x|); words a rank {muon['words']}; host s "
+                f"{muon['s']:.3f}; mesh launches {muon['launches']}")
+            for r in res:
+                for k, v in r["muon"]["launches"].items():
+                    launched[k] = launched.get(k, 0) + v
+    log(f"[mesh] kernel launches on the mesh path (every rank): {launched}")
+    assert all(v == 0 for v in launched.values()), launched
+    return {"cases": rows, "single_device_ms": single, "picks": picks,
+            "muon_1d": muon}, launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1271,18 +1530,21 @@ def main() -> int:
     xout, xlaunches = xlstm_phase(torch)
     check_phase(torch)
     tout, tlaunches = train_phase(torch, cases)
+    mout, mlaunches = mesh_phase(torch)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"xlstm_serve": {k: v for k, v in xout.items()
                                     if k not in ("cache",)}}))
     log(json.dumps({"train": tout}))
+    log(json.dumps({"mesh": mout}))
 
     kernels = []
     for name, rows in cases.items():
         [main_row] = [r for r in rows if r["main"]]
         by_path = {"stablelm-1.6b": launches[name],
                    "xlstm-350m": xlaunches[name],
-                   "train stablelm-1.6b muon": tlaunches[name]}
+                   "train stablelm-1.6b muon": tlaunches[name],
+                   "mesh": mlaunches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

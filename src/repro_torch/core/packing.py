@@ -313,3 +313,206 @@ class TriTiles:
         dense = unpack_tril_tiles(self.tiles, self.nt * self.bm, self.bm,
                                   symmetric=True)
         return dense[..., :self.n, :self.n]
+
+
+# ---- ShardedTriTiles: the packed mesh wire format -------------------------
+@dataclasses.dataclass(frozen=True)
+class ShardedTriTiles:
+    """Per-device extended-triangle-block shards of a symmetric matrix:
+    the wire format of the 2d / 3d mesh schedules (paper Algs 10–15).
+
+    The affine-plane partition gives every block pair of the c²-block
+    row grid to exactly one of P = c(c+1) devices: device k holds the
+    T = c(c−1)/2 off-diagonal blocks ``off[k]`` (pairs i > j ∈ R_k) and
+    one lower-triangular diagonal block ``diag[k]`` (zeros when it owns
+    none), ~n²/(2P) words each.
+
+    Two forms.  Global (``mesh`` None): ``off`` (…, P, T, nb, nb) and
+    ``diag`` (…, P, nb, nb), every device's shard, as the reference's
+    global arrays hold them.  Local (``mesh`` and ``axis`` set): ``off``
+    (…, T, nb, nb) and ``diag`` (…, nb, nb) are the shard of this rank's
+    device k of the axis's grid (rank r of a p1·p2 axis holds k = r // p2,
+    the p2 ranks of a 3d slice holding the same shard): what a
+    ``fill="sharded"`` mesh call returns, no gather made.  Its packed and
+    dense exits all-gather the shards first (:meth:`gather`).  Leading
+    batch dims pass through every converter; nothing but the explicit
+    ``to_tril`` / ``to_full`` exits builds an n × n dense array.
+    """
+    off: torch.Tensor
+    diag: torch.Tensor
+    n: int
+    c: int
+    mesh: object = None
+    axis: Optional[str] = None
+
+    @property
+    def num_devices(self) -> int:
+        return self.c * (self.c + 1)
+
+    @property
+    def T(self) -> int:
+        return self.c * (self.c - 1) // 2
+
+    @property
+    def nb(self) -> int:
+        return -(-self.n // (self.c * self.c))
+
+    @property
+    def dtype(self):
+        return self.diag.dtype
+
+    @property
+    def local(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def batch_shape(self) -> Tuple[int, ...]:
+        return tuple(self.diag.shape[:-2 if self.local else -3])
+
+    def __post_init__(self):
+        T, nb, P = self.T, self.nb, self.num_devices
+        dev = () if self.local else (P,)
+        want_off, want_diag = dev + (T, nb, nb), dev + (nb, nb)
+        k = len(want_off)
+        off, diag = tuple(self.off.shape), tuple(self.diag.shape)
+        if (off[-k:] != want_off or diag[-(k - 1):] != want_diag
+                or off[:-k] != diag[:-(k - 1)]):
+            raise ValueError(
+                f"ShardedTriTiles(n={self.n}, c={self.c}"
+                f"{', local' if self.local else ''}) needs off (…,) + "
+                f"{want_off} and diag (…,) + {want_diag} with matching "
+                f"batch dims, got {off} and {diag}")
+        if self.local and self.axis is None:
+            raise ValueError("a local ShardedTriTiles needs its mesh axis")
+
+    def to(self, dtype) -> "ShardedTriTiles":
+        return ShardedTriTiles(self.off.to(dtype), self.diag.to(dtype),
+                               self.n, self.c, self.mesh, self.axis)
+
+    def _grid(self):
+        P, p1 = self.mesh.shape[self.axis], self.num_devices
+        return self.mesh.grid(self.axis, p1, P // p1)
+
+    def shard_index(self) -> int:
+        """The device k whose shard this rank holds (local form)."""
+        return _grid_index(self.mesh, self.axis, self.c)
+
+    def gather(self) -> "ShardedTriTiles":
+        """Local form -> global: one all-gather of the shards over the
+        grid's tb axis, counted as a replication (the global form is
+        returned as it is)."""
+        if not self.local:
+            return self
+        from ..distributed import collectives
+        tb, _ = self._grid()
+        lead = self.batch_shape
+        flat = torch.cat([self.off.reshape(lead + (-1,)),
+                          self.diag.reshape(lead + (-1,))], -1)
+        flat = flat.reshape((-1, flat.shape[-1])).T.contiguous()
+        allf = collectives.all_gather(flat[None], tb,
+                                      collectives.REPLICATE)  # (P, F, K)
+        allf = allf.permute(2, 0, 1).reshape(lead + allf.shape[:2])
+        t = self.T * self.nb * self.nb
+        P = self.num_devices
+        off = allf[..., :t].reshape(lead + (P, self.T, self.nb, self.nb))
+        diag = allf[..., t:].reshape(lead + (P, self.nb, self.nb))
+        return ShardedTriTiles(off, diag, self.n, self.c)
+
+    # -- packed exits / entrances (block-granular, never dense) ------------
+    def to_packed(self) -> torch.Tensor:
+        """(…, tril_size(n)) element-packed triangle: one take over the
+        block axis (the device-slot -> grid-block bijection), then the
+        tile gather."""
+        if self.local:
+            return self.gather().to_packed()
+        from .twodim import tb_block_tables
+        src, _ = tb_block_tables(self.c)
+        Pn, T, nb = self.num_devices, self.T, self.nb
+        stack = torch.cat([self.off, self.diag[..., :, None, :, :]], dim=-3)
+        stack = stack.reshape(stack.shape[:-4] + (Pn * (T + 1), nb, nb))
+        idx = torch.as_tensor(np.array(src, dtype=np.int64),
+                              device=stack.device)
+        return tiles_to_packed(stack[..., idx, :, :], self.n)
+
+    @classmethod
+    def from_packed(cls, p: torch.Tensor, n: int, c: int, mesh=None,
+                    axis: Optional[str] = None) -> "ShardedTriTiles":
+        """Element-packed (…, tril_size(n)) -> shards: every device's
+        (global form), or with ``mesh`` / ``axis`` only this rank's
+        (:func:`packed_to_device_shard`, no communication)."""
+        if p.shape[-1] != tril_size(n):
+            raise ValueError(f"packed length {p.shape[-1]} != "
+                             f"tril_size({n})")
+        if mesh is not None:
+            k = _grid_index(mesh, axis, c)
+            off, diag = packed_to_device_shard(p, n, c, k)
+            return cls(off, diag, n, c, mesh, axis)
+        from .twodim import tb_block_tables
+        _, dst = tb_block_tables(c)
+        Pn, T = c * (c + 1), c * (c - 1) // 2
+        nb = -(-n // (c * c))
+        blocks = packed_to_tiles(p, n, nb, nt=c * c)
+        stack = torch.cat([blocks, blocks.new_zeros(blocks.shape[:-3]
+                                                    + (1, nb, nb))], dim=-3)
+        idx = torch.as_tensor(np.array(dst, dtype=np.int64).reshape(-1),
+                              device=p.device)
+        sel = stack[..., idx, :, :]
+        sel = sel.reshape(sel.shape[:-3] + (Pn, T + 1, nb, nb))
+        return cls(sel[..., :T, :, :], sel[..., T, :, :], n, c)
+
+    def to_tritiles(self, bm: int = 128) -> TriTiles:
+        return TriTiles.from_packed(self.to_packed(), self.n, bm)
+
+    @classmethod
+    def from_tritiles(cls, t: TriTiles, c: int) -> "ShardedTriTiles":
+        return cls.from_packed(t.to_packed(), t.n, c)
+
+    # -- dense exits / entrances -------------------------------------------
+    @classmethod
+    def from_tril(cls, x: torch.Tensor, c: int) -> "ShardedTriTiles":
+        """Dense tril-valid (…, n, n) -> shards (lower triangle read)."""
+        return cls.from_packed(pack_tril(x), x.shape[-1], c)
+
+    def to_tril(self) -> torch.Tensor:
+        return unpack_tril(self.to_packed(), self.n, diag=True,
+                           symmetric=False)
+
+    def to_full(self) -> torch.Tensor:
+        return unpack_tril(self.to_packed(), self.n, diag=True,
+                           symmetric=True)
+
+
+def _grid_index(mesh, axis: str, c: int) -> int:
+    """Device k of the c(c+1) grid at this rank: r // p2 for rank r of a
+    p1·p2 axis."""
+    P, p1 = mesh.shape[axis], c * (c + 1)
+    if P % p1:
+        raise ValueError(f"axis {axis!r} of size {P} holds no c={c} "
+                         "triangle grid")
+    return mesh.index(axis) // (P // p1)
+
+
+def packed_to_device_shard(p: torch.Tensor, n: int, c: int, k: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Element-packed (…, tril_size(n)) -> device ``k``'s extended
+    triangle block ``(off (…, T, nb, nb), diag (…, nb, nb))`` and only
+    that: (T+1)·nb contiguous width-nb row slices of the packed vector
+    (:func:`~repro_torch.core.twodim.tb_device_row_starts`) and one mask.
+    Bit for bit ``ShardedTriTiles.from_packed(p, n, c).off[k]`` /
+    ``.diag[k]``."""
+    from .twodim import tb_device_row_starts
+    if p.shape[-1] != tril_size(n):
+        raise ValueError(f"packed length {p.shape[-1]} != tril_size({n})")
+    starts, is_diag, valid = tb_device_row_starts(c, n, k)
+    Tslots, nb = starts.shape
+    lpad = tril_size(c * c * nb)
+    u = np.arange(nb)
+    keep = valid[:, None, None] & (~is_diag[:, None, None]
+                                   | (u[:, None] >= u[None, :])[None])
+    idx = (starts.astype(np.int64)[:, :, None] + u[None, None, :])
+    dev = p.device
+    pv = torch.nn.functional.pad(p, (0, lpad - p.shape[-1]))
+    blocks = pv[..., torch.as_tensor(idx, device=dev)]
+    blocks = torch.where(torch.as_tensor(keep, device=dev), blocks,
+                         blocks.new_zeros(()))
+    return blocks[..., :Tslots - 1, :, :], blocks[..., Tslots - 1, :, :]

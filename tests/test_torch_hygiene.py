@@ -1,5 +1,5 @@
 """The port stands alone: importing repro_torch and every module of the
-serving and training slices loads neither jax, nor the JAX package, nor
+serving, training and mesh slices loads neither jax, nor the JAX package, nor
 networkx (the card's machine has none; the port's triangle partitions
 match diagonals with their own Hopcroft–Karp), and the entry points
 refuse to run on the host unless asked."""
@@ -33,6 +33,11 @@ MODULES = [
     "repro_torch.optim.muon", "repro_torch.data",
     "repro_torch.data.pipeline", "repro_torch.distributed",
     "repro_torch.distributed.straggler", "repro_torch.launch.train",
+    "repro_torch.core.twodim", "repro_torch.core.onedim",
+    "repro_torch.core.ringpath", "repro_torch.core.threedim",
+    "repro_torch.blas.meshpath", "repro_torch.distributed.mesh",
+    "repro_torch.distributed.collectives",
+    "repro_torch.distributed.launch",
 ]
 
 _PROBE = r"""
@@ -97,6 +102,27 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     from repro_torch.launch.train import build_argparser, train
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(build_argparser().parse_args(["--steps", "1"]))
+
+
+def test_mesh_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
+    """``run_ranks`` and ``make_mesh`` with no device run on the card and
+    raise without one; the host only when asked for."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.launch import run_ranks
+    from repro_torch.distributed.mesh import init_distributed, make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_ranks("repro_torch.device:describe", 2)
+    with pytest.raises(RuntimeError):
+        run_ranks("repro_torch.device:describe", 2, device="cuda:0")
+    init_distributed(0, 1, f"file://{tmp_path}/rendezvous", "gloo")
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_mesh()
+        assert make_mesh(device="cpu").device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_tf32_is_off():
