@@ -78,7 +78,21 @@ Phases (any failure exits non-zero):
              (its column shards gathered for the check) against the
              single-device ``orthogonalize_reference`` on the card
              (2e-3).  The mesh path launches none of the three
-             kernels; its launch counts are printed and must read 0.
+             kernels; its launch counts are printed and must read 0;
+9. ckpt    — checkpoints and resume: trains stablelm-1.6b at its
+             published widths with Muon and ``--track-gram`` in a temp
+             dir (its free space printed first; the depth, never the
+             widths, cut only if three checkpoints would not fit), run A
+             4 steps with ``--ckpt-every 2 --ckpt-keep 2`` (its step-4
+             checkpoint set aside), run B ``--steps 4`` on the same dir,
+             which resumes from step 2; asserts that B resumed with 0
+             mismatches from ``verify_restored``, that B's losses are
+             A's steps 2-3 bit for bit, that every leaf of B's step-4
+             checkpoint has A's crc apart from the packed Grams (bf16
+             words, within 1e-2), and that both runs launched
+             ``rank_update`` and ``sym_stream``; prints the bytes, the
+             blocking save's, the async snapshot's, the restore's and
+             ``verify_restored``'s seconds, and deletes the dir.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -1515,6 +1529,140 @@ def mesh_phase(torch):
             "muon_1d": muon}, launched
 
 
+# --------------------------------------------------------------------------
+# phase 9: checkpoints and resume of the full-width Muon trainer
+# --------------------------------------------------------------------------
+#: Muon's packed Grams resume from bf16-narrowed words (the reference
+#: checkpoint test's bound on such words)
+GRAM_TOL = 1e-2
+
+
+def _ckpt_estimate(cfg, layers: int) -> int:
+    """Bytes of one checkpoint at ``layers``: bf16 parameters and their
+    f32 momentum (attention, MLP, embedding and head; norms and the
+    packed Grams are a rounding error)."""
+    d = cfg.d_model
+    n = layers * (4 * d * d + 3 * d * cfg.d_ff) + 2 * cfg.vocab * d
+    return n * (2 + 4)
+
+
+def _gram_words(path: str):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.load(path).view(np.int16)) \
+        .view(torch.bfloat16).float()
+
+
+def ckpt_phase(torch):
+    """Run A trains stablelm-1.6b (published widths) with Muon and the
+    packed Gram 4 steps, saving every 2 (async) and at the end
+    (blocking); its step-4 checkpoint is set aside.  Run B, on the same
+    dir, resumes from step 2 and writes step 4 again.  B's losses must
+    equal A's steps 2-3 and every leaf of B's step 4 A's (crc), the
+    Grams (bf16 words) within GRAM_TOL."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_argparser, train
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        cfg = get_config("stablelm-1.6b")
+        layers = cfg.n_layers
+        log(f"[ckpt] free space at {root}: {free} bytes; one checkpoint "
+            f"~{_ckpt_estimate(cfg, layers)} bytes at {layers} layers")
+        while layers > 1 and 3 * _ckpt_estimate(cfg, layers) > free:
+            layers -= 1
+        if layers != cfg.n_layers:
+            log(f"[ckpt] depth cut to {layers} of {cfg.n_layers} layers "
+                "(widths kept) so that three checkpoints fit")
+        d = os.path.join(root, "ckpt")
+        argv = ["--arch", "stablelm-1.6b", "--full", "--device", DEVICE,
+                "--optimizer", "muon", "--track-gram", "--steps", "4",
+                "--ckpt-dir", d, "--ckpt-every", "2", "--ckpt-keep", "2",
+                "--global-batch", "8", "--seq-len", "256",
+                "--loss-chunk", "256", "--seed", "0", "--log-every", "1"]
+        if layers != cfg.n_layers:
+            argv += ["--layers", str(layers)]
+        runs = {}
+        for name in ("A", "B"):
+            runs[name] = train(build_argparser().parse_args(argv))
+            gc.collect()
+            torch.cuda.empty_cache()
+            if name == "A":
+                os.rename(os.path.join(d, "step_00000004"),
+                          os.path.join(root, "A_step_00000004"))
+        a, b = runs["A"], runs["B"]
+        for name, r in runs.items():
+            log(f"[ckpt {name}] layers {r['layers']} d_model {r['d_model']} "
+                f"d_ff {r['d_ff']} vocab {r['vocab']}: steps "
+                f"{r['start_step']}..{r['start_step'] + r['steps'] - 1}, "
+                f"losses {r['losses']}, resumed {r['resumed']}, "
+                f"launches {r['kernel_launches']}, times {r['ckpt_s']}")
+        assert (a["d_model"], a["d_ff"], a["vocab"]) == \
+            (cfg.d_model, cfg.d_ff, cfg.vocab), a
+        assert not a["resumed"] and len(a["losses"]) == 4, a
+        assert b["resumed"] and b["start_step"] == 2, b
+        vr = b["restore_verified"]
+        log(f"[ckpt B] restore verified: {vr['checked']} leaves "
+            f"({vr['packed']} packed), {len(vr['mismatches'])} mismatches")
+        assert vr["mismatches"] == [], vr
+        diff = max(abs(x - y) for x, y in zip(a["losses"][2:], b["losses"]))
+        bit_equal = a["losses"][2:] == b["losses"]
+        log(f"[ckpt] B's losses {b['losses']} vs A's steps 2-3 "
+            f"{a['losses'][2:]}: bit-equal {bit_equal}, largest "
+            f"difference {diff}")
+        assert bit_equal, (a["losses"], b["losses"])
+        with open(os.path.join(root, "A_step_00000004",
+                               "manifest.json")) as f:
+            ma = json.load(f)["leaves"]
+        with open(os.path.join(d, "step_00000004", "manifest.json")) as f:
+            mb = json.load(f)["leaves"]
+        assert sorted(ma) == sorted(mb), (sorted(ma), sorted(mb))
+        grams = [k for k in ma if k.startswith("opt__.gram__")
+                 and "packed" in ma[k]]
+        differ = [k for k in ma if ma[k]["crc"] != mb[k]["crc"]
+                  and k not in grams]
+        log(f"[ckpt] step 4, B against A: {len(ma)} leaves, crc differs "
+            f"in {differ} apart from the {len(grams)} packed Grams")
+        assert differ == [], differ
+        gram_err = 0.0
+        for k in grams:
+            ga = _gram_words(os.path.join(root, "A_step_00000004",
+                                          k + ".npy"))
+            gb = _gram_words(os.path.join(d, "step_00000004", k + ".npy"))
+            gram_err = max(gram_err, float((ga - gb).abs().max()
+                                           / ga.abs().max()))
+        log(f"[ckpt] packed Grams, B against A: largest relative "
+            f"difference {gram_err} (tolerance {GRAM_TOL})")
+        assert grams and gram_err <= GRAM_TOL, (grams, gram_err)
+        for r in (a, b):
+            n = r["kernel_launches"]
+            assert n["rank_update"] > 0 and n["sym_stream"] > 0, n
+        nbytes = b["ckpt_bytes"]
+        assert nbytes == a["ckpt_bytes"] == sum(m["bytes"]
+                                                for m in mb.values())
+        times = {"async_snapshot_s": a["ckpt_s"]["snapshot_s"],
+                 "blocking_save_s": [a["ckpt_s"]["save_s"],
+                                     b["ckpt_s"]["save_s"]],
+                 "restore_s": b["ckpt_s"]["restore_s"],
+                 "verify_s": b["ckpt_s"]["verify_s"]}
+        log(f"[ckpt] checkpoint {nbytes} bytes ({len(mb)} leaves); "
+            f"{json.dumps(times)}")
+        launches = {k: a["kernel_launches"].get(k, 0)
+                    + b["kernel_launches"].get(k, 0)
+                    for k in set(a["kernel_launches"])
+                    | set(b["kernel_launches"])}
+        return {"layers": layers, "free_bytes": free, "ckpt_bytes": nbytes,
+                "leaves": len(mb), "losses_A": a["losses"],
+                "losses_B": b["losses"], "bit_equal": bit_equal,
+                "gram_rel_err": gram_err, **times}, launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1531,12 +1679,14 @@ def main() -> int:
     check_phase(torch)
     tout, tlaunches = train_phase(torch, cases)
     mout, mlaunches = mesh_phase(torch)
+    cout, claunches = ckpt_phase(torch)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"xlstm_serve": {k: v for k, v in xout.items()
                                     if k not in ("cache",)}}))
     log(json.dumps({"train": tout}))
     log(json.dumps({"mesh": mout}))
+    log(json.dumps({"ckpt": cout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -1544,7 +1694,8 @@ def main() -> int:
         by_path = {"stablelm-1.6b": launches[name],
                    "xlstm-350m": xlaunches[name],
                    "train stablelm-1.6b muon": tlaunches[name],
-                   "mesh": mlaunches.get(name, 0)}
+                   "mesh": mlaunches.get(name, 0),
+                   "train resume stablelm-1.6b muon": claunches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

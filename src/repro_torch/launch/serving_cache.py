@@ -35,34 +35,16 @@ import logging
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..distributed.resilience import with_retries
 from ..optim.gram import GramMonitor, whitening_from_packed
 
 Key = Tuple[str, str, str]          # (tenant, arch, layer)
 
 logger = logging.getLogger(__name__)
-
-
-def with_retries(fn: Callable, *args, retries: int = 4,
-                 backoff: float = 0.05, jitter: float = 0.25,
-                 retry_on=(OSError,), **kwargs) -> Any:
-    """Call ``fn(*args, **kwargs)``, retrying ``retry_on`` failures with
-    exponential backoff and a deterministic jitter (the part of
-    :func:`repro.distributed.resilience.with_retries` the cache uses)."""
-    delay = backoff
-    for attempt in range(retries + 1):
-        try:
-            return fn(*args, **kwargs)
-        except retry_on:                            # noqa: PERF203
-            if attempt >= retries:
-                raise
-            time.sleep(delay * (1.0 + jitter
-                                * ((attempt * 2654435761) % 997) / 997.0))
-            delay *= 2.0
-    raise AssertionError("unreachable")
 
 
 class ServingGramCache:

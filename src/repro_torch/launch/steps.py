@@ -85,22 +85,11 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
     accumulates f32 gradients over that split of the batch.  ``metrics``
     holds the loss, the gradient norm and the host seconds of loss +
     backward, clipping and the optimizer, each ending in a sync."""
-    tree = model.param_tree()
-
     def loss_and_grads(batch) -> Tuple[torch.Tensor, Tree]:
         model.zero_grad(set_to_none=True)
         loss = lm_loss(model, batch, chunk=loss_chunk)
         loss.backward()
         return loss.detach(), model.stacked(lambda p: p.grad)
-
-    @torch.no_grad()
-    def write_back(new: Tree) -> None:
-        for k, ps in tree.items():
-            if k[0] == "periods":
-                for i, p in enumerate(ps):
-                    p.copy_(new[k][i])
-            else:
-                ps[0].copy_(new[k])
 
     def train_step(opt_state, batch: Dict[str, torch.Tensor]):
         dev = model.device
@@ -128,7 +117,7 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
         params = model.stacked()
         new_params, opt_state = optimizer.update(grads, opt_state, params)
         del grads, params
-        write_back(new_params)
+        model.load_stacked(new_params)
         _sync(dev)
         t3 = time.perf_counter()
         metrics = {"loss": loss, "grad_norm": gnorm,

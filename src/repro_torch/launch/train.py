@@ -6,19 +6,31 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --steps 3 --layers 1 --d-model 64 --d-ff 128
 
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --steps 4 --layers 1 --d-model 64 --d-ff 128 \
+        --ckpt-dir /path/to/ckpt --ckpt-every 2    # resumes when re-run
+
 Runs on the card unless ``--device cpu`` is given (and raises when no
 card is present and none was asked for).  It carries the reference's
 single-device path: random init from ``--seed``, the deterministic data
-pipeline (``--data-seed``), microbatched steps with global-norm
-clipping, AdamW / AdamW-8bit / Muon (whose Newton–Schulz chain runs on
-the ``rank_update`` / ``sym_stream`` kernels, one launch per stacked
-parameter and call), the straggler monitor on every step, and the
-reference's JSON summary, with the port's timings beside it.
+pipeline (``--data-seed``, sought to the resumed step), microbatched
+steps with global-norm clipping, AdamW / AdamW-8bit / Muon (whose
+Newton–Schulz chain runs on the ``rank_update`` / ``sym_stream``
+kernels, one launch per stacked parameter and call), the straggler
+monitor on every step, and the reference's JSON summary, with the
+port's timings beside it.
 
-Waiting, each raising a clear error: ``--ckpt-dir`` (ROADMAP A6,
-checkpoints), ``--compress-grads`` and ``--fail-at`` (A8, distributed
-state and faults), more than one device (A7, the mesh), and training an
-xlstm config (its sLSTM kernel has no backward yet).
+With ``--ckpt-dir`` it resumes from the newest checkpoint there (unless
+``--fresh``), checks the restore with ``verify_restored``, saves
+``{"params": <the reference's param tree>, "opt": <optimizer state>}``
+every ``--ckpt-every`` steps on a background thread (keeping
+``--ckpt-keep``) and once more, blocking, at the end; the files are the
+reference's (:mod:`repro_torch.distributed.checkpoint`).
+
+Waiting, each raising a clear error: ``--compress-grads`` and
+``--fail-at`` (distributed state and faults), more than one device
+(the mesh), and training an xlstm config (its sLSTM kernel has no
+backward yet).
 """
 from __future__ import annotations
 
@@ -27,7 +39,7 @@ import collections
 import dataclasses
 import json
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 
@@ -35,7 +47,9 @@ from ..blas.routing import capture_routes
 from ..configs import get_config, get_smoke_config
 from ..data import DataConfig, make_train_iterator
 from ..device import describe, resolve_device
-from ..distributed import StepTimer, StragglerMonitor
+from ..distributed import (StepTimer, StragglerMonitor, checkpoint_bytes,
+                           latest_step, restore_checkpoint, save_checkpoint,
+                           verify_restored, wait_for_saves)
 from ..kernels import counts
 from ..models.model import init_model
 from .steps import (describe_blas_routing, init_opt_state, make_optimizer,
@@ -58,10 +72,6 @@ def build_config(args):
 
 def _refuse_waiting(args, cfg) -> None:
     """The reference's options this slice does not carry yet."""
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoints wait for ROADMAP "
-                                  "A6 (the single-process checkpoint "
-                                  "format)")
     if args.compress_grads:
         raise NotImplementedError("--compress-grads: ErrorFeedbackInt8 "
                                   "waits for ROADMAP A8 (distributed "
@@ -98,9 +108,50 @@ def train(args) -> Dict[str, Any]:
             print(line)
     opt_state = init_opt_state(model, opt)
 
+    # ---- init or resume -------------------------------------------------
+    start_step, resumed, ckpt_s, verified = 0, False, {}, None
+    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None \
+            and not args.fresh:
+        t0 = time.perf_counter()
+        start_step, state = restore_checkpoint(
+            args.ckpt_dir, {"params": model.stacked(), "opt": opt_state})
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        verified = verify_restored(args.ckpt_dir, state, step=start_step)
+        ckpt_s.update(restore_s=t1 - t0,
+                      verify_s=time.perf_counter() - t1)
+        print(f"[train] restore verified: {verified['checked']} leaves, "
+              f"{len(verified['mismatches'])} mismatches")
+        model.load_stacked(state["params"])
+        opt_state = state["opt"]
+        del state
+        resumed = True
+        print(f"[train] resumed from step {start_step} ({args.ckpt_dir})")
+
+    saved = start_step if resumed else None
+    snapshot_s: List[float] = []
+
+    def save(at: int, blocking: bool = False) -> None:
+        """Checkpoint the state after ``at`` steps, once per step."""
+        nonlocal saved
+        if at == saved:
+            return
+        saved = at
+        t0 = time.perf_counter()
+        save_checkpoint(args.ckpt_dir, at,
+                        {"params": model.stacked(), "opt": opt_state},
+                        keep=args.ckpt_keep, blocking=blocking,
+                        extra={"global_batch": args.global_batch,
+                               "seq_len": args.seq_len})
+        if blocking:
+            ckpt_s["save_s"] = time.perf_counter() - t0
+        else:
+            snapshot_s.append(time.perf_counter() - t0)
+
     dcfg = DataConfig(seq_len=args.seq_len, global_batch=args.global_batch,
                       vocab_size=cfg.vocab, seed=args.data_seed)
-    it = make_train_iterator(dcfg, device=dev)
+    it = make_train_iterator(dcfg, start_step=start_step, device=dev)
     monitor = StragglerMonitor(threshold=args.straggler_threshold)
     timer = StepTimer(monitor)
     losses, step_s, split = [], [], []
@@ -109,7 +160,7 @@ def train(args) -> Dict[str, Any]:
     counts.reset_launch_counts()
     t_train0 = time.time()
     routes = collections.Counter()
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         batch = next(it)
         with timer, capture_routes() as log:
             opt_state, metrics = step_fn(opt_state, batch)
@@ -122,25 +173,37 @@ def train(args) -> Dict[str, Any]:
         if timer.event is not None:
             print(f"[straggler] step {step}: {timer.event.action} "
                   f"({timer.event.ratio:.1f}x median)")
+            if timer.event.action == "checkpoint" and args.ckpt_dir:
+                save(step + 1)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"[train] step {step:5d} loss {loss:.4f} "
                   f"({timer.last * 1e3:.0f} ms)")
+        # the last step's state is saved once, blocking, below
+        if args.ckpt_dir and args.ckpt_every and step + 1 < args.steps \
+                and (step + 1) % args.ckpt_every == 0:
+            save(step + 1)
     it.close()
-    mean_step = (time.time() - t_train0) / max(args.steps, 1)
+    run_steps = args.steps - start_step
+    mean_step = (time.time() - t_train0) / max(run_steps, 1)
     launches = counts.launch_counts()
+    if args.ckpt_dir:
+        wait_for_saves()
+        save(args.steps, blocking=True)
     timed = step_s[1:] or step_s
-    out = {"arch": cfg.name, "params": n_params, "steps": args.steps,
+    out = {"arch": cfg.name, "params": n_params, "steps": run_steps,
            "final_loss": losses[-1] if losses else None,
            "first_loss": losses[0] if losses else None,
            "mean_step_s": mean_step,
            "straggler_events": len(monitor.events),
-           "resumed": False, "mesh": {"data": 1, "model": 1}}
+           "resumed": resumed, "mesh": {"data": 1, "model": 1}}
+    if args.ckpt_dir:
+        out["ckpt_bytes"] = checkpoint_bytes(args.ckpt_dir)["total"]
     print("[train] done:", json.dumps(out))
     out.update({
         "device": describe(dev), "optimizer": args.optimizer,
         "layers": cfg.n_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
-        "vocab": cfg.vocab, "losses": losses, "step_s": step_s,
-        "split_s": split,
+        "vocab": cfg.vocab, "start_step": start_step, "losses": losses,
+        "step_s": step_s, "split_s": split,
         "tokens_per_s": args.global_batch * args.seq_len
         * len(timed) / sum(timed) if timed else None,
         "kernel_launches": launches,
@@ -148,7 +211,11 @@ def train(args) -> Dict[str, Any]:
         if dev.type == "cuda" else None,
         # every blas call planned on this thread during the steps:
         # [op, n1, n2, path, batched, calls]
-        "routes": [list(k) + [n] for k, n in sorted(routes.items())]})
+        "routes": [list(k) + [n] for k, n in sorted(routes.items())],
+        # restore_s / verify_s when resumed, snapshot_s of each async
+        # save (the host copy; the write runs on), save_s of the last
+        "ckpt_s": dict(ckpt_s, snapshot_s=snapshot_s),
+        "restore_verified": verified})
     return out
 
 

@@ -166,6 +166,18 @@ class Model(nn.Module):
         return {k: torch.stack([get(p) for p in ps]) if k[0] == "periods"
                 else get(ps[0]) for k, ps in self.param_tree().items()}
 
+    @torch.no_grad()
+    def load_stacked(self, tree: Dict[Tuple[str, ...], torch.Tensor]
+                     ) -> None:
+        """Copy a :meth:`stacked` tree into the parameters, in place
+        (period i of a stacked leaf into layer p·period + i)."""
+        for k, ps in self.param_tree().items():
+            if k[0] == "periods":
+                for i, p in enumerate(ps):
+                    p.copy_(tree[k][i])
+            else:
+                ps[0].copy_(tree[k])
+
     def _period(self, p: int, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
         period = self.cfg.period

@@ -1,8 +1,10 @@
 """The port stands alone: importing repro_torch and every module of the
-serving, training and mesh slices loads neither jax, nor the JAX package, nor
-networkx (the card's machine has none; the port's triangle partitions
-match diagonals with their own Hopcroft–Karp), and the entry points
-refuse to run on the host unless asked."""
+serving, training, mesh and checkpoint slices loads neither jax, nor the
+JAX package, nor networkx, nor ml_dtypes (the card's machine has neither
+of the last two; the port's triangle partitions match diagonals with
+their own Hopcroft–Karp, and its checkpoints write bf16 words without
+ml_dtypes), and the entry points refuse to run on the host unless
+asked."""
 import os
 import subprocess
 import sys
@@ -38,6 +40,8 @@ MODULES = [
     "repro_torch.blas.meshpath", "repro_torch.distributed.mesh",
     "repro_torch.distributed.collectives",
     "repro_torch.distributed.launch",
+    "repro_torch.distributed.checkpoint",
+    "repro_torch.distributed.resilience",
 ]
 
 _PROBE = r"""
@@ -48,7 +52,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "repro"
              or m.startswith("repro.") or m == "networkx"
-             or m.startswith("networkx."))
+             or m.startswith("networkx.") or m == "ml_dtypes"
+             or m.startswith("ml_dtypes."))
 assert not bad, bad
 print("PORT-STANDS-ALONE", len(%r))
 """

@@ -170,12 +170,90 @@ def test_train_cli_other_optimizers_and_gram(optimizer):
     assert out["device"] == "cpu"
 
 
-@pytest.mark.parametrize("flag,value", [("ckpt_dir", "ckpt"),
-                                        ("compress_grads", True),
+@pytest.mark.parametrize("flag,value", [("compress_grads", True),
                                         ("fail_at", 1), ("devices", 2)])
 def test_train_waiting_flags_raise(flag, value):
     with pytest.raises(NotImplementedError, match="ROADMAP A[678]"):
         ttrain.train(_args(**{flag: value}))
+
+
+def _run_capturing(monkeypatch, **kw):
+    """``train`` with the smoke model kept for inspection: (summary,
+    model)."""
+    made = []
+    init = ttrain.init_model
+
+    def keep(cfg, seed, device):
+        made.append(init(cfg, seed=seed, device=device))
+        return made[-1]
+
+    monkeypatch.setattr(ttrain, "init_model", keep)
+    out = ttrain.train(_args(**kw))
+    return out, made[-1]
+
+
+@pytest.mark.parametrize("optimizer,track_gram", [("muon-syrk", True),
+                                                  ("adamw8bit", False)])
+def test_train_resume_is_bit_exact(monkeypatch, tmp_path, optimizer,
+                                   track_gram):
+    """Two steps, a checkpoint, then a run to step 4 on the same dir
+    equal an uninterrupted 4-step run bit for bit: losses, parameters
+    and optimizer state (Muon's packed Grams resume from bf16-narrowed
+    words: 1e-2 relative, the reference test's bound)."""
+    from repro_torch.distributed import (read_manifest,
+                                         restore_checkpoint)
+    from repro_torch.distributed.checkpoint import _flatten
+    from repro_torch.core.packing import PackedTriangle
+    kw = dict(optimizer=optimizer, track_gram=track_gram, steps=4,
+              ckpt_every=2)
+    full, m_full = _run_capturing(monkeypatch, ckpt_dir=str(tmp_path / "u"),
+                                  **kw)
+    assert not full["resumed"] and full["steps"] == 4
+    first, _ = _run_capturing(monkeypatch, ckpt_dir=str(tmp_path / "r"),
+                              **dict(kw, steps=2))
+    assert first["losses"] == full["losses"][:2]
+    out, m_res = _run_capturing(monkeypatch, ckpt_dir=str(tmp_path / "r"),
+                                **kw)
+    assert out["resumed"] and out["start_step"] == 2 and out["steps"] == 2
+    assert out["restore_verified"]["mismatches"] == []
+    assert out["losses"] == full["losses"][2:]
+    assert out["ckpt_bytes"] == full["ckpt_bytes"] > 0
+    for a, b in zip(m_full.parameters(), m_res.parameters()):
+        assert torch.equal(a, b)
+    like = {"params": m_full.stacked(),
+            "opt": ttrain.make_optimizer(ttrain.build_config(_args()),
+                                         optimizer, track_gram=track_gram)
+            .init(m_full.stacked())}
+    _, want = restore_checkpoint(str(tmp_path / "u"), like)
+    _, got = restore_checkpoint(str(tmp_path / "r"), like)
+    assert got["opt"].step == want["opt"].step == 4
+    grams = 0
+    for (k, a), (_, b) in zip(_flatten(want), _flatten(got)):
+        if isinstance(a, PackedTriangle):
+            grams += 1
+            err = (a.vec - b.vec).abs().max() / a.vec.abs().max()
+            assert err <= 1e-2, (k, err)
+        elif isinstance(a, int):
+            assert a == b, k
+        else:
+            assert torch.equal(a, b), k
+    assert grams == (2 if track_gram else 0)
+    crc_u = read_manifest(str(tmp_path / "u"))["leaves"]
+    crc_r = read_manifest(str(tmp_path / "r"))["leaves"]
+    assert sorted(crc_u) == sorted(crc_r)
+    assert [k for k in crc_u if crc_u[k]["crc"] != crc_r[k]["crc"]
+            and ".gram__" not in k] == []
+
+
+def test_train_fresh_ignores_the_checkpoints(monkeypatch, tmp_path):
+    d = str(tmp_path)
+    ttrain.train(_args(steps=2, ckpt_dir=d))
+    out = ttrain.train(_args(steps=2, ckpt_dir=d, fresh=True))
+    assert not out["resumed"] and out["start_step"] == 0
+    assert out["steps"] == 2 and out["restore_verified"] is None
+    again = ttrain.train(_args(steps=3, ckpt_dir=d))
+    assert again["resumed"] and again["start_step"] == 2
+    assert again["steps"] == 1
 
 
 def test_train_xlstm_raises_and_no_card_raises(monkeypatch):
