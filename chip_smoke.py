@@ -92,7 +92,24 @@ Phases (any failure exits non-zero):
              words, within 1e-2), and that both runs launched
              ``rank_update`` and ``sym_stream``; prints the bytes, the
              blocking save's, the async snapshot's, the restore's and
-             ``verify_restored``'s seconds, and deletes the dir.
+             ``verify_restored``'s seconds, and deletes the dir;
+10. warm   — the serving cache's save and warm start: serves
+             stablelm-1.6b at full width (the phase 4 traffic over 2
+             tenants) with ``--save-cache``, then again from
+             ``--warm-start``; asserts that both keys were restored, on
+             the card, their bf16 EMA words bit-equal to the files, that
+             the tokens of both serves are identical, and that the warm
+             serve ran every refresh's Newton–Schulz chain on
+             ``rank_update`` / ``sym_stream`` (never ``slstm_scan``);
+             saves 3 keys of (2048, 64) features from a synchronous
+             cache and warm-starts a fresh one, each warm factor
+             bit-equal to the live one; serves once more under a
+             persistent ``serve:refresh`` fault (tokens identical,
+             failures counted, the breaker naming both keys) and saves
+             that cache under 2 ``ckpt:fsync`` and 1 ``ckpt:rename``
+             transient faults (committed, 0 mismatches); prints the
+             bytes on disk, the save's, the warm start's and the warm
+             refreshes' seconds, and both serves' tokens/s and TTFT.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -751,20 +768,23 @@ def slstm_cases(torch, randn, rows, card_clock_mhz):
 # --------------------------------------------------------------------------
 # phases 4-5: serve at full width with the whitening cache
 # --------------------------------------------------------------------------
-def run_serve(torch, arch):
+def run_serve(torch, arch, tenants=1, label="", warm_start=None,
+              save_cache=None):
     """Serve 8 requests of 8–47 prompt tokens on 4 slots (s_max 256, 16
-    new tokens, one tenant, whitening cache with refresh stride 2); the
-    launch counts are set to 0 just before and read just after."""
+    new tokens, ``tenants`` tenants, whitening cache with refresh stride
+    2, optionally warm-started from / saved to a dir); the launch counts
+    are set to 0 just before and read just after."""
     from repro_torch.kernels import counts
     from repro_torch.launch.serve import serve
     args = argparse.Namespace(
         arch=arch, smoke=False, device=DEVICE, requests=8,
         slots=4, s_max=256, max_new=16, prompt_lo=8, prompt_hi=48,
-        tenants=1, whiten="cache", refresh_stride=2, no_eos=True, seed=0)
+        tenants=tenants, whiten="cache", refresh_stride=2,
+        warm_start=warm_start, save_cache=save_cache, no_eos=True, seed=0)
     counts.reset_launch_counts()
     out = serve(args)
     launches = counts.launch_counts()
-    tag = f"[{arch}]"
+    tag = f"[{arch}{label}]"
     log(f"{tag} {out['arch']} layers {out['layers']} d_model "
         f"{out['d_model']} vocab {out['vocab']} on {out['device']}")
     log(f"{tag} completed {out['completed']}/{out['requests']}  tokens/s "
@@ -1546,11 +1566,16 @@ def _ckpt_estimate(cfg, layers: int) -> int:
     return n * (2 + 4)
 
 
-def _gram_words(path: str):
+def _gram_bits(path: str):
+    """The bf16 words of a packed leaf file, as int16."""
     import numpy as np
     import torch
-    return torch.from_numpy(np.load(path).view(np.int16)) \
-        .view(torch.bfloat16).float()
+    return torch.from_numpy(np.load(path).view(np.int16))
+
+
+def _gram_words(path: str):
+    import torch
+    return _gram_bits(path).view(torch.bfloat16).float()
 
 
 def ckpt_phase(torch):
@@ -1663,6 +1688,214 @@ def ckpt_phase(torch):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 10: the serving cache's save and warm start at full width
+# --------------------------------------------------------------------------
+#: Newton–Schulz launches of one whitening refresh: a SYRK (T²) an
+#: iteration, two SYMMs (X·T, T²·M) an iteration and one for the seed
+NS_ITERS = 30
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, files in os.walk(path) for f in files)
+
+
+def _state_by_key(cache):
+    return {(t, a, layer): v for (t, a), mon in cache._monitors.items()
+            for layer, v in mon._state.items()}
+
+
+def warm_phase(torch):
+    """Serve stablelm-1.6b (published widths, 2 tenants) saving the
+    whitening cache, serve it again warm-started from the save, check
+    save -> warm start bit-exact in-process at d = 2048, then serve under
+    persistent refresh faults and save under transient I/O faults."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import PackedTriangle, tril_size
+    from repro_torch.distributed import faults
+    from repro_torch.distributed.checkpoint import (read_manifest,
+                                                    restore_checkpoint,
+                                                    verify_restored)
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.serving_cache import ServingGramCache
+    from repro_torch.models.model import init_model
+    arch, tenants = "stablelm-1.6b", 2
+    root = tempfile.mkdtemp(prefix="chip_smoke_warm_")
+    made, restored = [], []
+    real_requests, real_warm = (serve_mod.synthetic_requests,
+                                ServingGramCache.warm_start)
+
+    def requests_spy(*a, **k):          # the requests serve() makes
+        made.append(real_requests(*a, **k))
+        return made[-1]
+
+    def warm_spy(self, *a, **k):        # the state just restored
+        n = real_warm(self, *a, **k)
+        restored.append({k_: v.clone() for k_, v in
+                         _state_by_key(self).items()})
+        return n
+    serve_mod.synthetic_requests = requests_spy
+    ServingGramCache.warm_start = warm_spy
+    try:
+        # 1. save
+        ck = os.path.join(root, "cache")
+        cold, _ = run_serve(torch, arch, tenants, " save", save_cache=ck)
+        cold_toks = [tuple(r.generated) for r in made[-1]]
+        entries = read_manifest(ck)["extra"]["serving_cache"]["entries"]
+        step_dir = os.path.join(ck, "step_00000000")
+        disk = _dir_bytes(step_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 2. warm
+        warm, launches = run_serve(torch, arch, tenants, " warm",
+                                   warm_start=ck)
+        warm_toks = [tuple(r.generated) for r in made[-1]]
+        gc.collect()
+        torch.cuda.empty_cache()
+        wc, cc = warm["cache"], cold["cache"]
+        log(f"[warm] saved {len(entries)} keys, {disk} bytes on disk; "
+            f"factor_cold / factor_hits: cold serve {cc['factor_cold']} / "
+            f"{cc['factor_hits']}, warm serve {wc['factor_cold']} / "
+            f"{wc['factor_hits']}")
+        assert (cold["layers"], cold["d_model"], cold["vocab"]) == (
+            24, 2048, 100352), cold
+        assert len(entries) == tenants and cc["keys"] == tenants, entries
+        assert wc["warm_loaded"] == len(entries), wc
+        [state] = restored
+        for e in entries:
+            got = state[(e["tenant"], e["arch"], e["layer"])]
+            assert got.is_cuda and got.dtype == torch.bfloat16, got
+            want = _gram_bits(os.path.join(step_dir, e["leaf"] + ".npy"))
+            assert torch.equal(got.view(torch.int16).cpu(), want), e
+        log(f"[warm] restored EMA words ({len(entries)} keys, on "
+            f"{DEVICE}) bit-equal to the files")
+        same = warm_toks == cold_toks
+        log(f"[warm] tokens warm vs cold identical: {same}")
+        assert same
+        assert launches["slstm_scan"] == 0, launches
+        # every refresh (the warm start's included) ran its NS chain on
+        # the kernels, every update its Gram on rank_update
+        assert launches["rank_update"] >= NS_ITERS * wc["refreshes"] + \
+            wc["updates"], (launches, wc)
+        assert launches["sym_stream"] >= (2 * NS_ITERS + 1) * \
+            wc["refreshes"], (launches, wc)
+
+        # 3. parity at d = 2048, in-process
+        d = 2048
+        keys = [("tA", "final"), ("tB", "final"), ("tA", "mid")]
+        live = ServingGramCache(refresh_stride=1, synchronous=True)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        for tenant, layer in keys:
+            live.update(tenant, arch, layer, torch.randn(
+                d, 64, generator=gen, device=DEVICE))
+        pdir = os.path.join(root, "parity")
+        live.save(pdir, step=0)
+        again = ServingGramCache(refresh_stride=1, synchronous=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = again.warm_start(pdir, device=DEVICE)
+        torch.cuda.synchronize()
+        ready_s = time.perf_counter() - t0
+        assert n == len(keys) and again.snapshot_stats()[
+            "factors_ready"] == len(keys), again.snapshot_stats()
+        for tenant, layer in keys:
+            a = live.factor(tenant, arch, layer)
+            b = again.factor(tenant, arch, layer)
+            assert b.is_cuda and torch.equal(a, b), (tenant, layer)
+        log(f"[warm] d = {d}: {n} keys saved and warm-started, each warm "
+            f"factor bit-equal to the live one; warm start until every "
+            f"factor ready {ready_s:.4f} s")
+
+        # 4. chaos: persistent refresh faults, then transient I/O faults
+        cfg = get_config(arch)
+        model = init_model(cfg, seed=0, device=DEVICE)
+        chaos = ServingGramCache(refresh_stride=1, refresh_retries=0,
+                                 breaker_threshold=2)
+        srv = serve_mod.Server(cfg, model, slots=4, s_max=256, max_new=16,
+                               eos_id=-1, whiten="cache", gram_cache=chaos,
+                               device=DEVICE)
+        srv.warm_up()
+        reqs = real_requests(8, cfg.vocab, 0, lo=8, hi=48, tenants=tenants)
+        try:
+            with faults.inject(faults.FaultSpec(
+                    site="serve:refresh", kind="error", times=0)) as inj:
+                serve_mod.run(srv, reqs, 8 * 16)
+                chaos.drain()
+        finally:
+            chaos.close()
+        st = chaos.snapshot_stats()
+        chaos_toks = [tuple(r.generated) for r in reqs]
+        stale = sorted(f"tenant{i}/{cfg.name}/final"
+                       for i in range(tenants))
+        log(f"[warm chaos] {len(inj.events)} injected refresh faults; "
+            f"failed_refreshes {st['failed_refreshes']} of "
+            f"{st['refreshes']}, stale {st['stale']}, tokens identical to "
+            f"the fault-free serve: {chaos_toks == cold_toks}")
+        assert all(r.done_t is not None for r in reqs)
+        assert chaos_toks == cold_toks
+        assert st["failed_refreshes"] >= 1 and st["stale"] == stale, st
+        fdir = os.path.join(root, "io_faults")
+        with faults.inject(
+                faults.FaultSpec(site="ckpt:fsync", kind="error", times=2),
+                faults.FaultSpec(site="ckpt:rename", kind="error",
+                                 times=1)) as inj:
+            chaos.save(fdir, step=0)
+        fe = read_manifest(fdir)["extra"]["serving_cache"]["entries"]
+        like = {e["leaf"]: PackedTriangle(torch.zeros(
+            tril_size(e["d"]), dtype=torch.bfloat16, device=DEVICE),
+            e["d"]) for e in fe}
+        _, back = restore_checkpoint(fdir, like)
+        vr = verify_restored(fdir, back)
+        live_state = _state_by_key(chaos)
+        exact = all(torch.equal(back[e["leaf"]].vec.view(torch.int16),
+                                live_state[(e["tenant"], e["arch"],
+                                            e["layer"])].view(torch.int16))
+                    for e in fe)
+        log(f"[warm chaos] save under {[e.site for e in inj.events]}: "
+            f"committed, {vr['checked']} leaves verified, "
+            f"{len(vr['mismatches'])} mismatches, words bit-equal {exact}")
+        assert len(inj.events) == 3 and len(fe) == tenants
+        assert vr["mismatches"] == [] and vr["checked"] == tenants and exact
+        del srv, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. what it cost
+        out = {"keys": len(entries), "bytes_on_disk": disk,
+               "save_cache_s": cold["save_cache_s"],
+               "warm_start_s": warm["warm_start_s"],
+               "warm_start_until_ready_s_d2048": ready_s,
+               "refresh_s_warm": warm["refresh_s"],
+               "factor_cold_hits": {"cold": [cc["factor_cold"],
+                                             cc["factor_hits"]],
+                                    "warm": [wc["factor_cold"],
+                                             wc["factor_hits"]]},
+               **{f"{k}_{name}": r[k] for name, r in (("cold", cold),
+                                                      ("warm", warm))
+                  for k in ("tokens_per_s", "mean_ttft_s", "p50_ttft_s",
+                            "p99_ttft_s")},
+               "chaos_failed_refreshes": st["failed_refreshes"]}
+        log(f"[warm] bytes on disk {disk}; save_cache_s "
+            f"{out['save_cache_s']:.4f}  warm_start_s "
+            f"{out['warm_start_s']:.4f}  warm start until ready (d = {d}, "
+            f"{len(keys)} keys) {ready_s:.4f}  refresh s (warm serve) "
+            f"{[round(x, 4) for x in warm['refresh_s']]}")
+        for name, r in (("cold", cold), ("warm", warm)):
+            log(f"[warm] {name} serve: tokens/s {r['tokens_per_s']:.2f}  "
+                f"ttft mean {r['mean_ttft_s']:.4f} p50 "
+                f"{r['p50_ttft_s']:.4f} p99 {r['p99_ttft_s']:.4f} s")
+        return out, launches
+    finally:
+        serve_mod.synthetic_requests = real_requests
+        ServingGramCache.warm_start = real_warm
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1680,6 +1913,7 @@ def main() -> int:
     tout, tlaunches = train_phase(torch, cases)
     mout, mlaunches = mesh_phase(torch)
     cout, claunches = ckpt_phase(torch)
+    wout, wlaunches = warm_phase(torch)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"xlstm_serve": {k: v for k, v in xout.items()
@@ -1687,6 +1921,7 @@ def main() -> int:
     log(json.dumps({"train": tout}))
     log(json.dumps({"mesh": mout}))
     log(json.dumps({"ckpt": cout}))
+    log(json.dumps({"warm": wout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -1695,7 +1930,8 @@ def main() -> int:
                    "xlstm-350m": xlaunches[name],
                    "train stablelm-1.6b muon": tlaunches[name],
                    "mesh": mlaunches.get(name, 0),
-                   "train resume stablelm-1.6b muon": claunches.get(name, 0)}
+                   "train resume stablelm-1.6b muon": claunches.get(name, 0),
+                   "serve warm stablelm-1.6b": wlaunches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

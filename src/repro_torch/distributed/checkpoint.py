@@ -47,7 +47,9 @@ Guarantees, as in the reference:
     debris of crashed saves, never a live writer's.
 
 ``_fsync_fd`` and ``_rename`` are the only I/O sites of the commit
-protocol, each under :func:`~repro_torch.distributed.resilience.with_retries`.
+protocol, each under :func:`~repro_torch.distributed.resilience.with_retries`
+and each a fault site (``ckpt:fsync``, ``ckpt:rename``) of
+:mod:`~repro_torch.distributed.faults`.
 """
 from __future__ import annotations
 
@@ -65,6 +67,7 @@ import torch
 
 from ..core.packing import (PackedTriangle, ShardedTriTiles, TriTiles,
                             pack_tril, unpack_tril)
+from . import faults
 from .resilience import with_retries
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
@@ -246,15 +249,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 #: transient-I/O retry policy of the commit protocol (fsync / rename):
-#: network and overlay filesystems surface retryable EIO / ESTALE here
+#: network and overlay filesystems surface retryable EIO / ESTALE here,
+#: and the chaos harness injects :class:`~.faults.FaultError` (an
+#: OSError) at the same sites
 _IO_RETRIES = dict(retries=3, backoff=0.01, retry_on=(OSError,))
 
 
 def _fsync_fd(fd: int) -> None:
+    faults.maybe_fail("ckpt:fsync")
     os.fsync(fd)
 
 
 def _rename(src: str, dst: str) -> None:
+    faults.maybe_fail("ckpt:rename")
     os.rename(src, dst)
 
 

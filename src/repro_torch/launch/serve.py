@@ -20,6 +20,9 @@ to the pooled features (the SYMM kernel); the factor refresh (coupled Newton–S
 kernels) runs on the cache's background worker.  ``--whiten sync`` is
 the uncached baseline (from-scratch Gram + eigh per request), ``off``
 skips statistics.  Generated tokens never depend on the whiten mode.
+In cache mode ``--warm-start DIR`` restores the Gram EMA that an earlier
+serve saved with ``--save-cache DIR`` (either package's files) before
+the server is built, and schedules a refresh per restored key.
 
 Runs on the GPU; ``--device cpu`` runs on the host.
 """
@@ -245,6 +248,13 @@ def run(srv: Server, reqs: List[Request], max_steps: int) -> int:
     return steps
 
 
+def _synced(dev: torch.device, t0: float) -> float:
+    """Host seconds since ``t0`` once the device has caught up."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
 def serve(args, device: DeviceLike = None) -> Dict:
     dev = resolve_device(device if device is not None else args.device)
     cfg = get_smoke_config(args.arch) if args.smoke \
@@ -255,9 +265,16 @@ def serve(args, device: DeviceLike = None) -> Dict:
                               lo=args.prompt_lo, hi=args.prompt_hi,
                               tenants=args.tenants)
     gram_cache = None
+    warm_start_s = save_cache_s = None
     if args.whiten == "cache":
         gram_cache = ServingGramCache(refresh_stride=args.refresh_stride)
     try:
+        if gram_cache is not None and args.warm_start:
+            t = time.perf_counter()
+            n = gram_cache.warm_start(args.warm_start, device=dev)
+            warm_start_s = _synced(dev, t)
+            print(f"[serve] warm start: {n} cache entries from "
+                  f"{args.warm_start}")
         srv = Server(cfg, model, slots=args.slots, s_max=args.s_max,
                      max_new=args.max_new, eos_id=-1 if args.no_eos else 0,
                      whiten=args.whiten, gram_cache=gram_cache, device=dev)
@@ -275,6 +292,11 @@ def serve(args, device: DeviceLike = None) -> Dict:
         t1 = time.perf_counter()
         if gram_cache is not None:
             gram_cache.drain()
+            if args.save_cache:
+                t = time.perf_counter()
+                gram_cache.save(args.save_cache, step=0)
+                save_cache_s = _synced(dev, t)
+                print(f"[serve] cache state saved to {args.save_cache}")
         launches = {k: n - before[k]
                     for k, n in counts.launch_counts().items()}
     finally:
@@ -299,6 +321,7 @@ def serve(args, device: DeviceLike = None) -> Dict:
            "p50_latency_s": pct(lats, 50), "p99_latency_s": pct(lats, 99),
            "bucket_ladder": srv.bucket_ladder(),
            "serve_s": t1 - t0, **srv.timing,
+           "warm_start_s": warm_start_s, "save_cache_s": save_cache_s,
            "model_forwards": srv.forwards,
            "warmup_forwards": warmup_forwards,
            "kernel_launches": launches,
@@ -332,6 +355,12 @@ def build_argparser():
     ap.add_argument("--whiten", choices=("off", "cache", "sync"),
                     default="off")
     ap.add_argument("--refresh-stride", type=int, default=8)
+    ap.add_argument("--warm-start", default=None,
+                    help="cache mode: packed checkpoint dir to restore "
+                         "the Gram state from before serving")
+    ap.add_argument("--save-cache", default=None,
+                    help="cache mode: save the Gram state to this dir "
+                         "after serving")
     ap.add_argument("--no-eos", action="store_true", default=True)
     ap.add_argument("--seed", type=int, default=0)
     return ap

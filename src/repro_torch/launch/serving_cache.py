@@ -1,6 +1,5 @@
 """Multi-tenant packed Gram/whitening serving cache (port of
-:mod:`repro.launch.serving_cache`; checkpoint save/warm-start and fault
-injection wait).
+:mod:`repro.launch.serving_cache`).
 
 Per admitted request::
 
@@ -22,11 +21,20 @@ current stream, which is the device's default stream, the one the
 decode loop uses too: the snapshot is complete before the refresh reads
 it, and the factor is complete before decode reads it.
 
+Cold starts warm from the packed checkpoints of
+:mod:`repro_torch.distributed.checkpoint`: :meth:`ServingGramCache.save`
+writes the EMA state as ``PackedTriangle`` leaves (bf16 triangle words)
+with the (tenant, arch, layer) keying in the manifest's ``extra``, and
+:meth:`ServingGramCache.warm_start` rebuilds the monitors from the
+manifest alone, then schedules a refresh per key.  The files are the
+reference's, so either package warm-starts from the other's cache.
+
 Degradation, as in the reference: a failed refresh is retried
 (:func:`with_retries`), then counted and fed to a per-key circuit
 breaker that holds the last-good factor while open; a non-finite NS
 factor falls back to the eigh oracle for that refresh; idle keys are
-evicted after ``max_idle_s``.
+evicted after ``max_idle_s``.  The refresh is the ``serve:refresh``
+fault site of :mod:`repro_torch.distributed.faults`.
 """
 from __future__ import annotations
 
@@ -39,6 +47,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..core.packing import PackedTriangle, tril_size
+from ..device import DeviceLike, resolve_device
+from ..distributed import faults
+from ..distributed.checkpoint import (read_manifest, restore_checkpoint,
+                                      save_checkpoint)
 from ..distributed.resilience import with_retries
 from ..optim.gram import GramMonitor, whitening_from_packed
 
@@ -86,8 +99,9 @@ class ServingGramCache:
             ThreadPoolExecutor(max_workers=1,
                                thread_name_prefix="gram-refresh")
         self.stats = {"updates": 0, "refreshes": 0, "factor_hits": 0,
-                      "factor_cold": 0, "failed_refreshes": 0,
-                      "ns_fallbacks": 0, "evicted": 0}
+                      "factor_cold": 0, "warm_loaded": 0,
+                      "failed_refreshes": 0, "ns_fallbacks": 0,
+                      "evicted": 0}
         #: seconds of each completed refresh, host clock around work that
         #: ends in a device sync (the finiteness check)
         self.refresh_seconds: List[float] = []
@@ -120,6 +134,7 @@ class ServingGramCache:
 
     # -- refresh ---------------------------------------------------------
     def _compute_factor(self, packed: torch.Tensor, d: int) -> torch.Tensor:
+        faults.maybe_fail("serve:refresh")
         t0 = time.perf_counter()
         w = whitening_from_packed(packed, d, eps=self.eps, method="ns",
                                   iters=self.ns_iters)
@@ -283,6 +298,56 @@ class ServingGramCache:
                  if now - t > self.max_idle_s]
         for tenant, arch, layer in stale:
             self.evict(tenant, arch, layer)
+
+    # -- persistence -----------------------------------------------------
+    def save(self, ckpt_dir: str, step: int = 0, **kw) -> None:
+        """Write the EMA state as packed-native checkpoint leaves: one
+        ``PackedTriangle`` ``g{i:04d}`` per (tenant, arch, layer) in
+        sorted order, with the keying in the manifest's ``extra`` so
+        :meth:`warm_start` needs no other schema.  ``kw`` goes to
+        :func:`save_checkpoint`."""
+        tree: Dict[str, PackedTriangle] = {}
+        entries = []
+        for (tenant, arch), mon in sorted(self._monitors.items()):
+            for layer in sorted(mon._state):
+                leaf = f"g{len(entries):04d}"
+                tree[leaf] = PackedTriangle(mon._state[layer],
+                                            mon._dims[layer])
+                entries.append({"leaf": leaf, "tenant": tenant,
+                                "arch": arch, "layer": layer,
+                                "d": mon._dims[layer]})
+        save_checkpoint(ckpt_dir, step, tree,
+                        extra={"serving_cache": {
+                            "entries": entries, "decay": self.decay}},
+                        **kw)
+
+    def warm_start(self, ckpt_dir: str, step: Optional[int] = None,
+                   refresh: bool = True, device: DeviceLike = None) -> int:
+        """Restore the EMA state of a :meth:`save` checkpoint, found
+        through its manifest alone, onto ``device`` (None: the GPU, which
+        raises without one), then (by default) schedule a refresh per
+        restored key.  Returns the number of restored (tenant, arch,
+        layer) entries."""
+        dev = resolve_device(device)
+        entries = read_manifest(ckpt_dir, step)["extra"]["serving_cache"][
+            "entries"]
+        store = self.out_dtype or torch.float32
+        like = {e["leaf"]: PackedTriangle(
+            torch.zeros(tril_size(e["d"]), dtype=store, device=dev),
+            e["d"]) for e in entries}
+        _, tree = restore_checkpoint(ckpt_dir, like, step=step)
+        for e in entries:
+            mon = self.monitor(e["tenant"], e["arch"])
+            leaf = tree[e["leaf"]]
+            mon._state[e["layer"]] = leaf.vec.to(store)
+            mon._dims[e["layer"]] = leaf.n
+            key = (e["tenant"], e["arch"], e["layer"])
+            self._since_refresh[key] = 0
+            self._last_seen[key] = time.monotonic()
+            if refresh:
+                self._schedule_refresh(key)
+        self.stats["warm_loaded"] += len(entries)
+        return len(entries)
 
     def snapshot_stats(self) -> Dict[str, Any]:
         now = time.monotonic()

@@ -27,10 +27,10 @@ every ``--ckpt-every`` steps on a background thread (keeping
 ``--ckpt-keep``) and once more, blocking, at the end; the files are the
 reference's (:mod:`repro_torch.distributed.checkpoint`).
 
-Waiting, each raising a clear error: ``--compress-grads`` and
-``--fail-at`` (distributed state and faults), more than one device
-(the mesh), and training an xlstm config (its sLSTM kernel has no
-backward yet).
+Waiting, each raising a clear error that names its ROADMAP item:
+``--compress-grads`` (A4), ``--fail-at`` (A3, faults and restart),
+more than one device (A7, training on a mesh), and training an xlstm
+config (A9: its sLSTM kernel has no backward yet).
 """
 from __future__ import annotations
 
@@ -74,19 +74,20 @@ def _refuse_waiting(args, cfg) -> None:
     """The reference's options this slice does not carry yet."""
     if args.compress_grads:
         raise NotImplementedError("--compress-grads: ErrorFeedbackInt8 "
-                                  "waits for ROADMAP A8 (distributed "
-                                  "state)")
+                                  "and the compressed all-reduces wait for "
+                                  "ROADMAP A4")
     if args.fail_at is not None:
-        raise NotImplementedError("--fail-at: fault injection and restart "
-                                  "wait for ROADMAP A8")
+        raise NotImplementedError("--fail-at: the train:step fault sites "
+                                  "and the restart loop (recovery.py) "
+                                  "wait for ROADMAP A3")
     if args.devices != 1:
-        raise NotImplementedError(f"--devices {args.devices}: a mesh of "
-                                  "more than one device waits for ROADMAP "
-                                  "A7 (the mesh schedules)")
+        raise NotImplementedError(f"--devices {args.devices}: training on "
+                                  "a mesh of more than one device waits "
+                                  "for ROADMAP A7")
     if any(s.mixer in ("mlstm", "slstm") for s in cfg.pattern):
         raise NotImplementedError(
             f"training {cfg.name} waits: the sLSTM kernel (slstm_scan) has "
-            "no backward yet (ROADMAP A5, xlstm training)")
+            "no backward yet (ROADMAP A9, xlstm training)")
 
 
 def train(args) -> Dict[str, Any]:

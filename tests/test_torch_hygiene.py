@@ -42,6 +42,7 @@ MODULES = [
     "repro_torch.distributed.launch",
     "repro_torch.distributed.checkpoint",
     "repro_torch.distributed.resilience",
+    "repro_torch.distributed.faults",
 ]
 
 _PROBE = r"""
@@ -91,7 +92,7 @@ def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path, alone):
     assert '"ok"' not in out.stdout
 
 
-def test_entry_points_raise_without_a_gpu(monkeypatch):
+def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import Server
     from repro_torch.models.model import init_model
@@ -107,6 +108,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     from repro_torch.launch.train import build_argparser, train
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(build_argparser().parse_args(["--steps", "1"]))
+    from repro_torch.launch.serving_cache import ServingGramCache
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingGramCache().warm_start(str(tmp_path))
 
 
 def test_mesh_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
