@@ -109,7 +109,32 @@ Phases (any failure exits non-zero):
              that cache under 2 ``ckpt:fsync`` and 1 ``ckpt:rename``
              transient faults (committed, 0 mismatches); prints the
              bytes on disk, the save's, the warm start's and the warm
-             refreshes' seconds, and both serves' tokens/s and TTFT.
+             refreshes' seconds, and both serves' tokens/s and TTFT;
+11. faults — ABFT and restart: ``checked_syrk`` / ``checked_syr2k`` /
+             ``checked_symm`` on the local route at the stablelm-1.6b
+             MLP leaf's Muon Gram shape (2048, 5632; a packed S at 2048
+             for SYMM), f32 from a seed: each must run on the kernel
+             route and launch ``rank_update`` / ``sym_stream``, detect
+             nothing when clean (the largest honest residual printed as
+             a fraction of its threshold, < 1), detect a bitflip and a
+             nan on band 0 and retry once to an output bit-equal to the
+             clean one, raise ``AbftError`` under a persistent fault,
+             and (SYRK / SYR2K) rebuild from the clean output at c = 2
+             bit-equal; the unchecked call, the check alone and the
+             checked call timed with CUDA events.  Then
+             ``checked_syrk`` on the 1d route on 4 gloo ranks sharing
+             the card, a bitflip on rank 3's band: detected with
+             primary 3, bit-equal on every rank, a retry's words twice
+             the schedule's.  Then ``run_recovery`` at stablelm-1.6b's
+             published widths and phase 9's depth (Muon,
+             ``--track-gram``, phase 9's traffic) in a temp dir (its
+             free space printed first): phase 1 killed by
+             ``train:step`` before step 3 after step 2's checkpoint
+             committed, phase 2 resumed from step 2 with 0 mismatches,
+             completed, its losses at steps 2-3 phase 9's run A's bit
+             for bit, both phases launching the symmetric kernels;
+             prints each phase's, the restore's and the verify's
+             seconds.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -1896,6 +1921,230 @@ def warm_phase(torch):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 11: ABFT-checked SYRK / SYR2K / SYMM, and the kill -> resume run
+# --------------------------------------------------------------------------
+#: the stablelm-1.6b MLP leaf's Muon Gram shape
+ABFT_N1, ABFT_N2 = 2048, 5632
+#: the kernel each checked op's local route must launch
+ABFT_KERNEL = {"syrk": "rank_update", "syr2k": "rank_update",
+               "symm": "sym_stream"}
+
+
+def abft_local(torch, n1=ABFT_N1, n2=ABFT_N2, device=DEVICE):
+    """checked_syrk / syr2k / symm on the local route at (n1, n2), f32
+    from a seed: a clean call (its routes, launches and largest honest
+    residual as a fraction of its threshold), a bitflip and a nan on
+    band 0 (the local route's one band), a persistent nan, a rebuild
+    from the clean output at c = 2, and the ms of the unchecked call,
+    of the check alone and of the checked call."""
+    from repro_torch.blas.routing import capture_routes
+    from repro_torch.core.packing import pack_tril
+    from repro_torch.distributed import faults
+    from repro_torch.distributed import resilience as res
+    from repro_torch.kernels import counts
+    gen = torch.Generator(device=device).manual_seed(23)
+    a = torch.randn(n1, n2, generator=gen, device=device)
+    b = torch.randn(n1, n2, generator=gen, device=device)
+    s = pack_tril(torch.randn(n1, n1, generator=gen, device=device))
+    checks = {"syrk": res._check_syrk, "syr2k": res._check_syr2k,
+              "symm": res._check_symm}
+    rows = {}
+    for op, ops in (("syrk", (a,)), ("syr2k", (a, b)), ("symm", (s, b))):
+        fn = getattr(res, f"checked_{op}")
+        row = rows[op] = {}
+        counts.reset_launch_counts()
+        with capture_routes() as routes:
+            clean, rep = fn(*ops)
+        row["launches"] = counts.launch_counts()
+        row["paths"] = sorted({r.path for r in routes})
+        row["clean"] = (rep.detected, rep.attempts, rep.action)
+        resid, thr = res.checksum_residuals(op, *ops, out=clean)
+        row["residual_fraction"] = float((resid / thr).max())
+        row["faults"] = {}
+        for kind in ("bitflip", "nan"):
+            with faults.inject(faults.FaultSpec(
+                    site=f"collective:{op}", kind=kind, device=0),
+                    seed=5) as inj:
+                got, rep = fn(*ops, backoff=0.0)
+            row["faults"][kind] = {
+                "events": len(inj.events), "detected": rep.detected,
+                "primary": rep.primary, "action": rep.action,
+                "attempts": rep.attempts,
+                "bit_equal": bool(torch.equal(got, clean))}
+        with faults.inject(faults.FaultSpec(
+                site=f"collective:{op}", kind="nan", device=0, times=0)):
+            try:
+                fn(*ops, retries=1, backoff=0.0)
+                row["persistent"] = "not raised"
+            except res.AbftError as e:
+                row["persistent"] = f"AbftError after {e.report.attempts}"
+        if op != "symm":
+            with faults.inject(faults.FaultSpec(
+                    site=f"collective:{op}", kind="bitflip", device=0),
+                    seed=5):
+                got, rep = fn(*ops, reference=clean, c=2)
+            row["rebuild"] = {"action": rep.action, "devices": rep.devices,
+                              "attempts": rep.attempts,
+                              "bit_equal": bool(torch.equal(got, clean))}
+        if device != "cpu":
+            run = res.route_runner(op, "local")
+            chk = checks[op](n1, res._default_rtol(n1, n2, torch.float32),
+                             res.DEFAULT_ATOL)
+            row["kernel_ms"] = cuda_ms(torch, lambda: run(*ops))
+            # the check as the checked call runs it: flags, then the
+            # flagged rows' indices to the host
+            row["check_ms"] = cuda_ms(
+                torch, lambda: torch.nonzero(chk(*ops, clean)).cpu())
+            row["checked_ms"] = cuda_ms(torch, lambda: fn(*ops))
+        del clean
+    return rows
+
+
+def abft_mesh_rank(mesh):
+    """One rank of the mesh case: checked_syrk on the 1d route at
+    (ABFT_N1, ABFT_N2), clean and under a bitflip on band 3, with the
+    words of each call; rank 0 holds the clean result to a dense
+    torch.matmul oracle."""
+    import torch
+    from repro_torch.core.packing import pack_tril
+    from repro_torch.distributed import collectives, faults
+    from repro_torch.distributed import resilience as res
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(29)
+    a = torch.randn(ABFT_N1, ABFT_N2, generator=gen, device=dev)
+    collectives.reset_word_counts()
+    clean, rep0 = res.checked_syrk(a, route="1d", mesh=mesh)
+    words = collectives.word_counts()
+    collectives.reset_word_counts()
+    with faults.inject(faults.FaultSpec(site="collective:syrk",
+                                        kind="bitflip", device=3),
+                       seed=3) as inj:
+        got, rep = res.checked_syrk(a, route="1d", mesh=mesh, backoff=0.0)
+    out = {"clean_detected": rep0.detected, "words": words,
+           "retry_words": collectives.word_counts(),
+           "events": len(inj.events), "detected": rep.detected,
+           "primary": rep.primary, "action": rep.action,
+           "attempts": rep.attempts, "bad_rows": rep.bad_rows,
+           "bit_equal": bool(torch.equal(got, clean))}
+    if mesh.rank == 0:
+        want = pack_tril(a @ a.T)
+        out["rel_err"] = float((clean - want).abs().max()
+                               / want.abs().max())
+    return out
+
+
+def abft_phase(torch):
+    """Phase 11 (a) and (b): the checked calls on the kernels, then the
+    mesh case on 4 gloo ranks sharing the card."""
+    from repro_torch.distributed.launch import run_ranks
+    rows = abft_local(torch)
+    launches = {}
+    for op, row in rows.items():
+        log(f"[abft] {op} local ({ABFT_N1}, {ABFT_N2}): routes "
+            f"{row['paths']}, launches {row['launches']}; clean "
+            f"{row['clean']}; largest honest residual "
+            f"{row['residual_fraction']:.3e} of its threshold; faults "
+            f"{row['faults']}; persistent: {row['persistent']}; rebuild "
+            f"{row.get('rebuild')}; ms: kernel call {row['kernel_ms']:.4f}, "
+            f"check alone {row['check_ms']:.4f}, checked call "
+            f"{row['checked_ms']:.4f}")
+        assert row["paths"] == ["kernel"], row["paths"]
+        assert row["launches"][ABFT_KERNEL[op]] > 0, row["launches"]
+        assert row["clean"] == (False, 1, "none"), row["clean"]
+        assert row["residual_fraction"] < 1.0, row["residual_fraction"]
+        for kind, f in row["faults"].items():
+            assert f == {"events": 1, "detected": True, "primary": 0,
+                         "action": "retry", "attempts": 2,
+                         "bit_equal": True}, (op, kind, f)
+        assert row["persistent"] == "AbftError after 2", row["persistent"]
+        if op != "symm":
+            rb = row["rebuild"]
+            assert rb["action"] == "rebuild" and rb["devices"] \
+                and rb["attempts"] == 1 and rb["bit_equal"], rb
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    card = torch.cuda.get_device_name(0)
+    log(f"[abft] mesh: checked_syrk, 1d, 4 gloo ranks on one {card}")
+    t0 = time.perf_counter()
+    ranks = run_ranks("chip_smoke:abft_mesh_rank", 4, backend="gloo",
+                      device="cuda:0", paths=[ROOT], timeout=300)
+    mesh_s = time.perf_counter() - t0
+    for r, m in enumerate(ranks):
+        log(f"[abft] mesh rank {r}: {m}")
+        assert not m["clean_detected"] and m["events"] == 1, m
+        assert m["detected"] and m["primary"] == 3 and m["attempts"] == 2 \
+            and m["action"] == "retry" and m["bit_equal"], m
+        assert m["retry_words"] == {k: 2 * v for k, v in
+                                    m["words"].items()}, m
+    assert ranks[0]["rel_err"] <= MESH_TOL, ranks[0]["rel_err"]
+    return {"local": rows, "mesh": ranks, "mesh_s": mesh_s}, launches
+
+
+def recovery_phase(torch, ckpt_out):
+    """Phase 11 (c): ``run_recovery`` at stablelm-1.6b's published widths
+    (phase 9's depth) with Muon and ``--track-gram``, phase 9's traffic:
+    phase 1 killed before step 3, phase 2 resumed from step 2.  Its
+    losses at steps 2-3 must be phase 9's run A's, bit for bit."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.recovery import run_recovery
+    gc.collect()
+    torch.cuda.empty_cache()          # the phases' processes need the card
+    cfg = get_config("stablelm-1.6b")
+    root = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"[recovery] free space at {root}: {free} bytes; two "
+            f"checkpoints ~{2 * _ckpt_estimate(cfg, ckpt_out['layers'])} "
+            "bytes")
+        layers = 0 if ckpt_out["layers"] == cfg.n_layers \
+            else ckpt_out["layers"]
+        t0 = time.perf_counter()
+        out = run_recovery(os.path.join(root, "ckpt"), devices=1,
+                           devices_after=1, steps=4, kill_step=3,
+                           ckpt_every=2, global_batch=8, seq_len=256,
+                           layers=layers, optimizer="muon", track_gram=True,
+                           timeout=500, extra_args=["--full"])
+        total = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    p1, p2 = out["phases"]
+    summary = {k: v for k, v in out.items() if k != "phases"}
+    log(f"[recovery] {json.dumps(summary)}")
+    log(f"[recovery] phase 1: {p1['s']:.1f} s, losses {p1.get('losses')}, "
+        f"launches {p1.get('kernel_launches')}")
+    log(f"[recovery] phase 2: {p2['s']:.1f} s, losses {p2.get('losses')}, "
+        f"launches {p2.get('kernel_launches')}, checkpoint s "
+        f"{p2.get('ckpt_s')}")
+    assert out["killed"] and out["kill_step"] == 3, out
+    assert len(p1["losses"]) == 3, p1        # steps 0-2 ran, then the kill
+    assert out["resumed_step"] == 2 and out["mismatches"] == 0, out
+    assert out["completed"] and out["final"]["resumed"], out
+    want = ckpt_out["losses_A"][2:]
+    log(f"[recovery] phase 2's losses {p2['losses']} vs phase 9's run A at "
+        f"steps 2-3 {want}: bit-equal {p2['losses'] == want}")
+    assert p2["losses"] == want, (p2["losses"], want)
+    launches = {}
+    for p in (p1, p2):
+        n = p["kernel_launches"]
+        assert n["rank_update"] > 0 and n["sym_stream"] > 0, n
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+    times = {"phase1_s": p1["s"], "phase2_s": p2["s"], "total_s": total,
+             "restore_s": p2["ckpt_s"]["restore_s"],
+             "verify_s": p2["ckpt_s"]["verify_s"],
+             "save_s": p2["ckpt_s"].get("save_s")}
+    log(f"[recovery] {json.dumps(times)}")
+    return {"free_bytes": free, "layers": ckpt_out["layers"],
+            "verified_leaves": out["verified_leaves"],
+            "losses_phase1": p1["losses"], "losses_phase2": p2["losses"],
+            **times}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1914,6 +2163,8 @@ def main() -> int:
     mout, mlaunches = mesh_phase(torch)
     cout, claunches = ckpt_phase(torch)
     wout, wlaunches = warm_phase(torch)
+    aout, alaunches = abft_phase(torch)
+    rout, rlaunches = recovery_phase(torch, cout)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"xlstm_serve": {k: v for k, v in xout.items()
@@ -1922,6 +2173,8 @@ def main() -> int:
     log(json.dumps({"mesh": mout}))
     log(json.dumps({"ckpt": cout}))
     log(json.dumps({"warm": wout}))
+    log(json.dumps({"abft": aout}))
+    log(json.dumps({"recovery": rout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -1931,7 +2184,10 @@ def main() -> int:
                    "train stablelm-1.6b muon": tlaunches[name],
                    "mesh": mlaunches.get(name, 0),
                    "train resume stablelm-1.6b muon": claunches.get(name, 0),
-                   "serve warm stablelm-1.6b": wlaunches[name]}
+                   "serve warm stablelm-1.6b": wlaunches[name],
+                   "abft local": alaunches.get(name, 0),
+                   "kill/resume stablelm-1.6b muon": rlaunches.get(name,
+                                                                   0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

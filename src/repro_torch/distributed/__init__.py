@@ -1,20 +1,29 @@
 """Distributed runtime (port of :mod:`repro.distributed`): the mesh of
 ``torch.distributed`` ranks the blas schedules run on (``mesh``), its
 counted collectives (``collectives``) and a launcher of P rank processes
-(``launch``); packed-native checkpoints in one process (``checkpoint``),
-the retry policy of their I/O (``resilience``) and the seeded fault
-harness that the checkpoint commit protocol and the serving cache fire
-into (``faults``); the straggler monitor and step timer the train loop
-uses on every step.  Compression, elasticity and ABFT wait (ROADMAP)."""
+(``launch``); packed-native checkpoints in one process (``checkpoint``);
+``resilience``: the ABFT-checked SYRK / SYR2K / SYMM on the local route
+(the kernels) and every mesh route, their shard repair from a trusted
+reference, and the retry policy of checkpoint I/O; the seeded fault
+harness that the checked routes, the checkpoint commit protocol, the
+serving cache and the train loop fire into (``faults``); the straggler
+monitor and step timer the train loop uses on every step, and the
+replacement shard of its ``evict`` leg.  Compression and elasticity
+wait (ROADMAP)."""
 from . import faults
 from .checkpoint import (checkpoint_bytes, latest_step, read_manifest,
                          recover_stale, restore_checkpoint,
                          save_checkpoint, verify_restored,
                          wait_for_saves)
-from .resilience import with_retries
-from .straggler import StepTimer, StragglerEvent, StragglerMonitor
+from .resilience import (AbftError, AbftReport, checked_symm, checked_syr2k,
+                         checked_syrk, repair_with_reference, with_retries)
+from .straggler import (StepTimer, StragglerEvent, StragglerMonitor,
+                        rebuild_replacement_shard)
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "read_manifest", "wait_for_saves", "checkpoint_bytes",
            "recover_stale", "verify_restored", "with_retries", "faults",
-           "StepTimer", "StragglerEvent", "StragglerMonitor"]
+           "StepTimer", "StragglerEvent", "StragglerMonitor",
+           "rebuild_replacement_shard", "checked_syrk", "checked_syr2k",
+           "checked_symm", "repair_with_reference", "AbftError",
+           "AbftReport"]

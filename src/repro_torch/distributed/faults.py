@@ -5,9 +5,11 @@ A fault is a :class:`FaultSpec` keyed by ``(site, step, device)``:
 
   * ``site`` — a named injection point in the production code paths:
     ``"ckpt:fsync"`` / ``"ckpt:rename"`` (checkpoint commit protocol),
-    ``"serve:refresh"`` (whitening refresh executor); the reference's
-    ``"collective:*"`` and ``"train:*"`` sites have no caller in the
-    port yet.
+    ``"serve:refresh"`` (whitening refresh executor),
+    ``"collective:syrk"`` / ``"collective:syr2k"`` /
+    ``"collective:symm"`` (the ABFT-checked routes of
+    :mod:`.resilience`, payload kinds), ``"train:step"`` /
+    ``"train:straggler"`` (the train loop, before and inside a step).
   * ``kind`` — ``error`` (raise :class:`FaultError`), ``kill`` (raise
     :class:`DeviceLossError`), ``delay`` (sleep ``delay_s``),
     ``bitflip`` / ``nan`` (corrupt packed payload words, applied by the

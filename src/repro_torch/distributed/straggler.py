@@ -14,15 +14,18 @@ monitor below implements the standard telemetry:
 
 The same object doubles as the step timer used by launch/train.py.
 
-Port of :mod:`repro.distributed.straggler` (pure Python);
-``rebuild_replacement_shard`` waits for the distributed-state slice.
+Port of :mod:`repro.distributed.straggler`.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Deque, List, Optional
+from typing import Deque, List, Optional, Tuple
+
+import torch
+
+from ..core.packing import packed_to_device_shard
 
 
 @dataclass
@@ -105,3 +108,19 @@ class StepTimer:
         else:
             self.event = None
         return False
+
+
+def rebuild_replacement_shard(packed: torch.Tensor, n: int, c: int, k: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rebuild device ``k``'s shard of a P = c(c+1) ``ShardedTriTiles``
+    wire from the element-packed checkpoint vector.
+
+    This is the ``evict`` leg of the escalation policy: after the
+    scheduler swaps a straggling host, only the replacement needs state
+    (the survivors keep theirs).  Returns ``(off, diag)`` with shapes
+    ``(T, nb, nb)`` / ``(nb, nb)`` (T = c(c-1)/2 off-diagonal slots),
+    matching ``ShardedTriTiles.off[k]`` / ``.diag[k]`` exactly, built by
+    one slice-granular gather from ``packed``: no dense n×n, no other
+    device's blocks touched.
+    """
+    return packed_to_device_shard(packed, n, c, k)

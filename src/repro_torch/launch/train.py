@@ -10,6 +10,10 @@
         --steps 4 --layers 1 --d-model 64 --d-ff 128 \
         --ckpt-dir /path/to/ckpt --ckpt-every 2    # resumes when re-run
 
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --steps 4 --layers 1 --d-model 64 --d-ff 128 \
+        --ckpt-dir /path/to/ckpt --ckpt-every 2 --fail-at 3   # crashes
+
 Runs on the card unless ``--device cpu`` is given (and raises when no
 card is present and none was asked for).  It carries the reference's
 single-device path: random init from ``--seed``, the deterministic data
@@ -27,10 +31,20 @@ every ``--ckpt-every`` steps on a background thread (keeping
 ``--ckpt-keep``) and once more, blocking, at the end; the files are the
 reference's (:mod:`repro_torch.distributed.checkpoint`).
 
+Failures, as the reference injects them (before a step, and only in a
+run that did not resume): ``--fail-at N`` raises ``RuntimeError`` at
+step N, and an armed ``train:step`` fault (:mod:`..distributed.faults`,
+``REPRO_FAULTS`` in a subprocess) raises ``DeviceLossError``; either
+first commits the checkpoints still being written, so a restart
+(:mod:`.recovery`) resumes from the last one.  ``train:straggler``
+fires inside the step timer (a ``delay`` there drives the straggler
+monitor's escalation).  Each prints the port's ``[train] port:`` line
+(losses and kernel launches so far) before it raises.
+
 Waiting, each raising a clear error that names its ROADMAP item:
-``--compress-grads`` (A4), ``--fail-at`` (A3, faults and restart),
-more than one device (A7, training on a mesh), and training an xlstm
-config (A9: its sLSTM kernel has no backward yet).
+``--compress-grads`` (A4), more than one device (A7, training on a
+mesh), and training an xlstm config (A9: its sLSTM kernel has no
+backward yet).
 """
 from __future__ import annotations
 
@@ -48,8 +62,8 @@ from ..configs import get_config, get_smoke_config
 from ..data import DataConfig, make_train_iterator
 from ..device import describe, resolve_device
 from ..distributed import (StepTimer, StragglerMonitor, checkpoint_bytes,
-                           latest_step, restore_checkpoint, save_checkpoint,
-                           verify_restored, wait_for_saves)
+                           faults, latest_step, restore_checkpoint,
+                           save_checkpoint, verify_restored, wait_for_saves)
 from ..kernels import counts
 from ..models.model import init_model
 from .steps import (describe_blas_routing, init_opt_state, make_optimizer,
@@ -71,15 +85,11 @@ def build_config(args):
 
 
 def _refuse_waiting(args, cfg) -> None:
-    """The reference's options this slice does not carry yet."""
+    """The reference's options the port does not carry yet."""
     if args.compress_grads:
         raise NotImplementedError("--compress-grads: ErrorFeedbackInt8 "
                                   "and the compressed all-reduces wait for "
                                   "ROADMAP A4")
-    if args.fail_at is not None:
-        raise NotImplementedError("--fail-at: the train:step fault sites "
-                                  "and the restart loop (recovery.py) "
-                                  "wait for ROADMAP A3")
     if args.devices != 1:
         raise NotImplementedError(f"--devices {args.devices}: training on "
                                   "a mesh of more than one device waits "
@@ -161,9 +171,37 @@ def train(args) -> Dict[str, Any]:
     counts.reset_launch_counts()
     t_train0 = time.time()
     routes = collections.Counter()
+
+    def report(**extra) -> None:
+        """The port's line beside the reference's summary: the losses
+        so far and ``extra`` (what a restart reads)."""
+        print("[train] port:", json.dumps(
+            {"start_step": start_step, "losses": losses, **extra}),
+            flush=True)
+
+    def flush() -> None:
+        """Before an injected failure surfaces: commit the checkpoints
+        still being written (the writer is a daemon thread, so a dying
+        process would leave a ``.tmp`` directory), so the restart
+        resumes from the last one."""
+        it.close()
+        wait_for_saves()
+        report(kernel_launches=counts.launch_counts())
+
     for step in range(start_step, args.steps):
+        if args.fail_at is not None and step == args.fail_at \
+                and not resumed:
+            flush()
+            raise RuntimeError(f"injected failure at step {step}")
+        if not resumed:
+            try:
+                faults.maybe_fail("train:step", step)
+            except faults.DeviceLossError:
+                flush()                 # a host dropped out
+                raise
         batch = next(it)
         with timer, capture_routes() as log:
+            faults.maybe_fail("train:straggler", step)
             opt_state, metrics = step_fn(opt_state, batch)
             loss = float(metrics["loss"])
         routes.update((r.op, r.n1, r.n2, r.path, r.batch) for r in log)
@@ -200,6 +238,8 @@ def train(args) -> Dict[str, Any]:
     if args.ckpt_dir:
         out["ckpt_bytes"] = checkpoint_bytes(args.ckpt_dir)["total"]
     print("[train] done:", json.dumps(out))
+    report(kernel_launches=launches,
+           ckpt_s=dict(ckpt_s, snapshot_s=snapshot_s))
     out.update({
         "device": describe(dev), "optimizer": args.optimizer,
         "layers": cfg.n_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,

@@ -121,6 +121,10 @@ def test_env_activation(monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     for mod in (tf, jf):
+        # each package caches the injector it built from the environment;
+        # dropped after the test, so the spent spec does not reach a
+        # later test in this process that arms the same environment
+        monkeypatch.setattr(mod, "_ENV_CACHE", (None, None))
         mod.maybe_fail("train:step", 6)           # wrong step: no-op
         with pytest.raises(mod.DeviceLossError):
             mod.maybe_fail("train:step", 7)

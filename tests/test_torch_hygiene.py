@@ -42,7 +42,7 @@ MODULES = [
     "repro_torch.distributed.launch",
     "repro_torch.distributed.checkpoint",
     "repro_torch.distributed.resilience",
-    "repro_torch.distributed.faults",
+    "repro_torch.distributed.faults", "repro_torch.launch.recovery",
 ]
 
 _PROBE = r"""
@@ -111,6 +111,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     from repro_torch.launch.serving_cache import ServingGramCache
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingGramCache().warm_start(str(tmp_path))
+    from repro_torch.launch.recovery import run_recovery
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_recovery(str(tmp_path / "ckpt"), steps=2, kill_step=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(build_argparser().parse_args(["--steps", "1", "--fail-at",
+                                            "0"]))
 
 
 def test_mesh_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):

@@ -171,9 +171,9 @@ def test_train_cli_other_optimizers_and_gram(optimizer):
 
 
 @pytest.mark.parametrize("flag,value", [("compress_grads", True),
-                                        ("fail_at", 1), ("devices", 2)])
+                                        ("devices", 2)])
 def test_train_waiting_flags_raise(flag, value):
-    item = {"compress_grads": "A4", "fail_at": "A3", "devices": "A7"}[flag]
+    item = {"compress_grads": "A4", "devices": "A7"}[flag]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ttrain.train(_args(**{flag: value}))
 
