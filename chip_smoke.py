@@ -134,7 +134,29 @@ Phases (any failure exits non-zero):
              completed, its losses at steps 2-3 phase 9's run A's bit
              for bit, both phases launching the symmetric kernels;
              prints each phase's, the restore's and the verify's
-             seconds.
+             seconds;
+12. compress — int8 gradient compression with error feedback: (a)
+             trains stablelm-1.6b at full width with Muon and
+             ``--compress-grads`` 4 steps on phase 7's traffic, asserting
+             the kernel routes and launches as phase 7 does and step 0's
+             loss phase 7's bit for bit (init, batch and loss precede any
+             update), printing steps 1-3 beside phase 7's, ``compress_s``
+             a step and peak memory; (b) quantizes and dequantizes the
+             (24, 2048, 5632) MLP stack, f32 from a seed, on the card and
+             on the host, bit-equal, timed with CUDA events beside its
+             byte bound (and one ``ErrorFeedbackInt8.compress`` of it);
+             (c) a resume with the EF state at the published widths, 2
+             layers deep (run A 4 steps saving at 2, run B from 2): B's
+             losses A's bit for bit, 0 mismatches, every leaf's crc
+             equal, the manifest's ``ef`` leaves, the bytes and seconds;
+             (d) ``compressed_allreduce`` of a (2048, 5632) matrix and
+             ``compressed_allreduce_sym`` of a symmetric 2048² one, each
+             rank its own (seed = rank), on 4 gloo ranks sharing the
+             card: rank 0's result bit-equal to a numpy oracle and within
+             the reference test's atol of the exact mean, the same on
+             every rank, the bytes a rank the byte model's exactly
+             (17,571,840 and 3,196,440, against 69,206,016 for the f32
+             ``all_reduce``), ms on rank 0, no kernel launch.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -1282,7 +1304,7 @@ def muon_split(torch):
     return {"leaves": rows, "total_s": total}
 
 
-def run_train(torch, optimizer, steps):
+def run_train(torch, optimizer, steps, compress=False):
     """stablelm-1.6b at its published widths (nothing cut), random bf16
     init from seed 0, global batch 8 x 256 tokens; the launch counts set
     to 0 just before and read just after (inside ``train``)."""
@@ -1291,9 +1313,10 @@ def run_train(torch, optimizer, steps):
         "--arch", "stablelm-1.6b", "--full", "--device", DEVICE,
         "--optimizer", optimizer, "--steps", str(steps),
         "--global-batch", "8", "--seq-len", "256", "--loss-chunk", "256",
-        "--seed", "0", "--log-every", "1"])
+        "--seed", "0", "--log-every", "1"]
+        + (["--compress-grads"] if compress else []))
     out = train(args)
-    tag = f"[train {optimizer}]"
+    tag = f"[train {optimizer}{' compressed' if compress else ''}]"
     log(f"{tag} {out['arch']} layers {out['layers']} d_model "
         f"{out['d_model']} d_ff {out['d_ff']} vocab {out['vocab']} params "
         f"{out['params']} on {out['device']}")
@@ -1301,7 +1324,8 @@ def run_train(torch, optimizer, steps):
     for i, (t, sp) in enumerate(zip(out["step_s"], out["split_s"])):
         log(f"{tag} step {i}{' (warm-up)' if i == 0 else ''}: "
             f"{t:.4f} s = loss+backward {sp['loss_backward_s']:.4f} + clip "
-            f"{sp['clip_s']:.4f} + optimizer {sp['opt_s']:.4f}")
+            f"{sp['clip_s']:.4f} + compress {sp['compress_s']:.4f} + "
+            f"optimizer {sp['opt_s']:.4f}")
     launches = out["kernel_launches"]
     per_step = {k: v / steps for k, v in launches.items()}
     log(f"{tag} tokens/s {out['tokens_per_s']:.1f} (after warm-up); peak "
@@ -1313,6 +1337,22 @@ def run_train(torch, optimizer, steps):
     return out, launches
 
 
+def assert_kernel_routes(out, launches, tag):
+    """Every NS SYRK / SYMM with n1 >= 256 of a Muon run took the kernel
+    route, one launch per blas call, stacks included."""
+    routes = out["routes"]                 # [op, n1, n2, path, batched, n]
+    big = [r for r in routes if r[1] >= 256]
+    log(f"{tag} routes (op, n1, n2, path, batched): calls over the "
+        "run: " + "; ".join(f"{tuple(r[:5])}: {r[5]}" for r in routes))
+    assert big and all(r[3] == "kernel" for r in big), routes
+    n_syrk = sum(r[5] for r in big if r[0] == "syrk")
+    n_symm = sum(r[5] for r in big if r[0] == "symm")
+    assert launches["rank_update"] == n_syrk and \
+        launches["sym_stream"] == n_symm, (launches, n_syrk, n_symm)
+    assert launches["rank_update"] > 0 and launches["sym_stream"] > 0
+    assert launches["slstm_scan"] == 0, launches
+
+
 def train_phase(torch, cases):
     batched_cases(torch, cases)
     grad_err = autodiff_check(torch)
@@ -1320,18 +1360,7 @@ def train_phase(torch, cases):
     muon["split"] = muon_split(torch)
     torch.cuda.empty_cache()
     out, launches = run_train(torch, "muon", 6)
-    routes = out["routes"]                 # [op, n1, n2, path, batched, n]
-    big = [r for r in routes if r[1] >= 256]
-    log("[train muon] routes (op, n1, n2, path, batched): calls over the "
-        "run: " + "; ".join(f"{tuple(r[:5])}: {r[5]}" for r in routes))
-    assert big and all(r[3] == "kernel" for r in big), routes
-    # one launch per blas call on the kernel route, stacks included
-    n_syrk = sum(r[5] for r in big if r[0] == "syrk")
-    n_symm = sum(r[5] for r in big if r[0] == "symm")
-    assert launches["rank_update"] == n_syrk and \
-        launches["sym_stream"] == n_symm, (launches, n_syrk, n_symm)
-    assert launches["rank_update"] > 0 and launches["sym_stream"] > 0
-    assert launches["slstm_scan"] == 0, launches
+    assert_kernel_routes(out, launches, "[train muon]")
     torch.cuda.empty_cache()
     adamw, _ = run_train(torch, "adamw", 2)
     torch.cuda.empty_cache()
@@ -2145,6 +2174,342 @@ def recovery_phase(torch, ckpt_out):
             **times}, launches
 
 
+# --------------------------------------------------------------------------
+# phase 12: int8 gradient compression with error feedback
+# --------------------------------------------------------------------------
+#: stablelm-1.6b's largest gradient leaf, the MLP Muon stack; one matrix
+#: of it is the DP wire's leaf in (d), beside a symmetric 2048² one
+COMPRESS_LEAF = (24, 2048, 5632)
+COMPRESS_RANKS = 4
+COMPRESS_BLOCK = 256
+#: (c)'s depth; the widths are the published ones
+COMPRESS_LAYERS = 2
+
+
+def compress_train(torch, muon7):
+    """(a) Muon with ``--compress-grads`` at full width, phase 7's
+    traffic, 4 steps: the kernel routes, step 0's loss phase 7's bit for
+    bit (init, batch and loss come before any update)."""
+    out, launches = run_train(torch, "muon", 4, compress=True)
+    tag = "[compress train]"
+    assert_kernel_routes(out, launches, tag)
+    assert out["compress_grads"], out
+    want = muon7["losses"]
+    log(f"{tag} step 0 loss {out['losses'][0]!r}, phase 7's "
+        f"{want[0]!r}: bit-equal {out['losses'][0] == want[0]}")
+    assert out["losses"][0] == want[0], (out["losses"], want)
+    for i in range(1, len(out["losses"])):
+        log(f"{tag} step {i}: loss {out['losses'][i]:.6f}, phase 7's "
+            f"(uncompressed) {want[i]:.6f}")
+    ef_bytes = 4 * out["params"]
+    log(f"{tag} compress_s a step {out['compress_s']}; peak memory "
+        f"{out['peak_memory_bytes']} bytes "
+        f"({out['peak_memory_bytes'] / 2**30:.2f} GiB; phase 7's "
+        f"{muon7['peak_memory_bytes'] / 2**30:.2f}); EF state {ef_bytes} "
+        "bytes")
+    keep = ("losses", "step_s", "split_s", "compress_s", "tokens_per_s",
+            "peak_memory_bytes", "kernel_launches", "params")
+    return dict({k: out[k] for k in keep}, ef_bytes=ef_bytes), launches
+
+
+def compress_quantizer(torch):
+    """(b) quantize / dequantize of the largest leaf, f32 from a seed,
+    on the card and on the host: bit-equal; the card's timed."""
+    from repro_torch.distributed.compression import (ErrorFeedbackInt8,
+                                                     dequantize_int8,
+                                                     quantize_int8)
+    x = torch.randn(COMPRESS_LEAF, generator=torch.Generator()
+                    .manual_seed(12))
+    xd = x.to(DEVICE)
+    q, s = quantize_int8(xd, COMPRESS_BLOCK)
+    d = dequantize_int8(q, s, xd.shape)
+    qh, sh = quantize_int8(x, COMPRESS_BLOCK)
+    dh = dequantize_int8(qh, sh, x.shape)
+    same = {"q": bool(torch.equal(q.cpu(), qh)),
+            "scale": bool(torch.equal(s.cpu(), sh)),
+            "dequantized": bool(torch.equal(d.cpu(), dh))}
+    rel = float((dh - x).abs().max() / x.abs().max())
+    del x, qh, sh, dh, d
+    n = xd.numel()
+    nb = n // COMPRESS_BLOCK
+    row = {"shape": list(COMPRESS_LEAF), "bit_equal": same,
+           "rel_err": rel,
+           "quantize_ms": cuda_ms(torch, lambda: quantize_int8(
+               xd, COMPRESS_BLOCK)),
+           "dequantize_ms": cuda_ms(torch, lambda: dequantize_int8(
+               q, s, xd.shape)),
+           # each input read once, each output written once
+           "quantize_bound_ms": bound_ms(4 * n + n + 4 * nb, 0)[0],
+           "dequantize_bound_ms": bound_ms(n + 4 * nb + 4 * n, 0)[0]}
+    comp = ErrorFeedbackInt8(COMPRESS_BLOCK)
+    state = comp.init({"w": xd})
+    row["ef_compress_ms"] = cuda_ms(torch, lambda: comp.compress(
+        {"w": xd}, state))
+    row["ef_compress_bound_ms"] = bound_ms(4 * n + 4 * n + 4 * n + 4 * n,
+                                           0)[0]
+    del xd, q, s, state
+    torch.cuda.empty_cache()
+    log(f"[compress quantizer] {COMPRESS_LEAF} f32, block "
+        f"{COMPRESS_BLOCK}: card vs host bit-equal {same}; max |x - "
+        f"dequantized| / max |x| {rel:.3e}; ms (bound): quantize "
+        f"{row['quantize_ms']:.4f} ({row['quantize_bound_ms']:.4f}), "
+        f"dequantize {row['dequantize_ms']:.4f} "
+        f"({row['dequantize_bound_ms']:.4f}), ErrorFeedbackInt8.compress "
+        f"{row['ef_compress_ms']:.4f} ({row['ef_compress_bound_ms']:.4f})")
+    assert all(same.values()), same
+    assert rel <= 1 / 127, rel
+    return row
+
+
+def compress_resume(torch):
+    """(c) Muon with ``--compress-grads`` at the published widths and
+    COMPRESS_LAYERS deep: run A 4 steps saving at 2 (its step-4
+    checkpoint set aside), run B resumed from 2: B's losses A's steps
+    2-3 bit for bit, 0 mismatches, every leaf of B's step 4 A's crc, the
+    manifest holding the EF leaves."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.train import build_argparser, train
+    root = tempfile.mkdtemp(prefix="chip_smoke_compress_")
+    try:
+        log(f"[compress resume] free space at {root}: "
+            f"{shutil.disk_usage(root).free} bytes")
+        d = os.path.join(root, "ckpt")
+        argv = ["--arch", "stablelm-1.6b", "--full", "--device", DEVICE,
+                "--layers", str(COMPRESS_LAYERS), "--optimizer", "muon",
+                "--compress-grads", "--steps", "4", "--ckpt-dir", d,
+                "--ckpt-every", "2", "--ckpt-keep", "2",
+                "--global-batch", "8", "--seq-len", "256",
+                "--loss-chunk", "256", "--seed", "0", "--log-every", "1"]
+        runs = {}
+        for name in ("A", "B"):
+            runs[name] = train(build_argparser().parse_args(argv))
+            gc.collect()
+            torch.cuda.empty_cache()
+            if name == "A":
+                os.rename(os.path.join(d, "step_00000004"),
+                          os.path.join(root, "A_step_00000004"))
+        a, b = runs["A"], runs["B"]
+        assert (a["layers"], a["d_model"], a["d_ff"], a["vocab"]) == \
+            (COMPRESS_LAYERS, 2048, 5632, 100352), a
+        assert not a["resumed"] and b["resumed"] and b["start_step"] == 2
+        vr = b["restore_verified"]
+        bit_equal = b["losses"] == a["losses"][2:]
+        log(f"[compress resume] A's losses {a['losses']}, B's "
+            f"{b['losses']}: bit-equal {bit_equal}; restore verified "
+            f"{vr['checked']} leaves, {len(vr['mismatches'])} mismatches")
+        assert bit_equal and vr["mismatches"] == [], (a["losses"],
+                                                      b["losses"], vr)
+        with open(os.path.join(root, "A_step_00000004",
+                               "manifest.json")) as f:
+            ma = json.load(f)["leaves"]
+        with open(os.path.join(d, "step_00000004", "manifest.json")) as f:
+            mb = json.load(f)["leaves"]
+        ef = sorted(k for k in mb if k.startswith("ef"))
+        params = sorted(k for k in mb if k.startswith("params"))
+        differ = [k for k in ma if ma[k]["crc"] != mb.get(k, {}).get("crc")]
+        log(f"[compress resume] step 4, B against A: {len(mb)} leaves "
+            f"({len(ef)} ef, {len(params)} params), crc differs in "
+            f"{differ}")
+        assert sorted(ma) == sorted(mb) and differ == [], differ
+        assert ef and len(ef) == len(params), (ef, params)
+        nbytes = b["ckpt_bytes"]
+        times = {"async_snapshot_s": a["ckpt_s"]["snapshot_s"],
+                 "blocking_save_s": [a["ckpt_s"]["save_s"],
+                                     b["ckpt_s"]["save_s"]],
+                 "restore_s": b["ckpt_s"]["restore_s"],
+                 "verify_s": b["ckpt_s"]["verify_s"]}
+        log(f"[compress resume] checkpoint {nbytes} bytes "
+            f"({sum(mb[k]['bytes'] for k in ef)} of them EF); "
+            f"{json.dumps(times)}")
+        return {"layers": COMPRESS_LAYERS, "ckpt_bytes": nbytes,
+                "leaves": len(mb), "ef_leaves": len(ef),
+                "losses_A": a["losses"], "losses_B": b["losses"],
+                "compress_s_A": a["compress_s"], **times}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _compress_input(torch, kind, rank, device):
+    """Rank ``rank``'s leaf in (d): an MLP matrix, or a symmetric
+    2048² one ((a + aᵀ)/2, exactly symmetric)."""
+    gen = torch.Generator(device=device).manual_seed(rank)
+    if kind == "dense":
+        return torch.randn(COMPRESS_LEAF[1:], generator=gen, device=device)
+    a = torch.randn(2048, 2048, generator=gen, device=device)
+    return (a + a.T) / 2
+
+
+def compress_rank(mesh):
+    """One rank of (d): compressed_allreduce of its own MLP matrix,
+    compressed_allreduce_sym of its own symmetric leaf, and the f32
+    all_reduce of the matrix; each one's words and bytes, its ms on
+    rank 0 and a crc of its result."""
+    import zlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.compression import (
+        compressed_allreduce, compressed_allreduce_sym)
+    from repro_torch.kernels import counts
+    comm, rank, dev = mesh.comm("x"), mesh.rank, mesh.device
+    x = _compress_input(torch, "dense", rank, dev)
+    s = _compress_input(torch, "sym", rank, dev)
+    calls = {"dense": lambda: compressed_allreduce(x, comm, COMPRESS_BLOCK),
+             "sym": lambda: compressed_allreduce_sym(s, comm,
+                                                     COMPRESS_BLOCK),
+             "all_reduce": lambda: collectives.all_reduce(x, comm)}
+    counts.reset_launch_counts()
+    out = {}
+    for name, call in calls.items():
+        collectives.reset_word_counts()
+        y = call()
+        torch.cuda.synchronize()
+        row = {"words": collectives.word_counts(),
+               "bytes": collectives.byte_counts()}
+        host = y.cpu().numpy()
+        row["crc"] = zlib.crc32(host.tobytes())
+        if name == "sym":
+            row["symmetric"] = bool(torch.equal(y, y.T))
+        if rank == 0 and name != "all_reduce":
+            row["y"] = host
+        del y
+        row["ms"] = _mesh_ms(torch, dist, call, rank)
+        out[name] = row
+    out["launches"] = counts.launch_counts()
+    return out
+
+
+def _np_quant(np, x, block):
+    blocks = x.reshape(-1, block)
+    scale = np.maximum(np.abs(blocks).max(axis=1, keepdims=True)
+                       / np.float32(127.0), np.float32(1e-12))
+    q = np.clip(np.round(blocks / scale), -127, 127).astype(np.int8)
+    return q, scale.astype(np.float32)
+
+
+def _np_allreduce(np, xs, block):
+    """The numpy oracle of compressed_allreduce for lengths that
+    ``block·P`` divides: each rank's blocks quantized, stripe j summed
+    over the ranks as a left fold in rank order, / P, requantized."""
+    P, n = len(xs), xs[0].size
+    assert n % (block * P) == 0, (n, block, P)
+    qs = [_np_quant(np, x.reshape(-1), block) for x in xs]
+    stripe = n // block // P
+    parts = []
+    for j in range(P):
+        rows = slice(j * stripe, (j + 1) * stripe)
+        acc = qs[0][0][rows].astype(np.float32) * qs[0][1][rows]
+        for q, sc in qs[1:]:
+            acc = acc + q[rows].astype(np.float32) * sc[rows]
+        q2, s2 = _np_quant(np, acc / np.float32(P), block)
+        parts.append(q2.astype(np.float32) * s2)
+    return np.concatenate(parts).reshape(xs[0].shape)
+
+
+def compress_collectives(torch):
+    """(d) the compressed all-reduces on COMPRESS_RANKS gloo ranks sharing
+    the card, each with its own leaf: rank 0's result bit-equal to the
+    numpy oracle and within the reference test's atol of the exact mean,
+    every rank's the same, the bytes a rank the byte model's exactly."""
+    import numpy as np
+
+    from repro_torch.distributed.compression import wire_bytes_per_device
+    from repro_torch.distributed.launch import run_ranks
+    P = COMPRESS_RANKS
+    card = torch.cuda.get_device_name(0)
+    log(f"[compress wire] gloo, host-staged, {P} ranks on one {card}")
+    t0 = time.perf_counter()
+    ranks = run_ranks("chip_smoke:compress_rank", P, backend="gloo",
+                      device="cuda:0", paths=[ROOT], timeout=300)
+    wall = time.perf_counter() - t0
+    n = COMPRESS_LEAF[1] * COMPRESS_LEAF[2]
+    want_bytes = {
+        "dense": wire_bytes_per_device(n, P, compressed=True,
+                                       block=COMPRESS_BLOCK),
+        "sym": wire_bytes_per_device(2048 * 2048, P, compressed=True,
+                                     block=COMPRESS_BLOCK, sym_n=2048),
+        "all_reduce": wire_bytes_per_device(n, P, compressed=False)}
+    assert want_bytes == {"dense": 17_571_840, "sym": 3_196_440,
+                          "all_reduce": 69_206_016}, want_bytes
+    xs = {k: [_compress_input(torch, k, r, DEVICE).cpu().numpy()
+              for r in range(P)] for k in ("dense", "sym")}
+    tril = np.tril_indices(2048)
+    packed = _np_allreduce(np, [x[tril] for x in xs["sym"]], COMPRESS_BLOCK)
+    sym = np.zeros((2048, 2048), np.float32)
+    sym[tril] = packed
+    oracle = {"dense": _np_allreduce(np, xs["dense"], COMPRESS_BLOCK),
+              "sym": np.where(np.eye(2048, dtype=bool), sym, sym + sym.T)}
+    rows = {}
+    for name in ("dense", "sym", "all_reduce"):
+        per_rank = [r[name] for r in ranks]
+        got_bytes = [sum(r["bytes"].values()) for r in per_rank]
+        row = {"bytes_a_rank": got_bytes, "byte_model": want_bytes[name],
+               "words_a_rank": per_rank[0]["words"],
+               "bytes_by_kind": per_rank[0]["bytes"],
+               "ms_rank0": per_rank[0]["ms"],
+               "same_on_every_rank": len({r["crc"] for r in per_rank}) == 1}
+        if name != "all_reduce":
+            y = per_rank[0]["y"]
+            mean = sum(xs[name]) / np.float32(P)
+            row["bit_equal_oracle"] = bool(np.array_equal(y, oracle[name]))
+            row["err_vs_mean"] = float(np.abs(y - mean).max()
+                                       / np.abs(mean).max())
+            row["tol"] = 1 / 50 if name == "dense" else 1 / 30
+        if name == "sym":
+            row["symmetric"] = all(r["symmetric"] for r in per_rank)
+        rows[name] = row
+        log(f"[compress wire] {name}: bytes a rank {got_bytes} (model "
+            f"{want_bytes[name]:.0f}) {row['bytes_by_kind']}, words "
+            f"{row['words_a_rank']}; {row['ms_rank0']:.3f} ms on rank 0; "
+            + ", ".join(f"{k} {row[k]}" for k in
+                        ("bit_equal_oracle", "err_vs_mean", "tol",
+                         "symmetric", "same_on_every_rank") if k in row))
+        assert got_bytes == [want_bytes[name]] * P, (name, got_bytes)
+        assert row["same_on_every_rank"], name
+        if name != "all_reduce":
+            assert row["bit_equal_oracle"], name
+            assert row["err_vs_mean"] <= row["tol"], row
+        if name == "sym":
+            assert row["symmetric"], row
+    launched = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    log(f"[compress wire] {wall:.1f} s with process start; kernel "
+        f"launches on every rank {launched}")
+    assert all(v == 0 for v in launched.values()), launched
+    return dict(rows, wall_s=wall, ranks=P)
+
+
+def compress_phase(torch, train_out):
+    """Phase 12: (a) compressed Muon at full width, (b) the quantizer
+    card vs host, (c) a resume with the EF state, (d) the compressed
+    all-reduces on gloo ranks sharing the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train, launches = compress_train(torch, train_out["muon"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    quant = compress_quantizer(torch)
+    t2 = time.perf_counter()
+    resume = compress_resume(torch)
+    t3 = time.perf_counter()
+    wire = compress_collectives(torch)
+    t4 = time.perf_counter()
+    seconds = {"train_s": t1 - t0, "quantizer_s": t2 - t1,
+               "resume_s": t3 - t2, "wire_s": t4 - t3}
+    log(f"[compress] phase seconds {json.dumps(seconds)}")
+    return {"train": train, "quantizer": quant, "resume": resume,
+            "wire": wire, **seconds}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2165,6 +2530,7 @@ def main() -> int:
     wout, wlaunches = warm_phase(torch)
     aout, alaunches = abft_phase(torch)
     rout, rlaunches = recovery_phase(torch, cout)
+    pout, plaunches = compress_phase(torch, tout)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"xlstm_serve": {k: v for k, v in xout.items()
@@ -2175,6 +2541,7 @@ def main() -> int:
     log(json.dumps({"warm": wout}))
     log(json.dumps({"abft": aout}))
     log(json.dumps({"recovery": rout}))
+    log(json.dumps({"compress": pout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -2187,7 +2554,8 @@ def main() -> int:
                    "serve warm stablelm-1.6b": wlaunches[name],
                    "abft local": alaunches.get(name, 0),
                    "kill/resume stablelm-1.6b muon": rlaunches.get(name,
-                                                                   0)}
+                                                                   0),
+                   "train compressed stablelm-1.6b muon": plaunches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

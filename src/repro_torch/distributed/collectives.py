@@ -16,8 +16,9 @@ for a reduce-scatter or an all-to-all, (P−1) times it for an
 all-gather, 2(P−1)/P of it for an all-reduce, the whole buffer for
 each send of a ppermute to another rank.  These are the ring
 algorithms' counts (the closed forms of the paper's word bounds);
-:func:`word_counts` reads them by kind and :func:`reset_word_counts`
-sets them to 0.
+:func:`word_counts` reads them by kind, :func:`byte_counts` the same
+elements times their size (an int8 payload moves a quarter of the bytes
+of an f32 one), and :func:`reset_word_counts` sets both to 0.
 
 An all-gather that only replicates a result the schedule leaves
 sharded (the blas surface returns whole results on every rank, where
@@ -42,12 +43,18 @@ from .mesh import Comm
 REPLICATE = "replicate"
 
 _WORDS: Dict[str, int] = collections.Counter()
+_BYTES: Dict[str, int] = collections.Counter()
 _CALLS: Dict[str, int] = collections.Counter()
 
 
 def word_counts() -> Dict[str, int]:
     """Words this rank sent since the last reset, by collective kind."""
     return dict(_WORDS)
+
+
+def byte_counts() -> Dict[str, int]:
+    """Bytes this rank sent since the last reset, by collective kind."""
+    return dict(_BYTES)
 
 
 def call_counts() -> Dict[str, int]:
@@ -57,11 +64,13 @@ def call_counts() -> Dict[str, int]:
 
 def reset_word_counts() -> None:
     _WORDS.clear()
+    _BYTES.clear()
     _CALLS.clear()
 
 
-def _count(kind: str, words: int) -> None:
+def _count(kind: str, words: int, x: torch.Tensor) -> None:
     _WORDS[kind] += int(words)
+    _BYTES[kind] += int(words) * x.element_size()
     _CALLS[kind] += 1
 
 
@@ -85,7 +94,7 @@ def reduce_scatter(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     xs = _stage(x, comm)
     out = xs.new_empty((x.shape[0] // P,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, xs, group=comm.group)
-    _count("reduce_scatter", x.numel() * (P - 1) // P)
+    _count("reduce_scatter", x.numel() * (P - 1) // P, x)
     return _home(out, x, comm)
 
 
@@ -99,7 +108,7 @@ def all_gather(x: torch.Tensor, comm: Comm,
     xs = _stage(x, comm)
     out = xs.new_empty((P * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, xs, group=comm.group)
-    _count(kind, x.numel() * (P - 1))
+    _count(kind, x.numel() * (P - 1), x)
     return _home(out, x, comm)
 
 
@@ -114,7 +123,7 @@ def all_to_all(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     xs = _stage(x, comm)
     out = torch.empty_like(xs)
     dist.all_to_all_single(out, xs, group=comm.group)
-    _count("all_to_all", x.numel() * (P - 1) // P)
+    _count("all_to_all", x.numel() * (P - 1) // P, x)
     return _home(out, x, comm)
 
 
@@ -125,7 +134,7 @@ def all_reduce(x: torch.Tensor, comm: Comm) -> torch.Tensor:
         return x
     xs = _stage(x, comm).clone()
     dist.all_reduce(xs, group=comm.group)
-    _count("all_reduce", 2 * x.numel() * (P - 1) // P)
+    _count("all_reduce", 2 * x.numel() * (P - 1) // P, x)
     return _home(xs, x, comm)
 
 
@@ -147,7 +156,7 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
     if dst:
         ops.append(dist.P2POp(dist.isend, xs, comm.ranks[dst[0]],
                               group=comm.group))
-        _count("ppermute", x.numel())
+        _count("ppermute", x.numel(), x)
     if src:
         ops.append(dist.P2POp(dist.irecv, out, comm.ranks[src[0]],
                               group=comm.group))

@@ -1,8 +1,9 @@
 """Train and serve step factories (port of :mod:`repro.launch.steps`).
 
 ``make_train_step`` builds the single-device training step: microbatched
-gradient accumulation, global-norm clipping and the optimizer update
-(AdamW / AdamW-8bit / Muon), with the host seconds of each part.
+gradient accumulation, global-norm clipping, optionally int8 gradient
+compression with error feedback, and the optimizer update (AdamW /
+AdamW-8bit / Muon), with the host seconds of each part.
 ``make_prefill_step`` / ``make_decode_step`` are the serving entry
 points.  PyTorch runs them eagerly; the parameters live in the model
 and the optimizers see them as the reference's tree
@@ -78,13 +79,19 @@ def _sync(device: torch.device) -> None:
 
 
 def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
-                    clip_norm: float = 1.0,
-                    loss_chunk: int = 512) -> Callable:
+                    clip_norm: float = 1.0, loss_chunk: int = 512,
+                    compressor=None) -> Callable:
     """Returns ``train_step(opt_state, batch) -> (opt_state, metrics)``;
     it updates the model's parameters in place.  ``microbatches`` > 1
     accumulates f32 gradients over that split of the batch.  ``metrics``
     holds the loss, the gradient norm and the host seconds of loss +
-    backward, clipping and the optimizer, each ending in a sync."""
+    backward, clipping, compression (``compress_s``, 0 without a
+    compressor) and the optimizer, each ending in a sync.
+
+    ``compressor`` (:class:`~repro_torch.distributed.ErrorFeedbackInt8`):
+    ``opt_state`` is then the pair (optimizer state, EF state), and the
+    clipped gradients pass through its int8 quantize / dequantize with
+    error feedback before the optimizer, as the reference's step does."""
     def loss_and_grads(batch) -> Tuple[torch.Tensor, Tree]:
         model.zero_grad(set_to_none=True)
         loss = lm_loss(model, batch, chunk=loss_chunk)
@@ -114,23 +121,35 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
         grads, gnorm = _clip_by_global_norm(grads, clip_norm)
         _sync(dev)
         t2 = time.perf_counter()
+        inner = opt_state
+        if compressor is not None:
+            inner, ef = opt_state
+            grads, ef = compressor.compress(grads, ef)
+            _sync(dev)
+        t3 = time.perf_counter()
         params = model.stacked()
-        new_params, opt_state = optimizer.update(grads, opt_state, params)
+        new_params, inner = optimizer.update(grads, inner, params)
         del grads, params
         model.load_stacked(new_params)
         _sync(dev)
-        t3 = time.perf_counter()
+        t4 = time.perf_counter()
         metrics = {"loss": loss, "grad_norm": gnorm,
                    "loss_backward_s": t1 - t0, "clip_s": t2 - t1,
-                   "opt_s": t3 - t2}
-        return opt_state, metrics
+                   "compress_s": t3 - t2, "opt_s": t4 - t3}
+        if compressor is not None:
+            return (inner, ef), metrics
+        return inner, metrics
 
     return train_step
 
 
-def init_opt_state(model: Model, optimizer):
-    """The optimizer's state for the model's parameter tree."""
-    return optimizer.init(model.stacked())
+def init_opt_state(model: Model, optimizer, compressor=None):
+    """The optimizer's state for the model's parameter tree; with a
+    ``compressor``, the pair (that state, the compressor's EF state)."""
+    params = model.stacked()
+    if compressor is None:
+        return optimizer.init(params)
+    return optimizer.init(params), compressor.init(params)
 
 
 def make_prefill_step(model: Model, s_max: int,

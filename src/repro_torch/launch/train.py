@@ -14,6 +14,9 @@
         --steps 4 --layers 1 --d-model 64 --d-ff 128 \
         --ckpt-dir /path/to/ckpt --ckpt-every 2 --fail-at 3   # crashes
 
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --steps 3 --layers 1 --d-model 64 --d-ff 128 --compress-grads
+
 Runs on the card unless ``--device cpu`` is given (and raises when no
 card is present and none was asked for).  It carries the reference's
 single-device path: random init from ``--seed``, the deterministic data
@@ -22,14 +25,19 @@ steps with global-norm clipping, AdamW / AdamW-8bit / Muon (whose
 Newton–Schulz chain runs on the ``rank_update`` / ``sym_stream``
 kernels, one launch per stacked parameter and call), the straggler
 monitor on every step, and the reference's JSON summary, with the
-port's timings beside it.
+port's timings beside it.  ``--compress-grads`` passes the clipped
+gradients through block-wise int8 quantization with error feedback
+(:class:`~repro_torch.distributed.ErrorFeedbackInt8`) before the
+optimizer, the numerics of a compressed data-parallel all-reduce, and
+times it (``compress_s``).
 
 With ``--ckpt-dir`` it resumes from the newest checkpoint there (unless
 ``--fresh``), checks the restore with ``verify_restored``, saves
 ``{"params": <the reference's param tree>, "opt": <optimizer state>}``
-every ``--ckpt-every`` steps on a background thread (keeping
-``--ckpt-keep``) and once more, blocking, at the end; the files are the
-reference's (:mod:`repro_torch.distributed.checkpoint`).
+(and ``"ef": <the EF state>`` under ``--compress-grads``) every
+``--ckpt-every`` steps on a background thread (keeping ``--ckpt-keep``)
+and once more, blocking, at the end; the files are the reference's
+(:mod:`repro_torch.distributed.checkpoint`).
 
 Failures, as the reference injects them (before a step, and only in a
 run that did not resume): ``--fail-at N`` raises ``RuntimeError`` at
@@ -41,10 +49,9 @@ fires inside the step timer (a ``delay`` there drives the straggler
 monitor's escalation).  Each prints the port's ``[train] port:`` line
 (losses and kernel launches so far) before it raises.
 
-Waiting, each raising a clear error that names its ROADMAP item:
-``--compress-grads`` (A4), more than one device (A7, training on a
-mesh), and training an xlstm config (A9: its sLSTM kernel has no
-backward yet).
+Waiting, each raising a clear error that names its ROADMAP item: more
+than one device (A7, training on a mesh), and training an xlstm config
+(A9: its sLSTM kernel has no backward yet).
 """
 from __future__ import annotations
 
@@ -61,9 +68,10 @@ from ..blas.routing import capture_routes
 from ..configs import get_config, get_smoke_config
 from ..data import DataConfig, make_train_iterator
 from ..device import describe, resolve_device
-from ..distributed import (StepTimer, StragglerMonitor, checkpoint_bytes,
-                           faults, latest_step, restore_checkpoint,
-                           save_checkpoint, verify_restored, wait_for_saves)
+from ..distributed import (ErrorFeedbackInt8, StepTimer, StragglerMonitor,
+                           checkpoint_bytes, faults, latest_step,
+                           restore_checkpoint, save_checkpoint,
+                           verify_restored, wait_for_saves)
 from ..kernels import counts
 from ..models.model import init_model
 from .steps import (describe_blas_routing, init_opt_state, make_optimizer,
@@ -86,10 +94,6 @@ def build_config(args):
 
 def _refuse_waiting(args, cfg) -> None:
     """The reference's options the port does not carry yet."""
-    if args.compress_grads:
-        raise NotImplementedError("--compress-grads: ErrorFeedbackInt8 "
-                                  "and the compressed all-reduces wait for "
-                                  "ROADMAP A4")
     if args.devices != 1:
         raise NotImplementedError(f"--devices {args.devices}: training on "
                                   "a mesh of more than one device waits "
@@ -107,8 +111,10 @@ def train(args) -> Dict[str, Any]:
     model = init_model(cfg, seed=args.seed, device=dev)
     opt = make_optimizer(cfg, args.optimizer, lr=args.lr,
                          track_gram=args.track_gram)
+    compressor = ErrorFeedbackInt8() if args.compress_grads else None
     step_fn = make_train_step(model, opt, microbatches=args.microbatches,
-                              loss_chunk=args.loss_chunk)
+                              loss_chunk=args.loss_chunk,
+                              compressor=compressor)
     tree = model.param_tree()
     shapes = [((len(ps),) if k[0] == "periods" else ()) + tuple(ps[0].shape)
               for k, ps in tree.items()]
@@ -117,15 +123,21 @@ def train(args) -> Dict[str, Any]:
         print("[train] symmetric-BLAS routing (repro_torch.blas):")
         for line in describe_blas_routing(shapes, device=dev):
             print(line)
-    opt_state = init_opt_state(model, opt)
+    opt_state = init_opt_state(model, opt, compressor)
+
+    def state_tree() -> Dict[str, Any]:
+        """What a checkpoint holds, under the reference's keys."""
+        if compressor is None:
+            return {"params": model.stacked(), "opt": opt_state}
+        return {"params": model.stacked(), "opt": opt_state[0],
+                "ef": opt_state[1]}
 
     # ---- init or resume -------------------------------------------------
     start_step, resumed, ckpt_s, verified = 0, False, {}, None
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None \
             and not args.fresh:
         t0 = time.perf_counter()
-        start_step, state = restore_checkpoint(
-            args.ckpt_dir, {"params": model.stacked(), "opt": opt_state})
+        start_step, state = restore_checkpoint(args.ckpt_dir, state_tree())
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
@@ -135,7 +147,8 @@ def train(args) -> Dict[str, Any]:
         print(f"[train] restore verified: {verified['checked']} leaves, "
               f"{len(verified['mismatches'])} mismatches")
         model.load_stacked(state["params"])
-        opt_state = state["opt"]
+        opt_state = state["opt"] if compressor is None \
+            else (state["opt"], state["ef"])
         del state
         resumed = True
         print(f"[train] resumed from step {start_step} ({args.ckpt_dir})")
@@ -150,8 +163,7 @@ def train(args) -> Dict[str, Any]:
             return
         saved = at
         t0 = time.perf_counter()
-        save_checkpoint(args.ckpt_dir, at,
-                        {"params": model.stacked(), "opt": opt_state},
+        save_checkpoint(args.ckpt_dir, at, state_tree(),
                         keep=args.ckpt_keep, blocking=blocking,
                         extra={"global_batch": args.global_batch,
                                "seq_len": args.seq_len})
@@ -208,15 +220,17 @@ def train(args) -> Dict[str, Any]:
         losses.append(loss)
         step_s.append(timer.last)
         split.append({k: metrics[k] for k in
-                      ("loss_backward_s", "clip_s", "opt_s")})
+                      ("loss_backward_s", "clip_s", "compress_s", "opt_s")})
         if timer.event is not None:
             print(f"[straggler] step {step}: {timer.event.action} "
                   f"({timer.event.ratio:.1f}x median)")
             if timer.event.action == "checkpoint" and args.ckpt_dir:
                 save(step + 1)
         if step % args.log_every == 0 or step == args.steps - 1:
+            comp = f", compress {metrics['compress_s'] * 1e3:.0f} ms" \
+                if compressor is not None else ""
             print(f"[train] step {step:5d} loss {loss:.4f} "
-                  f"({timer.last * 1e3:.0f} ms)")
+                  f"({timer.last * 1e3:.0f} ms{comp})")
         # the last step's state is saved once, blocking, below
         if args.ckpt_dir and args.ckpt_every and step + 1 < args.steps \
                 and (step + 1) % args.ckpt_every == 0:
@@ -245,6 +259,8 @@ def train(args) -> Dict[str, Any]:
         "layers": cfg.n_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
         "vocab": cfg.vocab, "start_step": start_step, "losses": losses,
         "step_s": step_s, "split_s": split,
+        "compress_grads": compressor is not None,
+        "compress_s": [sp["compress_s"] for sp in split],
         "tokens_per_s": args.global_batch * args.seq_len
         * len(timed) / sum(timed) if timed else None,
         "kernel_launches": launches,
@@ -286,7 +302,9 @@ def build_argparser():
     ap.add_argument("--max-model", type=int, default=4,
                     help="cap of the mesh's model axis (one device: "
                          "no effect)")
-    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 gradients with error feedback before the "
+                         "optimizer (ErrorFeedbackInt8, block 256)")
     ap.add_argument("--track-gram", action="store_true",
                     help="EMA packed momentum-Grams in the Muon state")
     ap.add_argument("--ckpt-dir", default=None)

@@ -43,6 +43,7 @@ MODULES = [
     "repro_torch.distributed.checkpoint",
     "repro_torch.distributed.resilience",
     "repro_torch.distributed.faults", "repro_torch.launch.recovery",
+    "repro_torch.distributed.compression",
 ]
 
 _PROBE = r"""

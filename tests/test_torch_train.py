@@ -4,7 +4,8 @@ the stablelm smoke config (same weights through ``from_jax_params``),
 the data iterator batch by batch, and 3 steps of
 ``repro_torch.launch.train`` on the CPU, whose losses follow the
 reference's single-device train step (``repro.launch.steps``) from the
-same init, with AdamW and with Muon.
+same init, with AdamW and with Muon, with and without
+``--compress-grads``.
 
 Tolerances (bf16 weights and activations): the loss ``rtol=2e-4``; each
 gradient leaf ``max |Δ| <= 3e-2 · max |g|`` (a few bf16 ulps of its
@@ -125,13 +126,15 @@ def _args(**kw):
     return args
 
 
-@pytest.mark.parametrize("optimizer", ["adamw", "muon"])
-def test_train_cli_follows_reference_losses(monkeypatch, optimizer):
-    """``train`` on the CPU from the reference's init follows the
-    reference's train step (same data, same optimizer) step by step."""
+def _follow_reference(monkeypatch, optimizer, compress_grads=False):
+    """``train`` on the CPU from the reference's init, and the
+    reference's jitted train step on the same data with the same
+    optimizer (and ``ErrorFeedbackInt8`` under ``--compress-grads``):
+    (the port's summary, the reference's losses, its params)."""
+    from repro.distributed import ErrorFeedbackInt8
     from repro.launch.steps import make_optimizer as j_make_opt
     from repro.launch.steps import make_train_step as j_make_step
-    args = _args(optimizer=optimizer)
+    args = _args(optimizer=optimizer, compress_grads=compress_grads)
     cfg_t = ttrain.build_config(args)
     cj, ct, params, np_tree = _setup(layers=1, d_model=64, d_ff=128,
                                      seed=args.seed)
@@ -141,8 +144,12 @@ def test_train_cli_follows_reference_losses(monkeypatch, optimizer):
     out = ttrain.train(args)
 
     opt = j_make_opt(cj, optimizer, lr=args.lr)
-    step = jax.jit(j_make_step(cj, opt, loss_chunk=args.loss_chunk))
+    comp = ErrorFeedbackInt8() if compress_grads else None
+    step = jax.jit(j_make_step(cj, opt, loss_chunk=args.loss_chunk,
+                               compressor=comp))
     state = opt.init(params)
+    if comp is not None:
+        state = (state, comp.init(params))
     it = j_iter(JData(seq_len=args.seq_len, global_batch=args.global_batch,
                       vocab_size=cj.vocab, seed=args.data_seed))
     want = []
@@ -152,6 +159,14 @@ def test_train_cli_follows_reference_losses(monkeypatch, optimizer):
             want.append(float(metrics["loss"]))
     finally:
         it.close()
+    return out, want, params
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "muon"])
+def test_train_cli_follows_reference_losses(monkeypatch, optimizer):
+    """``train`` on the CPU from the reference's init follows the
+    reference's train step (same data, same optimizer) step by step."""
+    out, want, params = _follow_reference(monkeypatch, optimizer)
     assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
     np.testing.assert_allclose(out["losses"], want, rtol=2e-3)
     assert out["losses"][-1] < out["losses"][0]
@@ -162,6 +177,20 @@ def test_train_cli_follows_reference_losses(monkeypatch, optimizer):
                                 for x in jax.tree.leaves(params))
 
 
+@pytest.mark.parametrize("optimizer", ["adamw", "muon"])
+def test_train_compress_grads_follows_reference_losses(monkeypatch,
+                                                       optimizer):
+    """``train --compress-grads`` on the CPU follows the reference's
+    train step with ``compressor=ErrorFeedbackInt8()`` step by step;
+    each step's compression is timed."""
+    out, want, _ = _follow_reference(monkeypatch, optimizer,
+                                     compress_grads=True)
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    np.testing.assert_allclose(out["losses"], want, rtol=2e-3)
+    assert out["compress_grads"] and len(out["compress_s"]) == 3
+    assert all(sp["compress_s"] > 0 for sp in out["split_s"])
+
+
 @pytest.mark.parametrize("optimizer", ["adamw8bit", "muon-syrk"])
 def test_train_cli_other_optimizers_and_gram(optimizer):
     out = ttrain.train(_args(optimizer=optimizer, steps=2, microbatches=2,
@@ -170,10 +199,9 @@ def test_train_cli_other_optimizers_and_gram(optimizer):
     assert out["device"] == "cpu"
 
 
-@pytest.mark.parametrize("flag,value", [("compress_grads", True),
-                                        ("devices", 2)])
+@pytest.mark.parametrize("flag,value", [("devices", 2)])
 def test_train_waiting_flags_raise(flag, value):
-    item = {"compress_grads": "A4", "devices": "A7"}[flag]
+    item = {"devices": "A7"}[flag]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ttrain.train(_args(**{flag: value}))
 
