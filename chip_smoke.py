@@ -156,7 +156,23 @@ Phases (any failure exits non-zero):
              the reference test's atol of the exact mean, the same on
              every rank, the bytes a rank the byte model's exactly
              (17,571,840 and 3,196,440, against 69,206,016 for the f32
-             ``all_reduce``), ms on rank 0, no kernel launch.
+             ``all_reduce``), ms on rank 0, no kernel launch;
+13. meshtrain — ``train --devices 4`` (gloo ranks sharing the card,
+             the wire host-staged) with ``muon-syrk`` on phase 7's
+             traffic, 3 steps: (a) stablelm-1.6b at full width on (data
+             1, model 4), tensor-parallel, its losses within 2e-3 of
+             phase 7's Muon losses a step (step 0: init, batch and loss
+             before any update); (b) (data 2, model 2) at
+             ``--max-model 2``, cut to 2 layers, held the same way to the
+             single-device trainer at that depth.  Each asserts that
+             every rank's losses are identical, that every rank's
+             optimizer words a step are the closed form of its leaves
+             (the 1D schedule, or a gather where ``_use_1d`` declines),
+             and that every rank launched ``rank_update`` /
+             ``sym_stream`` (the gathered stacks' chain); prints the
+             Muon path of each leaf, s per step and its split (loss +
+             backward, reduce, clip, optimizer), words and bytes a rank
+             by phase and kind, and each rank's peak memory.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -2510,6 +2526,197 @@ def compress_phase(torch, train_out):
             "wire": wire, **seconds}, launches
 
 
+# --------------------------------------------------------------------------
+# phase 13: train --devices N on a (data, model) mesh of gloo ranks
+# --------------------------------------------------------------------------
+MESHTRAIN_STEPS = 3
+#: losses a step against the single-device trainer's (tests'
+#: ``tests/test_torch_train_mesh.py`` bound): the ranks sum bf16
+#: products and gradients in another order
+MESHTRAIN_RTOL = 2e-3
+MESHTRAIN_B_LAYERS = 2
+
+
+def _stablelm_leaves(cfg):
+    """{path: whole stacked shape} of the model's parameter tree."""
+    L, d, f, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    hq, hkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    leaves = {("embed",): (V, d), ("unembed",): (d, V),
+              ("final_norm", "scale"): (d,), ("final_norm", "bias"): (d,)}
+    for part, names in (("mixer", {"wq": (d, hq), "wk": (d, hkv),
+                                   "wv": (d, hkv), "wo": (hq, d)}),
+                        ("mlp", {"wi": (d, f), "wg": (d, f),
+                                 "wo": (f, d)})):
+        for n, shape in names.items():
+            leaves[("periods", "b0", part, n)] = (L,) + shape
+    for norm in ("norm1", "norm2"):
+        for n in ("scale", "bias"):
+            leaves[("periods", "b0", norm, n)] = (L, d)
+    return leaves
+
+
+def _ns_closed_form(cfg, data, P, steps=5):
+    """A rank's Muon words a step on a (data, P) mesh, by kind, from the
+    shapes alone, and the path each matrix leaf takes: the 1D schedule
+    where the split is on the long side and Thm 9 case 1 holds (a packed
+    reduce-scatter and all-gather of the short side's padded triangle a
+    NS step, one all-reduce of the norms), else one gather of the block
+    ((P - 1) blocks); a replicated leaf moves nothing."""
+    from repro_torch.core.dispatch import choose_algorithm
+    from repro_torch.core.packing import tril_size
+    from repro_torch.models.sharding import param_specs
+    shapes = _stablelm_leaves(cfg)
+    specs = param_specs(cfg, shapes, {"data": data, "model": P})
+    total, paths = {}, {}
+    for k, shape in shapes.items():
+        if len(shape) < 2 or min(shape[-2:]) < 8:
+            continue                               # signSGD, no NS
+        spec = specs[k]
+        if P == 1 or all(a is None for a in spec):
+            paths["/".join(k)] = "replicated chain"
+            continue
+        rows, cols = shape[-2:]
+        lead = math.prod(shape[:-2])
+        m, n = min(rows, cols), max(rows, cols)
+        long_split = (spec[-1] is not None and rows <= cols) or \
+            (spec[-2] is not None and rows >= cols)
+        if long_split and choose_algorithm(m, n, P, m=1).case == 1:
+            lp = lead * (-(-tril_size(m) // P) * P)
+            words = {"reduce_scatter": steps * (lp * (P - 1) // P),
+                     "all_gather": steps * (lp // P * (P - 1)),
+                     "all_reduce": 2 * lead * (P - 1) // P}
+            paths["/".join(k)] = "1d"
+        else:
+            words = {"all_gather": math.prod(shape) // P * (P - 1)}
+            paths["/".join(k)] = "gather"
+        for kind, w in words.items():
+            total[kind] = total.get(kind, 0) + w
+    return total, paths
+
+
+def run_mesh_train(torch, devices, max_model, layers=0):
+    """``train --devices N`` (gloo ranks sharing this card) on phase 7's
+    traffic with ``muon-syrk``; ``--devices 1`` is the single-device
+    trainer."""
+    from repro_torch.launch.train import build_argparser, train
+    argv = ["--arch", "stablelm-1.6b", "--full", "--device", DEVICE,
+            "--optimizer", "muon-syrk", "--steps", str(MESHTRAIN_STEPS),
+            "--global-batch", "8", "--seq-len", "256", "--loss-chunk",
+            "256", "--seed", "0", "--data-seed", "0", "--log-every", "1",
+            "--devices", str(devices), "--max-model", str(max_model)]
+    if layers:
+        argv += ["--layers", str(layers)]
+    t0 = time.perf_counter()
+    out = train(build_argparser().parse_args(argv))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def meshtrain_check(tag, out, want, cfg, data, P):
+    """Every rank's losses identical and within ``MESHTRAIN_RTOL`` of
+    ``want`` a step, the optimizer's words a rank a step the closed
+    form, the symmetric kernels launched on every rank (the gathered
+    stacks' chain); prints the split, words, bytes and peaks."""
+    assert out["mesh"] == {"data": data, "model": P}, out["mesh"]
+    ranks = out["ranks"]
+    losses = out["losses"]
+    assert len(losses) == MESHTRAIN_STEPS and all(map(math.isfinite,
+                                                      losses)), losses
+    for i, r in enumerate(ranks):
+        assert r["losses"] == losses, (f"rank {i} disagrees", r["losses"],
+                                       losses)
+    log(f"{tag} {cfg.name} {cfg.n_layers} layers, mesh (data {data}, model "
+        f"{P}), {len(ranks)} gloo ranks on one card, muon-syrk; losses "
+        f"{losses} vs the single-device trainer's {want}")
+    for i, (got, ref) in enumerate(zip(losses, want)):
+        rel = abs(got - ref) / abs(ref)
+        log(f"{tag} step {i}: rel {rel:.3e} (<= {MESHTRAIN_RTOL:.0e})")
+        assert rel <= MESHTRAIN_RTOL, (i, got, ref)
+    predicted, paths = _ns_closed_form(cfg, data, P)
+    log(f"{tag} Muon path per matrix leaf: {json.dumps(paths)}")
+    log(f"{tag} Muon words a rank a step, closed form: {predicted}")
+    for i, r in enumerate(ranks):
+        for s, step in enumerate(r["words"]):
+            assert step["opt"] == predicted, (i, s, step["opt"], predicted)
+    r0 = ranks[0]
+    for s, (t, sp) in enumerate(zip(r0["step_s"], r0["split_s"])):
+        log(f"{tag} step {s}{' (warm-up)' if s == 0 else ''}: {t:.4f} s = "
+            f"loss+backward {sp['loss_backward_s']:.4f} + reduce "
+            f"{sp['reduce_s']:.4f} + clip {sp['clip_s']:.4f} + optimizer "
+            f"{sp['opt_s']:.4f} (rank 0)")
+    for phase in ("loss_backward", "reduce", "clip", "opt"):
+        log(f"{tag} rank 0 a step, {phase}: words "
+            f"{r0['words'][-1][phase]}, bytes {r0['bytes'][-1][phase]}")
+    for i, r in enumerate(ranks):
+        log(f"{tag} rank {i}: words over the run {_kinds(r['words'])}, "
+            f"bytes {_kinds(r['bytes'])}; peak memory "
+            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB; launches "
+            f"{r['kernel_launches']}")
+        kl = r["kernel_launches"]
+        assert kl["rank_update"] > 0 and kl["sym_stream"] > 0, kl
+        assert kl["slstm_scan"] == 0, kl
+    launches = {}
+    for r in ranks:
+        for k, v in r["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"{tag} wall {out['wall_s']:.1f} s (rank processes' start, init "
+        "and build included)")
+    return {"mesh": out["mesh"], "losses": losses, "want": want,
+            "paths": paths, "ns_words": predicted,
+            "step_s": [r["step_s"] for r in ranks],
+            "split_s": r0["split_s"],
+            "words": _kinds(r0["words"]), "bytes": _kinds(r0["bytes"]),
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+            "launches": [r["kernel_launches"] for r in ranks],
+            "wall_s": out["wall_s"]}, launches
+
+
+def _kinds(per_step):
+    total = {}
+    for phases in per_step:
+        for kinds in phases.values():
+            for k, v in kinds.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def meshtrain_phase(torch, train_out):
+    """Phase 13: (a) stablelm-1.6b at full width on (data 1, model 4),
+    held to phase 7's Muon losses; (b) at (data 2, model 2), cut to 2
+    layers, held to the single-device trainer at that depth."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("stablelm-1.6b")
+    t0 = time.perf_counter()
+    a = run_mesh_train(torch, 4, 4)
+    ra, la = meshtrain_check("[meshtrain a]", a,
+                             train_out["muon"]["losses"][:MESHTRAIN_STEPS],
+                             cfg, 1, 4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    single = run_mesh_train(torch, 1, 1, layers=MESHTRAIN_B_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = run_mesh_train(torch, 4, 2, layers=MESHTRAIN_B_LAYERS)
+    rb, lb = meshtrain_check(
+        "[meshtrain b]", b, single["losses"],
+        dataclasses.replace(cfg, n_layers=MESHTRAIN_B_LAYERS), 2, 2)
+    t2 = time.perf_counter()
+    launches = {k: la.get(k, 0) + lb.get(k, 0)
+                + single["kernel_launches"].get(k, 0) for k in la}
+    seconds = {"a_s": t1 - t0, "b_s": t2 - t1}
+    log(f"[meshtrain] phase seconds {json.dumps(seconds)}; (b)'s "
+        f"single-device reference: {single['losses']}, peak "
+        f"{single['peak_memory_bytes'] / 2**30:.2f} GiB")
+    return {"a": ra, "b": rb, "b_single_losses": single["losses"],
+            **seconds}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2531,6 +2738,7 @@ def main() -> int:
     aout, alaunches = abft_phase(torch)
     rout, rlaunches = recovery_phase(torch, cout)
     pout, plaunches = compress_phase(torch, tout)
+    eout, elaunches = meshtrain_phase(torch, tout)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"xlstm_serve": {k: v for k, v in xout.items()
@@ -2542,6 +2750,7 @@ def main() -> int:
     log(json.dumps({"abft": aout}))
     log(json.dumps({"recovery": rout}))
     log(json.dumps({"compress": pout}))
+    log(json.dumps({"meshtrain": eout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -2555,7 +2764,8 @@ def main() -> int:
                    "abft local": alaunches.get(name, 0),
                    "kill/resume stablelm-1.6b muon": rlaunches.get(name,
                                                                    0),
-                   "train compressed stablelm-1.6b muon": plaunches[name]}
+                   "train compressed stablelm-1.6b muon": plaunches[name],
+                   "train mesh stablelm-1.6b muon-syrk": elaunches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

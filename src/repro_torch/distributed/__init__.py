@@ -10,12 +10,17 @@ serving cache and the train loop fire into (``faults``); the straggler
 monitor and step timer the train loop uses on every step, and the
 replacement shard of its ``evict`` leg; int8 gradient compression with
 error feedback and the compressed all-reduces on the counted
-collectives (``compression``).  Elasticity waits (ROADMAP A8)."""
+collectives (``compression``); the reference's mesh planner
+(``elastic``: ``plan_shape``, and ``plan_mesh``, which builds the
+planned (data, model) mesh; ``mesh.plan_mesh(axes)`` is a group-less
+planning mesh and is not exported here).  Re-sharding a saved state
+waits (ROADMAP A8)."""
 from . import faults
 from .checkpoint import (checkpoint_bytes, latest_step, read_manifest,
                          recover_stale, restore_checkpoint,
                          save_checkpoint, verify_restored,
                          wait_for_saves)
+from .elastic import plan_mesh, plan_shape
 from .compression import (ErrorFeedbackInt8, compressed_allreduce,
                           compressed_allreduce_sym, dequantize_int8,
                           quantize_int8)
@@ -32,4 +37,4 @@ __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "StepTimer", "StragglerEvent", "StragglerMonitor",
            "rebuild_replacement_shard", "checked_syrk", "checked_syr2k",
            "checked_symm", "repair_with_reference", "AbftError",
-           "AbftReport"]
+           "AbftReport", "plan_shape", "plan_mesh"]

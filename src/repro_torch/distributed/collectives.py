@@ -7,7 +7,7 @@ Counterparts of the reference's ``shard_map`` collectives:
   ``all_gather``     — ``lax.all_gather(..., tiled=True)``
   ``all_to_all``     — ``lax.all_to_all(x, axis, 0, 0, tiled=True)``
   ``ppermute``       — ``lax.ppermute`` (on ``batch_isend_irecv``)
-  ``all_reduce``     — ``lax.psum``
+  ``all_reduce``     — ``lax.psum`` (``lax.pmax`` with ``op="max"``)
 
 Each works along dim 0 of its operand on one :class:`Comm` (a mesh
 axis, or a 3d grid's tb / rep axis) and adds to this rank's word count
@@ -127,13 +127,16 @@ def all_to_all(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     return _home(out, x, comm)
 
 
-def all_reduce(x: torch.Tensor, comm: Comm) -> torch.Tensor:
-    """Sum over the group (a new tensor)."""
+def all_reduce(x: torch.Tensor, comm: Comm, op: str = "sum"
+               ) -> torch.Tensor:
+    """Sum (or, with ``op="max"``, maximum) over the group (a new
+    tensor)."""
     P = comm.size
     if P == 1:
         return x
     xs = _stage(x, comm).clone()
-    dist.all_reduce(xs, group=comm.group)
+    dist.all_reduce(xs, op={"sum": dist.ReduceOp.SUM,
+                            "max": dist.ReduceOp.MAX}[op], group=comm.group)
     _count("all_reduce", 2 * x.numel() * (P - 1) // P, x)
     return _home(xs, x, comm)
 
@@ -164,3 +167,44 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     return _home(out, x, comm)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel operators (Megatron's f and g), differentiable
+# ---------------------------------------------------------------------------
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.float(), ctx.comm).to(g.dtype), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        return all_reduce(x, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """Identity forward, all-reduce (in f32) of the gradient backward:
+    where a replicated activation enters column-parallel weights."""
+    if comm.size == 1:
+        return x
+    return _CopyToGroup.apply(x, comm)
+
+
+def reduce_from_group(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """All-reduce forward, identity backward: the sum of the ranks'
+    partial results (row-parallel weights, a sharded vocabulary).  Pass
+    f32 partials: the sum is taken in ``x``'s dtype."""
+    if comm.size == 1:
+        return x
+    return _ReduceFromGroup.apply(x, comm)

@@ -182,6 +182,28 @@ class ErrorFeedbackInt8:
         new_g, new_e = self._map(one, 2, grads, state.error)
         return new_g, EFState(error=new_e)
 
+    def allreduce(self, grads: Any, state: EFState,
+                  comm: Comm) -> Tuple[Any, EFState]:
+        """The data-parallel form: each rank adds its own residual to its
+        own gradients, the mean over ``comm`` goes through
+        :func:`compressed_allreduce` (int8 on the wire), and the new
+        residual is what this rank's first quantization dropped.
+        Returns (the f32 mean, the new EF state)."""
+        if self.sym_mask is not None:
+            raise NotImplementedError("sym_mask on the data-parallel "
+                                      "all-reduce")
+
+        def one(g, e, sym):
+            corrected = g.float() + e
+            out = compressed_allreduce(corrected, comm, self.block)
+            q, s = quantize_int8(corrected, self.block)
+            deq = dequantize_int8(q, s, corrected.shape)
+            del q, s
+            return out, corrected.sub_(deq)
+
+        new_g, new_e = self._map(one, 2, grads, state.error)
+        return new_g, EFState(error=new_e)
+
 
 def compressed_allreduce(x: torch.Tensor, comm: Comm,
                          block: int = 256) -> torch.Tensor:

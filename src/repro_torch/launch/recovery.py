@@ -23,7 +23,8 @@ as a restart looks to a scheduler:
 Runs on the card unless ``device="cpu"`` (``--device cpu``) is given,
 and raises when there is none.  One card is one device: ``devices`` and
 ``devices_after`` must both be 1.  A resume on another device count is
-ROADMAP A8 (elastic resume), training on more than one A7.
+ROADMAP A8 (elastic resume), and so is a kill -> resume on a mesh:
+it needs the mesh's checkpoints and ``--fail-at`` there (A8).
 """
 from __future__ import annotations
 
@@ -108,8 +109,9 @@ def run_recovery(ckpt_dir: str, *, devices: int = 1,
             "restore at another device count waits for ROADMAP A8 "
             "(elastic resume)")
     if devices > 1:
-        raise NotImplementedError(f"{devices} devices: training on a mesh "
-                                  "waits for ROADMAP A7")
+        raise NotImplementedError(
+            f"{devices} devices: a kill -> resume on a mesh needs sharded "
+            "checkpoints, which wait for ROADMAP A8")
     dev = str(resolve_device(device))
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     phase_kw = dict(steps=steps, global_batch=global_batch,

@@ -1,9 +1,14 @@
 """Train and serve step factories (port of :mod:`repro.launch.steps`).
 
-``make_train_step`` builds the single-device training step: microbatched
-gradient accumulation, global-norm clipping, optionally int8 gradient
+``make_train_step`` builds the training step: microbatched gradient
+accumulation, global-norm clipping, optionally int8 gradient
 compression with error feedback, and the optimizer update (AdamW /
-AdamW-8bit / Muon), with the host seconds of each part.
+AdamW-8bit / Muon), with the host seconds of each part.  On a model
+sharded over a (data, model) mesh (``Model.shard_``) the same step runs
+on this rank's rows and blocks: the gradient mean over the data axes
+(``collectives.all_reduce``, or ``ErrorFeedbackInt8.allreduce`` int8 on
+the wire), the global norm summed over 'model' once per sharded leaf,
+and the optimizer on the blocks.
 ``make_prefill_step`` / ``make_decode_step`` are the serving entry
 points.  PyTorch runs them eagerly; the parameters live in the model
 and the optimizers see them as the reference's tree
@@ -13,31 +18,38 @@ stacked).
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Iterable, List, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from ..distributed import collectives
 from ..models.common import ArchConfig
-from ..models.model import Model, lm_loss
+from ..models.model import Model, lm_loss, lm_loss_terms
 from ..optim.adamw import AdamW
 from ..optim.muon import Muon
+from .mesh import dp_axes
 
 Tree = Dict[Any, torch.Tensor]
 
 
 def describe_blas_routing(shapes: Iterable[Tuple[int, ...]],
                           limit: int = 12, grad: bool = True,
-                          device=None) -> List[str]:
-    """Routing table of the optimizer's symmetric kernels on one device:
-    one line per distinct trailing-2-D parameter shape, the route the NS
-    Gram SYRK takes (``blas.explain``), and with ``grad=True`` the route
-    of its cotangent SYMM."""
+                          device=None, mesh=None,
+                          axis: str = "model") -> List[str]:
+    """Routing table of the optimizer's symmetric kernels: one line per
+    distinct trailing-2-D parameter shape (whole shapes), the route the
+    NS Gram SYRK takes (``blas.explain``) on one device or, given a
+    ``mesh``, on its ``axis``, and with ``grad=True`` the route of its
+    cotangent SYMM."""
     from .. import blas
+    if mesh is not None and axis not in mesh.shape:
+        return [f"  (mesh has no {axis!r} axis: all shapes route dense)"]
     pairs = sorted({tuple(sorted(int(s) for s in shape[-2:]))
                     for shape in shapes if len(shape) >= 2})
     lines = []
     for n1, n2 in pairs[:limit]:
-        text = blas.explain("syrk", n1, n2, device=device, grad=grad)
+        text = blas.explain("syrk", n1, n2, device=device, mesh=mesh,
+                            axis=None if mesh is None else axis, grad=grad)
         lines.extend("  " + ln for ln in text.splitlines())
     if len(pairs) > limit:
         lines.append(f"  ... ({len(pairs) - limit} more shapes)")
@@ -45,20 +57,25 @@ def describe_blas_routing(shapes: Iterable[Tuple[int, ...]],
 
 
 def make_optimizer(cfg: ArchConfig, name: str = "adamw", lr: float = 3e-4,
-                   track_gram: bool = False):
+                   track_gram: bool = False, mesh=None,
+                   specs: Optional[Dict[Any, Any]] = None):
     """``track_gram``: EMA a packed momentum-Gram per 2-D matrix param in
     the Muon state (ignored by the AdamW family).  ``muon-syrk`` names
     the 1D mesh schedule, which with no mesh takes the reference branch,
-    as the reference does when its mesh is None."""
+    as the reference does when its mesh is None.  ``specs``: the
+    parameters are this rank's blocks on ``mesh`` (Muon orthogonalizes
+    them there; AdamW is elementwise and needs neither)."""
     gd = 0.99 if track_gram else None
     if name == "adamw":
         return AdamW(lr=lr)
     if name == "adamw8bit":
         return AdamW(lr=lr, quantize_moments=True)
     if name == "muon":
-        return Muon(lr=2e-2, mode="reference", gram_decay=gd)
+        return Muon(lr=2e-2, mode="reference", gram_decay=gd, mesh=mesh,
+                    specs=specs)
     if name == "muon-syrk":
-        return Muon(lr=2e-2, mode="syrk-1d", gram_decay=gd)
+        return Muon(lr=2e-2, mode="syrk-1d", gram_decay=gd, mesh=mesh,
+                    specs=specs)
     raise ValueError(name)
 
 
@@ -73,9 +90,32 @@ def _clip_by_global_norm(grads: Tree, max_norm: float
     return {k: g.float() * scale for k, g in grads.items()}, gn
 
 
+def _clip_sharded(grads: Tree, specs, mesh, max_norm: float
+                  ) -> Tuple[Tree, torch.Tensor]:
+    """:func:`_clip_by_global_norm` over this rank's blocks: the squares
+    of every leaf split over 'model' summed and all-reduced there, each
+    replicated leaf counted once."""
+    split = [k for k in grads if "model" in specs[k]]
+    dev = next(iter(grads.values())).device
+    sq = sum((torch.sum(torch.square(grads[k].float())) for k in split),
+             torch.zeros((), device=dev))
+    if split and mesh.shape.get("model", 1) > 1:
+        sq = collectives.all_reduce(sq, mesh.comm("model"))
+    sq = sq + sum(torch.sum(torch.square(g.float()))
+                  for k, g in grads.items() if "model" not in specs[k])
+    gn = torch.sqrt(sq)
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return {k: g.float() * scale for k, g in grads.items()}, gn
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _delta(now: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
 
 
 def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
@@ -91,16 +131,53 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
     ``compressor`` (:class:`~repro_torch.distributed.ErrorFeedbackInt8`):
     ``opt_state`` is then the pair (optimizer state, EF state), and the
     clipped gradients pass through its int8 quantize / dequantize with
-    error feedback before the optimizer, as the reference's step does."""
+    error feedback before the optimizer, as the reference's step does.
+
+    On a sharded model ``batch`` is this rank's rows.  Each rank's loss
+    is its rows' token losses over the valid tokens of every data
+    rank's rows, times the data ranks, so that the gradient mean over
+    the data axes is the global batch's; ``metrics["loss"]`` is the
+    global batch's on every rank.  A ``compressor`` then replaces the
+    data-axis mean (each rank's own residual; the reduction before the
+    clip, as the wire needs), timed as ``compress_s``; the plain mean is
+    ``reduce_s``.  ``metrics["words"]`` / ``["bytes"]``: this rank's
+    collectives by phase (``loss_backward``, ``reduce``, ``clip``,
+    ``opt``) and kind."""
+    mesh = model.mesh
+    dp = [mesh.comm(a) for a in dp_axes(mesh) if mesh.shape[a] > 1] \
+        if mesh is not None else []
+    n_dp = 1
+    for c in dp:
+        n_dp *= c.size
+    if compressor is not None and len(dp) > 1:
+        raise NotImplementedError("compressed gradients over more than one "
+                                  "data axis")
+
+    def dp_sum(x: torch.Tensor) -> torch.Tensor:
+        for c in dp:
+            x = collectives.all_reduce(x, c)
+        return x
+
     def loss_and_grads(batch) -> Tuple[torch.Tensor, Tree]:
         model.zero_grad(set_to_none=True)
-        loss = lm_loss(model, batch, chunk=loss_chunk)
+        if mesh is None:
+            loss = lm_loss(model, batch, chunk=loss_chunk)
+            loss.backward()
+            return loss.detach(), model.stacked(lambda p: p.grad)
+        tot, cnt = lm_loss_terms(model, batch, chunk=loss_chunk)
+        cnt = torch.clamp(dp_sum(cnt.detach()), min=1.0)
+        loss = tot * (n_dp / cnt)
         loss.backward()
-        return loss.detach(), model.stacked(lambda p: p.grad)
+        return dp_sum(loss.detach()) / n_dp, \
+            model.stacked(lambda p: p.grad)
+
+    def counted() -> Tuple[Dict[str, int], Dict[str, int]]:
+        return collectives.word_counts(), collectives.byte_counts()
 
     def train_step(opt_state, batch: Dict[str, torch.Tensor]):
         dev = model.device
         _sync(dev)
+        marks = [counted()]
         t0 = time.perf_counter()
         if microbatches > 1:
             loss_sum, gacc = 0.0, None
@@ -118,24 +195,49 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
         model.zero_grad(set_to_none=True)
         _sync(dev)
         t1 = time.perf_counter()
-        grads, gnorm = _clip_by_global_norm(grads, clip_norm)
-        _sync(dev)
-        t2 = time.perf_counter()
+        marks.append(counted())
         inner = opt_state
         if compressor is not None:
             inner, ef = opt_state
+        if mesh is not None and compressor is not None:
+            grads, ef = compressor.allreduce(grads, ef, dp[0]) if dp \
+                else compressor.compress(grads, ef)
+        elif dp:
+            grads = {k: dp_sum(g.float()) / n_dp for k, g in grads.items()}
+        _sync(dev)
+        t2 = time.perf_counter()
+        marks.append(counted())
+        if mesh is None:
+            grads, gnorm = _clip_by_global_norm(grads, clip_norm)
+        else:
+            grads, gnorm = _clip_sharded(grads, model.specs, mesh, clip_norm)
+        _sync(dev)
+        t3 = time.perf_counter()
+        if mesh is None and compressor is not None:
             grads, ef = compressor.compress(grads, ef)
             _sync(dev)
-        t3 = time.perf_counter()
+        t4 = time.perf_counter()
+        marks.append(counted())
         params = model.stacked()
         new_params, inner = optimizer.update(grads, inner, params)
         del grads, params
         model.load_stacked(new_params)
         _sync(dev)
-        t4 = time.perf_counter()
+        t5 = time.perf_counter()
+        marks.append(counted())
+        reduced = compressor is not None and mesh is not None
+        phases = ("loss_backward", "reduce", "clip", "opt")
         metrics = {"loss": loss, "grad_norm": gnorm,
-                   "loss_backward_s": t1 - t0, "clip_s": t2 - t1,
-                   "compress_s": t3 - t2, "opt_s": t4 - t3}
+                   "loss_backward_s": t1 - t0,
+                   "reduce_s": t2 - t1 if dp and not reduced else 0.0,
+                   "clip_s": t3 - t2,
+                   "compress_s": (t2 - t1) + (t4 - t3) if reduced
+                   else t4 - t3,
+                   "opt_s": t5 - t4,
+                   "words": {p: _delta(marks[i + 1][0], marks[i][0])
+                             for i, p in enumerate(phases)},
+                   "bytes": {p: _delta(marks[i + 1][1], marks[i][1])
+                             for i, p in enumerate(phases)}}
         if compressor is not None:
             return (inner, ef), metrics
         return inner, metrics

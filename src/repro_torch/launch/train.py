@@ -49,9 +49,26 @@ fires inside the step timer (a ``delay`` there drives the straggler
 monitor's escalation).  Each prints the port's ``[train] port:`` line
 (losses and kernel launches so far) before it raises.
 
-Waiting, each raising a clear error that names its ROADMAP item: more
-than one device (A7, training on a mesh), and training an xlstm config
-(A9: its sLSTM kernel has no backward yet).
+``--devices N`` > 1 trains on a (data, model) mesh of N
+``torch.distributed`` ranks, a process each (``run_ranks``, gloo; on
+one card all ranks share it and the wire goes through the host), as
+the reference's trainer does on its mesh: the mesh planned from N by
+``plan_shape(N, max_model=--max-model)``, the parameters and optimizer
+state held as each rank's blocks under ``param_specs`` (stablelm
+tensor-parallel over 'model'), each data rank on its rows of the global
+batch (``batch_specs``), the gradients averaged over 'data' (int8 on
+the wire under ``--compress-grads``), and Muon's ``syrk-1d`` running
+the 1D schedule on the blocks.  Every rank must report the same losses;
+rank 0's summary is printed, with the mesh and each rank's words and
+bytes by collective kind:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --devices 4 --max-model 2 --steps 3 --optimizer muon-syrk
+
+Waiting, each raising a clear error that names its ROADMAP item: on a
+mesh, ``--ckpt-dir`` / ``--fail-at`` (A8, sharded save and restore) and
+``--track-gram`` (A7b); training an xlstm config (A9: its sLSTM kernel
+has no backward yet).
 """
 from __future__ import annotations
 
@@ -59,8 +76,9 @@ import argparse
 import collections
 import dataclasses
 import json
+import math
 import time
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List
 
 import torch
 
@@ -70,10 +88,13 @@ from ..data import DataConfig, make_train_iterator
 from ..device import describe, resolve_device
 from ..distributed import (ErrorFeedbackInt8, StepTimer, StragglerMonitor,
                            checkpoint_bytes, faults, latest_step,
+                           plan_mesh, plan_shape,
                            restore_checkpoint, save_checkpoint,
                            verify_restored, wait_for_saves)
+from ..distributed.launch import run_ranks
 from ..kernels import counts
 from ..models.model import init_model
+from ..models.sharding import batch_specs, global_shape, shard_leaf
 from .steps import (describe_blas_routing, init_opt_state, make_optimizer,
                     make_train_step)
 
@@ -94,10 +115,19 @@ def build_config(args):
 
 def _refuse_waiting(args, cfg) -> None:
     """The reference's options the port does not carry yet."""
-    if args.devices != 1:
-        raise NotImplementedError(f"--devices {args.devices}: training on "
-                                  "a mesh of more than one device waits "
-                                  "for ROADMAP A7")
+    if args.devices < 1:
+        raise ValueError(f"--devices {args.devices}")
+    if args.devices > 1:
+        for flag, on in (("--ckpt-dir", args.ckpt_dir is not None),
+                         ("--fail-at", args.fail_at is not None)):
+            if on:
+                raise NotImplementedError(
+                    f"{flag} with --devices {args.devices}: sharded "
+                    "checkpoints and their restore wait for ROADMAP A8")
+        if args.track_gram:
+            raise NotImplementedError(
+                f"--track-gram with --devices {args.devices}: the packed "
+                "momentum Grams of sharded parameters wait for ROADMAP A7b")
     if any(s.mixer in ("mlstm", "slstm") for s in cfg.pattern):
         raise NotImplementedError(
             f"training {cfg.name} waits: the sLSTM kernel (slstm_scan) has "
@@ -105,24 +135,71 @@ def _refuse_waiting(args, cfg) -> None:
 
 
 def train(args) -> Dict[str, Any]:
+    """Train as the flags say: on one device, or with ``--devices`` > 1
+    on a mesh of that many ranks (rank 0's summary returned, with
+    ``"ranks"``: every rank's)."""
     cfg = build_config(args)
     _refuse_waiting(args, cfg)
-    dev = resolve_device(args.device)
-    model = init_model(cfg, seed=args.seed, device=dev)
+    if args.devices > 1:
+        return _train_on_mesh(args)
+    return _run(args, cfg, resolve_device(args.device))
+
+
+def _train_on_mesh(args) -> Dict[str, Any]:
+    data, _ = plan_shape(args.devices, max_model=args.max_model)
+    if args.global_batch % data:
+        raise SystemExit(f"--global-batch must divide data axis {data}")
+    ranks = run_ranks("repro_torch.launch.train:train_rank", args.devices,
+                      backend="gloo", device=args.device,
+                      kwargs={"flags": vars(args)}, timeout=3600)
+    out = ranks[0]
+    for line in out.pop("log"):
+        print(line)
+    out["ranks"] = [{k: r[k] for k in ("losses", "peak_memory_bytes",
+                                       "words", "bytes", "step_s",
+                                       "split_s", "kernel_launches")}
+                    for r in ranks]
+    return out
+
+
+def train_rank(mesh_x, flags: Dict[str, Any]) -> Dict[str, Any]:
+    """One rank of ``train --devices N`` (the ``run_ranks`` target):
+    the (data, model) mesh planned as the reference plans it, then the
+    train loop on this rank's blocks and rows.  Rank 0 keeps its log
+    lines for the launcher to print."""
+    args = argparse.Namespace(**flags)
+    cfg = build_config(args)
+    mesh = plan_mesh(max_model=args.max_model, device=mesh_x.device)
+    log: List[str] = []
+    say = log.append if mesh.rank == 0 else (lambda line: None)
+    out = _run(args, cfg, mesh.device, mesh=mesh, say=say)
+    out["log"] = log
+    return out
+
+
+def _run(args, cfg, dev, mesh=None,
+         say: Callable[[str], None] = print) -> Dict[str, Any]:
+    """The train loop on ``dev``: the whole model, or on ``mesh`` this
+    rank's blocks of it."""
+    model = init_model(cfg, seed=args.seed, device=dev,
+                       **({} if mesh is None else {"mesh": mesh}))
     opt = make_optimizer(cfg, args.optimizer, lr=args.lr,
-                         track_gram=args.track_gram)
+                         track_gram=args.track_gram, mesh=mesh,
+                         specs=model.specs)
     compressor = ErrorFeedbackInt8() if args.compress_grads else None
     step_fn = make_train_step(model, opt, microbatches=args.microbatches,
                               loss_chunk=args.loss_chunk,
                               compressor=compressor)
-    tree = model.param_tree()
-    shapes = [((len(ps),) if k[0] == "periods" else ()) + tuple(ps[0].shape)
-              for k, ps in tree.items()]
-    n_params = sum(p.numel() for p in model.parameters())
+    shapes = model.stacked_shapes()
+    if mesh is not None:
+        shapes = {k: global_shape(s, model.specs[k], mesh)
+                  for k, s in shapes.items()}
+    n_params = sum(math.prod(s) for s in shapes.values())
     if args.optimizer.startswith("muon"):
-        print("[train] symmetric-BLAS routing (repro_torch.blas):")
-        for line in describe_blas_routing(shapes, device=dev):
-            print(line)
+        say("[train] symmetric-BLAS routing (repro_torch.blas):")
+        for line in describe_blas_routing(shapes.values(), device=dev,
+                                          mesh=mesh):
+            say(line)
     opt_state = init_opt_state(model, opt, compressor)
 
     def state_tree() -> Dict[str, Any]:
@@ -144,14 +221,14 @@ def train(args) -> Dict[str, Any]:
         verified = verify_restored(args.ckpt_dir, state, step=start_step)
         ckpt_s.update(restore_s=t1 - t0,
                       verify_s=time.perf_counter() - t1)
-        print(f"[train] restore verified: {verified['checked']} leaves, "
-              f"{len(verified['mismatches'])} mismatches")
+        say(f"[train] restore verified: {verified['checked']} leaves, "
+            f"{len(verified['mismatches'])} mismatches")
         model.load_stacked(state["params"])
         opt_state = state["opt"] if compressor is None \
             else (state["opt"], state["ef"])
         del state
         resumed = True
-        print(f"[train] resumed from step {start_step} ({args.ckpt_dir})")
+        say(f"[train] resumed from step {start_step} ({args.ckpt_dir})")
 
     saved = start_step if resumed else None
     snapshot_s: List[float] = []
@@ -175,9 +252,12 @@ def train(args) -> Dict[str, Any]:
     dcfg = DataConfig(seq_len=args.seq_len, global_batch=args.global_batch,
                       vocab_size=cfg.vocab, seed=args.data_seed)
     it = make_train_iterator(dcfg, start_step=start_step, device=dev)
+    # each rank takes its rows of the global batch (batch_specs)
+    bspecs = batch_specs(cfg, mesh, args.global_batch, False) \
+        if mesh is not None else None
     monitor = StragglerMonitor(threshold=args.straggler_threshold)
     timer = StepTimer(monitor)
-    losses, step_s, split = [], [], []
+    losses, step_s, split, words, nbytes = [], [], [], [], []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     counts.reset_launch_counts()
@@ -187,9 +267,8 @@ def train(args) -> Dict[str, Any]:
     def report(**extra) -> None:
         """The port's line beside the reference's summary: the losses
         so far and ``extra`` (what a restart reads)."""
-        print("[train] port:", json.dumps(
-            {"start_step": start_step, "losses": losses, **extra}),
-            flush=True)
+        say("[train] port: " + json.dumps(
+            {"start_step": start_step, "losses": losses, **extra}))
 
     def flush() -> None:
         """Before an injected failure surfaces: commit the checkpoints
@@ -212,6 +291,9 @@ def train(args) -> Dict[str, Any]:
                 flush()                 # a host dropped out
                 raise
         batch = next(it)
+        if bspecs is not None:
+            batch = {k: shard_leaf(v, bspecs[k], mesh)
+                     for k, v in batch.items()}
         with timer, capture_routes() as log:
             faults.maybe_fail("train:straggler", step)
             opt_state, metrics = step_fn(opt_state, batch)
@@ -220,17 +302,20 @@ def train(args) -> Dict[str, Any]:
         losses.append(loss)
         step_s.append(timer.last)
         split.append({k: metrics[k] for k in
-                      ("loss_backward_s", "clip_s", "compress_s", "opt_s")})
+                      ("loss_backward_s", "reduce_s", "clip_s",
+                       "compress_s", "opt_s")})
+        words.append(metrics["words"])
+        nbytes.append(metrics["bytes"])
         if timer.event is not None:
-            print(f"[straggler] step {step}: {timer.event.action} "
-                  f"({timer.event.ratio:.1f}x median)")
+            say(f"[straggler] step {step}: {timer.event.action} "
+                f"({timer.event.ratio:.1f}x median)")
             if timer.event.action == "checkpoint" and args.ckpt_dir:
                 save(step + 1)
         if step % args.log_every == 0 or step == args.steps - 1:
             comp = f", compress {metrics['compress_s'] * 1e3:.0f} ms" \
                 if compressor is not None else ""
-            print(f"[train] step {step:5d} loss {loss:.4f} "
-                  f"({timer.last * 1e3:.0f} ms{comp})")
+            say(f"[train] step {step:5d} loss {loss:.4f} "
+                f"({timer.last * 1e3:.0f} ms{comp})")
         # the last step's state is saved once, blocking, below
         if args.ckpt_dir and args.ckpt_every and step + 1 < args.steps \
                 and (step + 1) % args.ckpt_every == 0:
@@ -248,10 +333,16 @@ def train(args) -> Dict[str, Any]:
            "first_loss": losses[0] if losses else None,
            "mean_step_s": mean_step,
            "straggler_events": len(monitor.events),
-           "resumed": resumed, "mesh": {"data": 1, "model": 1}}
+           "resumed": resumed,
+           "mesh": dict(mesh.shape) if mesh is not None
+           else {"data": 1, "model": 1}}
     if args.ckpt_dir:
         out["ckpt_bytes"] = checkpoint_bytes(args.ckpt_dir)["total"]
-    print("[train] done:", json.dumps(out))
+    if mesh is not None:
+        # this rank's collectives over the run, by kind
+        out["words_a_rank"] = _by_kind(words)
+        out["bytes_a_rank"] = _by_kind(nbytes)
+    say("[train] done: " + json.dumps(out))
     report(kernel_launches=launches,
            ckpt_s=dict(ckpt_s, snapshot_s=snapshot_s))
     out.update({
@@ -272,8 +363,18 @@ def train(args) -> Dict[str, Any]:
         # restore_s / verify_s when resumed, snapshot_s of each async
         # save (the host copy; the write runs on), save_s of the last
         "ckpt_s": dict(ckpt_s, snapshot_s=snapshot_s),
-        "restore_verified": verified})
+        "restore_verified": verified,
+        # this rank's collectives, a dict per step: {phase: {kind: n}}
+        "words": words, "bytes": nbytes})
     return out
+
+
+def _by_kind(per_step: List[Dict[str, Dict[str, int]]]) -> Dict[str, int]:
+    total: Dict[str, int] = collections.Counter()
+    for phases in per_step:
+        for kinds in phases.values():
+            total.update(kinds)
+    return dict(total)
 
 
 def build_argparser():
@@ -286,8 +387,8 @@ def build_argparser():
                     help="torch device (default: the card; 'cpu' to run "
                          "on the host)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="devices to train on (more than one waits for "
-                         "the mesh slice)")
+                    help="ranks to train on: more than one trains on a "
+                         "(data, model) mesh of gloo ranks")
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--d-model", type=int, default=0)
     ap.add_argument("--d-ff", type=int, default=0)
@@ -300,8 +401,7 @@ def build_argparser():
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--loss-chunk", type=int, default=256)
     ap.add_argument("--max-model", type=int, default=4,
-                    help="cap of the mesh's model axis (one device: "
-                         "no effect)")
+                    help="cap of the mesh's model axis (plan_shape)")
     ap.add_argument("--compress-grads", action="store_true",
                     help="int8 gradients with error feedback before the "
                          "optimizer (ErrorFeedbackInt8, block 256)")

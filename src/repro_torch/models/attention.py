@@ -3,7 +3,9 @@
 
 Layouts are the reference's: q (B, Sq, H, D), k/v (B, Sk, Hkv, D), the
 cache (B, S_max, Hkv, D) in bf16.  The softmax runs in f32 as plain
-tensor ops.  The streamed SDPA never triggers on the serving path
+tensor ops.  Tensor-parallel (``tp`` set by ``Model.shard_``), a rank
+runs its n_heads / |model| heads and n_kv_heads / |model| KV heads, and
+the output projection's partial sums are all-reduced in f32.  The streamed SDPA never triggers on the serving path
 (sq·sk stays far below the reference's ``SDPA_STREAM_MIN``).
 """
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..distributed.collectives import copy_to_group, reduce_from_group
 from .common import ArchConfig, BlockSpec, apply_rope, dense_init, softcap
 
 NEG_INF = -2.0e38
@@ -55,6 +58,9 @@ class GQA(nn.Module):
         super().__init__()
         d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         self.cfg = cfg
+        #: the 'model' axis group when the weights hold this rank's heads
+        #: (wq / wk / wv column-, wo row-parallel; ``Model.shard_``)
+        self.tp = None
         for name, shape in (("wq", (d, h * hd)), ("wk", (d, hkv * hd)),
                             ("wv", (d, hkv * hd)), ("wo", (h * hd, d))):
             setattr(self, name, nn.Parameter(
@@ -70,6 +76,9 @@ class GQA(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        if self.tp is not None:             # this rank's heads
+            h, hkv = h // self.tp.size, hkv // self.tp.size
+            x = copy_to_group(x, self.tp)
         q = (x @ self.wq).reshape(b, s, h, hd)
         k = (x @ self.wk).reshape(b, s, hkv, hd)
         v = (x @ self.wv).reshape(b, s, hkv, hd)
@@ -89,6 +98,9 @@ class GQA(nn.Module):
             valid = k_pos <= positions[:, -1:]
             mask = _attn_mask(positions, k_pos, spec.local_window, valid)
             y = _sdpa(q, ck, cv, mask, cfg.attn_softcap, scale)
+        if self.tp is not None:             # partial sums, reduced in f32
+            return reduce_from_group(y.float() @ self.wo.float(),
+                                     self.tp).to(y.dtype), cache
         return y @ self.wo, cache
 
 

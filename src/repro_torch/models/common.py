@@ -49,6 +49,7 @@ class ArchConfig:
     embed_scale: bool = False
     frontend: str = "tokens"                # tokens (embeddings | vlm wait)
     remat_policy: str = "full"              # full | dots | names
+    fsdp_params: bool = False               # weight rows also over 'data'
 
     @property
     def hd(self) -> int:

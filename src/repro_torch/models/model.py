@@ -16,6 +16,15 @@ of per-layer Parameters (what the optimizers update).  The KV cache is a
 list with one dict per layer, updated in place: ``{"k", "v"}`` for
 attention, the recurrent state (``models.ssm``) for mLSTM / sLSTM, batch
 on dim 0 in both.
+
+On a (data, model) mesh (``init_model(..., mesh=)``, ``Model.shard_``)
+each rank holds its block of every parameter under
+:func:`~.sharding.param_specs`: attention and the MLP Megatron-split
+over 'model' (``collectives.copy_to_group`` / ``reduce_from_group``
+around them), the embedding on its vocab rows (a masked gather and an
+all-reduce) and the unembedding on its vocab columns, so that
+:func:`lm_loss` is vocab-parallel.  That path trains; serving a
+sharded model raises.
 """
 from __future__ import annotations
 
@@ -30,10 +39,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.collectives import (all_reduce, copy_to_group,
+                                       reduce_from_group)
 from .attention import GQA, gqa_cache_init
 from .common import (ArchConfig, BlockSpec, apply_norm, dense_init,
                      embed_init, softcap)
 from .moe import MLP
+from .sharding import param_specs, shard_leaf
 from .ssm import MLSTM, SLSTM, mlstm_state_init, slstm_state_init
 
 Cache = List[Dict[str, torch.Tensor]]
@@ -121,6 +133,11 @@ class Model(nn.Module):
                 "norms, tied or scaled embeddings are ported")
         self.cfg = cfg
         self.device = device
+        #: set by :meth:`shard_`: the mesh, each path's spec, and the
+        #: 'model' group of the vocab-sharded embed / unembed (or None)
+        self.mesh = None
+        self.specs = None
+        self.embed_tp = self.unembed_tp = None
         self.embed = nn.Parameter(
             embed_init((cfg.vocab, cfg.d_model), gen, device))
         self.unembed = nn.Parameter(
@@ -136,6 +153,9 @@ class Model(nn.Module):
                 for blk in self.blocks]
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        if self.unembed_tp is not None:
+            raise NotImplementedError("serving a vocab-sharded model waits:"
+                                      " the mesh path trains")
         return softcap(x.float() @ self.unembed.float(),
                        self.cfg.final_softcap)
 
@@ -156,6 +176,85 @@ class Model(nn.Module):
                     self.blocks[li].get_parameter(name)
                     for li in range(i, self.cfg.n_layers, self.cfg.period)]
         return dict(sorted(tree.items()))
+
+    def stacked_shapes(self) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
+        """The shape of each :meth:`stacked` leaf (this rank's block on a
+        mesh), without the copy."""
+        return {k: ((len(ps),) if k[0] == "periods" else ())
+                + tuple(ps[0].shape) for k, ps in self.param_tree().items()}
+
+    @torch.no_grad()
+    def shard_(self, mesh) -> "Model":
+        """Keep this rank's block of every parameter under
+        :func:`~.sharding.param_specs` on ``mesh`` (the whole model was
+        built first, so the blocks are the single-device weights): the
+        attention and MLP weights Megatron-split over 'model', embed on
+        its vocab rows, unembed on its vocab columns, the norms whole.
+        A column shard that would cut a head, a layer's weights split
+        only in part, or weights split over another axis than 'model'
+        (``fsdp_params``) raise, naming the leaf."""
+        cfg = self.cfg
+        specs = param_specs(cfg, self.stacked_shapes(), mesh)
+        P = mesh.shape.get("model", 1)
+        heads = {"wq": cfg.n_heads, "wk": cfg.n_kv_heads,
+                 "wv": cfg.n_kv_heads, "wo": cfg.n_heads}
+        for path, spec in specs.items():
+            name = "/".join(path)
+            if any(a not in (None, "model") for a in spec):
+                raise NotImplementedError(
+                    f"{name}: spec {spec} splits weights over another axis "
+                    "than 'model' (fsdp_params) and waits")
+            if path[-2:-1] == ("mixer",) and path[-1] in heads \
+                    and "model" in spec and heads[path[-1]] % P:
+                raise ValueError(
+                    f"{name}: {heads[path[-1]]} heads do not split over "
+                    f"model={P}; a shard of {spec} would cut a head")
+        comm = mesh.comm("model") if P > 1 else None
+
+        def split(*paths) -> bool:
+            on = ["model" in specs[p] for p in paths]
+            if any(on) and not all(on):
+                bad = [("/".join(p), specs[p]) for p in paths]
+                raise ValueError(f"a layer split only in part over "
+                                 f"model={P}: {bad}")
+            return comm is not None and all(on)
+
+        for i in range(cfg.period):
+            spec_i = self.blocks[i].spec
+            base = ("periods", f"b{i}")
+            if spec_i.mixer == "attn":
+                tp = split(*(base + ("mixer", w)
+                             for w in ("wq", "wk", "wv", "wo")))
+                for li in range(i, cfg.n_layers, cfg.period):
+                    self.blocks[li].mixer.tp = comm if tp else None
+            elif any("model" in sp for k, sp in specs.items()
+                     if k[:3] == base + ("mixer",)):
+                raise NotImplementedError(
+                    f"{'/'.join(base)}: a tensor-parallel {spec_i.mixer} "
+                    "mixer waits (ROADMAP A9)")
+            if spec_i.mlp == "dense":
+                tp = split(*(base + ("mlp", w) for w in ("wi", "wg", "wo")))
+                for li in range(i, cfg.n_layers, cfg.period):
+                    self.blocks[li].mlp.tp = comm if tp else None
+        self.embed_tp = comm if "model" in specs[("embed",)] else None
+        self.unembed_tp = comm if "model" in specs[("unembed",)] else None
+        for k, ps in self.param_tree().items():
+            inner = specs[k][1:] if k[0] == "periods" else specs[k]
+            for p in ps:
+                p.data = shard_leaf(p.data, inner, mesh).clone()
+        self.mesh, self.specs = mesh, specs
+        return self
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Rows of the embedding; vocab-sharded, a masked gather of this
+        rank's rows and an all-reduce (one rank holds each row)."""
+        if self.embed_tp is None:
+            return self.embed[tokens]
+        rows = self.embed.shape[0]
+        local = tokens - self.embed_tp.index * rows
+        hit = (local >= 0) & (local < rows)
+        x = self.embed[torch.clamp(local, 0, rows - 1)] * hit[..., None]
+        return reduce_from_group(x.float(), self.embed_tp).to(x.dtype)
 
     def stacked(self, get=lambda p: p.detach()) -> Dict[Tuple[str, ...],
                                                          torch.Tensor]:
@@ -199,7 +298,7 @@ class Model(nn.Module):
         of its matmuls without batch dims (the projections), "names"
         only the named scan outputs, which the ported blocks do not
         tag (so "full" here)."""
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, -1)
@@ -252,13 +351,35 @@ def _xent_chunk(cfg: ArchConfig, w: torch.Tensor, x: torch.Tensor,
     return torch.sum((lse - ll) * valid), torch.sum(valid).float()
 
 
-def lm_loss(model: Model, batch: Dict[str, torch.Tensor], chunk: int = 512,
-            remat: bool = True) -> torch.Tensor:
-    """Mean next-token cross-entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (-1 ignored), over sequence chunks of ``chunk``
-    positions, each recomputed in the backward pass when ``remat``
-    (positions past the last whole chunk are dropped, as the
-    reference's reshape drops them)."""
+def _xent_chunk_tp(cfg: ArchConfig, w: torch.Tensor, x: torch.Tensor,
+                   labels: torch.Tensor, comm
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_xent_chunk` with ``w`` this rank's vocab columns
+    (d, V/|model|): the max, the sum of exponentials and the label's
+    logit are each all-reduced over 'model'."""
+    x = copy_to_group(x, comm)
+    logits = softcap(x.float() @ w.float(), cfg.final_softcap)
+    with torch.no_grad():
+        m = all_reduce(logits.max(dim=-1).values, comm, op="max")
+    se = reduce_from_group(torch.exp(logits - m[..., None]).sum(dim=-1),
+                           comm)
+    lse = m + torch.log(se)
+    cols = w.shape[-1]
+    lab = torch.clamp(labels, min=0).long() - comm.index * cols
+    hit = (lab >= 0) & (lab < cols)
+    ll = torch.gather(logits, -1, torch.clamp(lab, 0, cols - 1)[..., None])
+    ll = reduce_from_group(ll[..., 0] * hit, comm)
+    valid = labels >= 0
+    return torch.sum((lse - ll) * valid), torch.sum(valid).float()
+
+
+def lm_loss_terms(model: Model, batch: Dict[str, torch.Tensor],
+                  chunk: int = 512, remat: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the token losses, count of valid tokens) of ``batch``:
+    :func:`lm_loss` before its division, so that a data-parallel step
+    can divide by the count over every rank's rows.  With a
+    vocab-sharded unembed the loss is vocab-parallel, chunk by chunk."""
     cfg = model.cfg
     x, _ = model(batch["tokens"], positions=batch.get("positions"),
                  remat=remat)
@@ -266,34 +387,53 @@ def lm_loss(model: Model, batch: Dict[str, torch.Tensor], chunk: int = 512,
     b, s, _ = x.shape
     nchunks = max(s // chunk, 1)
     cs = s // nchunks
+    fn, extra = _xent_chunk, ()
+    if model.unembed_tp is not None:
+        fn, extra = _xent_chunk_tp, (model.unembed_tp,)
     tot = torch.zeros((), device=x.device)
     cnt = torch.zeros((), device=x.device)
     for i in range(nchunks):
         xs, ls = x[:, i * cs:(i + 1) * cs], labels[:, i * cs:(i + 1) * cs]
         if remat and torch.is_grad_enabled():
-            l, n = checkpoint(_xent_chunk, cfg, model.unembed, xs, ls,
+            l, n = checkpoint(fn, cfg, model.unembed, xs, ls, *extra,
                               use_reentrant=False)
         else:
-            l, n = _xent_chunk(cfg, model.unembed, xs, ls)
+            l, n = fn(cfg, model.unembed, xs, ls, *extra)
         tot, cnt = tot + l, cnt + n
+    return tot, cnt
+
+
+def lm_loss(model: Model, batch: Dict[str, torch.Tensor], chunk: int = 512,
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (-1 ignored), over sequence chunks of ``chunk``
+    positions, each recomputed in the backward pass when ``remat``
+    (positions past the last whole chunk are dropped, as the
+    reference's reshape drops them)."""
+    tot, cnt = lm_loss_terms(model, batch, chunk, remat)
     return tot / torch.clamp(cnt, min=1.0)
 
 
 def init_model(cfg: ArchConfig, seed: int = 0,
-               device: DeviceLike = None) -> Model:
+               device: DeviceLike = None, mesh=None) -> Model:
     """Random weights from ``seed`` (truncated normal, bf16) on
-    ``device`` — the GPU unless the caller asks for the CPU."""
+    ``device`` — the GPU unless the caller asks for the CPU.  With a
+    ``mesh``, the whole model is drawn as on one device and each rank
+    keeps its block (:meth:`Model.shard_`), so the blocks are the
+    single-device weights bit for bit."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return Model(cfg, gen, dev)
+    model = Model(cfg, gen, dev)
+    return model if mesh is None else model.shard_(mesh)
 
 
 def from_jax_params(np_tree: Dict[str, Any], cfg: ArchConfig,
-                    device: DeviceLike = None) -> Model:
+                    device: DeviceLike = None, mesh=None) -> Model:
     """Build a :class:`Model` holding the weights of
     ``repro.models.model.init_params`` (as numpy arrays, with the
-    stacked ``periods`` leaves' leading n_periods axis)."""
+    stacked ``periods`` leaves' leading n_periods axis); with a
+    ``mesh``, this rank's blocks of them."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     model = Model(cfg, gen, dev)
@@ -323,4 +463,4 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ArchConfig,
         for part in ("mixer", "mlp"):
             for name, v in src.get(part, {}).items():
                 put(getattr(getattr(blk, part), name), take(v))
-    return model
+    return model if mesh is None else model.shard_(mesh)

@@ -1,5 +1,7 @@
 """Dense MLP (port of the gated SwiGLU / GeGLU part of
-:mod:`repro.models.moe`; the routed experts wait)."""
+:mod:`repro.models.moe`; the routed experts wait).  Tensor-parallel
+(``tp`` set by ``Model.shard_``), wi / wg hold this rank's columns of
+d_ff and wo its rows, and the partial sums are all-reduced in f32."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,6 +9,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..distributed.collectives import copy_to_group, reduce_from_group
 from .common import ArchConfig, dense_init
 
 
@@ -27,9 +30,18 @@ class MLP(nn.Module):
             raise NotImplementedError("the ungated gelu_mlp waits")
         d, f = cfg.d_model, d_ff or cfg.d_ff
         self.act = act_fn(cfg.act)
+        #: the 'model' axis group when wi / wg hold this rank's columns
+        #: of f and wo its rows (``Model.shard_``)
+        self.tp = None
         for name, shape in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d))):
             setattr(self, name, nn.Parameter(
                 dense_init(shape, gen, device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (self.act(x @ self.wi) * (x @ self.wg)) @ self.wo
+        if self.tp is None:
+            return (self.act(x @ self.wi) * (x @ self.wg)) @ self.wo
+        x = copy_to_group(x, self.tp)
+        h = self.act(x @ self.wi) * (x @ self.wg)
+        # partial sums over this rank's f, reduced in f32
+        return reduce_from_group(h.float() @ self.wo.float(),
+                                 self.tp).to(h.dtype)

@@ -27,6 +27,17 @@ sharded, as the reference's; the optimizer, whose parameters every rank
 holds whole, gathers the shards once per update
 (:func:`~repro_torch.core.onedim.gather_columns`, counted as a
 replication, not as the schedule's words).
+
+With ``specs`` (the trainer on a (data, model) mesh) every rank holds
+only its blocks, and ``Muon._orthogonalize_shard`` takes each leaf
+where it lies: a block split over the long side runs
+:func:`orthogonalize_1d_local` on the block itself where the 1D
+schedule is optimal (a row split through its transpose), a replicated
+leaf the single-device chain, anything else one gather, the chain, and
+its block back.  For stablelm-1.6b at |model| = 4 that is embed and
+unembed on the 1D schedule and every block stack gathered (2048² and
+2048 × 5632 are outside Thm 9 case 1 at P = 4); at |model| = 2 the MLP
+stacks join the 1D schedule.
 """
 from __future__ import annotations
 
@@ -41,6 +52,8 @@ from ..core.onedim import (column_shard, gather_columns, gather_packed,
                            syrk_1d_local)
 from ..core.packing import PackedTriangle, tril_size, unpack_tril
 from ..distributed import collectives
+from ..models.sharding import (gather_leaf, global_shape, is_sharded,
+                               shard_leaf)
 
 Tree = Dict[Any, torch.Tensor]
 
@@ -125,12 +138,20 @@ def orthogonalize_1d(g: torch.Tensor, mesh, axis: str = "model",
     ``shard_map`` does (``out_specs`` = the input's column sharding);
     :func:`~repro_torch.core.onedim.gather_columns` makes it whole."""
     comm = mesh.comm(axis)
-    x = column_shard(g, comm).float().contiguous()
+    return orthogonalize_1d_local(column_shard(g, comm), comm, steps)
+
+
+def orthogonalize_1d_local(g_loc: torch.Tensor, comm,
+                           steps: int = 5) -> torch.Tensor:
+    """:func:`orthogonalize_1d` on this rank's column shard
+    (..., m, n/P) of a whole (..., m, n), m <= n, as a caller that holds
+    only its shard has it: no gather in, none out."""
+    x = g_loc.float().contiguous()
     sq = collectives.all_reduce(x.square().sum(dim=(-2, -1)), comm)
     x = x / (sq.sqrt()[..., None, None] + 1e-7)
     for _ in range(steps):
         x = _ns_iteration_1d_local(x, comm)
-    return x.to(g.dtype)
+    return x.to(g_loc.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +188,10 @@ class Muon:
     #: a repro_torch.distributed.mesh.Mesh and the axis the NS runs on
     mesh: Any = None
     axis: str = "model"
+    #: the caller's leaves are this rank's blocks under these specs
+    #: (``models.sharding.param_specs``, keyed as the trees are); None:
+    #: every rank holds its parameters whole
+    specs: Optional[Dict[Any, Any]] = None
 
     def _gram_zero(self, p: torch.Tensor):
         if _is_matrix(p) and p.ndim == 2:
@@ -217,23 +242,63 @@ class Muon:
         return orthogonalize_reference(m2, self.ns_steps, self.gram_chunk,
                                        mesh=self.mesh, axis=self.axis)
 
+    def _orthogonalize_shard(self, m2: torch.Tensor, spec) -> torch.Tensor:
+        """m2: this rank's block, under ``spec``, of a (..., m, n) f32
+        momentum; returns its block of the orthogonalized matrix.
+
+        * replicated: the single-device chain, alike on every rank (the
+          norm stacks);
+        * split over the NS axis on the long side, where Thm 9 case 1
+          holds (``_use_1d``): the 1D body on the shard itself, no
+          gather (a column split of m <= n as it is; a row split of
+          m >= n on its transpose, since NS(Xᵀ) = NS(X)ᵀ);
+        * anything else (``_use_1d`` declines: at |model| = 4 every
+          stablelm-1.6b block matrix): gather the whole matrix, run the
+          single-device chain (the kernels on the card), keep the block.
+        """
+        if not is_sharded(spec):
+            return orthogonalize_reference(m2, self.ns_steps,
+                                           self.gram_chunk)
+        P = self.mesh.shape[self.axis]
+        m, n = m2.shape[-2], m2.shape[-1]
+        lead_free = all(a is None for a in spec[:-2])
+        if self.mode == "syrk-1d" and lead_free:
+            rows, cols = spec[-2:]
+            if (rows, cols) == (None, self.axis) and m <= n * P \
+                    and self._use_1d(m, n * P):
+                return orthogonalize_1d_local(
+                    m2, self.mesh.comm(self.axis), self.ns_steps)
+            if (rows, cols) == (self.axis, None) and m * P >= n \
+                    and self._use_1d(n, m * P):
+                return orthogonalize_1d_local(
+                    m2.mT, self.mesh.comm(self.axis), self.ns_steps).mT
+        whole = gather_leaf(m2, spec, self.mesh, kind="all_gather")
+        out = orthogonalize_reference(whole, self.ns_steps, self.gram_chunk)
+        return shard_leaf(out, spec, self.mesh).contiguous()
+
     @torch.no_grad()
     def update(self, grads: Tree, state: MuonState, params: Tree,
                lr_scale: float = 1.0) -> Tuple[Tree, MuonState]:
         step = state.step + 1
         mom = {k: self.momentum * state.momentum[k] + g.float()
                for k, g in grads.items()}
+        if self.specs is not None and self.gram_decay is not None:
+            raise NotImplementedError("Gram tracking on sharded parameters "
+                                      "waits (ROADMAP A7b)")
 
-        def upd(p, mm):
-            if _is_matrix(p):
-                o = self._orthogonalize(mm)
-                scale = math.sqrt(max(1.0, p.shape[-2] / p.shape[-1]))
+        def upd(k, p, mm):
+            spec = None if self.specs is None else self.specs[k]
+            shape = global_shape(p.shape, spec, self.mesh)
+            if len(shape) >= 2 and min(shape[-2:]) >= 8:   # _is_matrix
+                o = self._orthogonalize(mm) if spec is None \
+                    else self._orthogonalize_shard(mm, spec)
+                scale = math.sqrt(max(1.0, shape[-2] / shape[-1]))
                 delta = o * scale + self.weight_decay * p.float()
                 return (p.float() - self.lr * lr_scale * delta).to(p.dtype)
             return (p.float() - self.fallback_lr * lr_scale
                     * torch.sign(mm)).to(p.dtype)
 
-        new_params = {k: upd(p, mom[k]) for k, p in params.items()}
+        new_params = {k: upd(k, p, mom[k]) for k, p in params.items()}
 
         gram = state.gram
         if self.gram_decay is not None and gram is not None:

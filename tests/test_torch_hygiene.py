@@ -44,6 +44,8 @@ MODULES = [
     "repro_torch.distributed.resilience",
     "repro_torch.distributed.faults", "repro_torch.launch.recovery",
     "repro_torch.distributed.compression",
+    "repro_torch.distributed.elastic", "repro_torch.launch.mesh",
+    "repro_torch.models.sharding",
 ]
 
 _PROBE = r"""
@@ -118,6 +120,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(build_argparser().parse_args(["--steps", "1", "--fail-at",
                                             "0"]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(build_argparser().parse_args(["--steps", "1", "--devices",
+                                            "2"]))
 
 
 def test_mesh_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):

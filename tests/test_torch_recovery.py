@@ -177,7 +177,7 @@ def test_run_recovery_on_the_host(tmp_path):
 
 
 @pytest.mark.parametrize("devices,devices_after,item",
-                         [(1, 2, "A8"), (2, 2, "A7")])
+                         [(1, 2, "A8"), (2, 2, "A8")])
 def test_run_recovery_other_device_counts_wait(tmp_path, devices,
                                                devices_after, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
