@@ -160,7 +160,7 @@ Phases (any failure exits non-zero):
 13. meshtrain — ``train --devices 4`` (gloo ranks sharing the card,
              the wire host-staged) with ``muon-syrk`` on phase 7's
              traffic, 3 steps: (a) stablelm-1.6b at full width on (data
-             1, model 4), tensor-parallel, its losses within 2e-3 of
+             1, model 4), tensor-parallel, its losses within 1e-4 of
              phase 7's Muon losses a step (step 0: init, batch and loss
              before any update); (b) (data 2, model 2) at
              ``--max-model 2``, cut to 2 layers, held the same way to the
@@ -172,7 +172,9 @@ Phases (any failure exits non-zero):
              ``sym_stream`` (the gathered stacks' chain); prints the
              Muon path of each leaf, s per step and its split (loss +
              backward, reduce, clip, optimizer), words and bytes a rank
-             by phase and kind, and each rank's peak memory.
+             by phase and kind, and each rank's peak memory.  The
+             kernels line's ``train mesh`` launches are the mesh ranks'
+             alone; (b)'s single-device oracle's are printed apart.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -2530,10 +2532,10 @@ def compress_phase(torch, train_out):
 # phase 13: train --devices N on a (data, model) mesh of gloo ranks
 # --------------------------------------------------------------------------
 MESHTRAIN_STEPS = 3
-#: losses a step against the single-device trainer's (tests'
-#: ``tests/test_torch_train_mesh.py`` bound): the ranks sum bf16
-#: products and gradients in another order
-MESHTRAIN_RTOL = 2e-3
+#: losses a step against the single-device trainer's: the ranks sum
+#: bf16 products and gradients in another order (on the card 1.1e-5 at
+#: most; ``tests/test_torch_train_mesh.py`` holds the CPU runs to 5e-4)
+MESHTRAIN_RTOL = 1e-4
 MESHTRAIN_B_LAYERS = 2
 
 
@@ -2707,13 +2709,16 @@ def meshtrain_phase(torch, train_out):
         "[meshtrain b]", b, single["losses"],
         dataclasses.replace(cfg, n_layers=MESHTRAIN_B_LAYERS), 2, 2)
     t2 = time.perf_counter()
-    launches = {k: la.get(k, 0) + lb.get(k, 0)
-                + single["kernel_launches"].get(k, 0) for k in la}
+    # the mesh runs' ranks only: (b)'s single-device oracle is another
+    # path, reported apart
+    launches = {k: la.get(k, 0) + lb.get(k, 0) for k in la}
     seconds = {"a_s": t1 - t0, "b_s": t2 - t1}
     log(f"[meshtrain] phase seconds {json.dumps(seconds)}; (b)'s "
         f"single-device reference: {single['losses']}, peak "
-        f"{single['peak_memory_bytes'] / 2**30:.2f} GiB")
+        f"{single['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
+        f"{single['kernel_launches']}")
     return {"a": ra, "b": rb, "b_single_losses": single["losses"],
+            "b_single_launches": single["kernel_launches"],
             **seconds}, launches
 
 

@@ -12,8 +12,7 @@ replacement shard of its ``evict`` leg; int8 gradient compression with
 error feedback and the compressed all-reduces on the counted
 collectives (``compression``); the reference's mesh planner
 (``elastic``: ``plan_shape``, and ``plan_mesh``, which builds the
-planned (data, model) mesh; ``mesh.plan_mesh(axes)`` is a group-less
-planning mesh and is not exported here).  Re-sharding a saved state
+planned (data, model) mesh).  Re-sharding a saved state
 waits (ROADMAP A8)."""
 from . import faults
 from .checkpoint import (checkpoint_bytes, latest_step, read_manifest,

@@ -195,19 +195,19 @@ class ErrorFeedbackInt8:
 
         def one(g, e, sym):
             corrected = g.float() + e
-            out = compressed_allreduce(corrected, comm, self.block)
-            q, s = quantize_int8(corrected, self.block)
-            deq = dequantize_int8(q, s, corrected.shape)
-            del q, s
-            return out, corrected.sub_(deq)
+            out, local = compressed_allreduce(corrected, comm, self.block,
+                                              local=True)
+            return out, corrected.sub_(local)
 
         new_g, new_e = self._map(one, 2, grads, state.error)
         return new_g, EFState(error=new_e)
 
 
-def compressed_allreduce(x: torch.Tensor, comm: Comm,
-                         block: int = 256) -> torch.Tensor:
-    """Mean over ``comm``'s ranks of each rank's ``x``, int8 on the wire.
+def compressed_allreduce(x: torch.Tensor, comm: Comm, block: int = 256,
+                         local: bool = False):
+    """Mean over ``comm``'s ranks of each rank's ``x``, int8 on the wire;
+    with ``local``, the pair (that mean, this rank's own ``x`` as its
+    quantization gives it back, f32), which error feedback subtracts.
 
     Each rank quantizes its own blocks (padded so that the block count
     divides P), sends stripe p to rank p (``all_to_all``), dequantizes
@@ -222,6 +222,7 @@ def compressed_allreduce(x: torch.Tensor, comm: Comm,
     if extra:
         flat = torch.cat([flat, flat.new_zeros(extra * block)])
     q, s = quantize_int8(flat, block)
+    mine = dequantize_int8(q, s, x.shape) if local else None
     stripe = q.shape[0] // P
     qs = collectives.all_to_all(q.view(P, stripe, block), comm)
     ss = collectives.all_to_all(s.view(P, stripe, 1), comm)
@@ -234,7 +235,8 @@ def compressed_allreduce(x: torch.Tensor, comm: Comm,
     q2, s2 = quantize_int8(part, block)
     q2 = collectives.all_gather(q2, comm)
     s2 = collectives.all_gather(s2, comm)
-    return dequantize_int8(q2, s2, x.shape, x.dtype)
+    out = dequantize_int8(q2, s2, x.shape, x.dtype)
+    return (out, mine) if local else out
 
 
 def compressed_allreduce_sym(x, comm: Comm, block: int = 256):

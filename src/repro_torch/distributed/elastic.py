@@ -5,9 +5,7 @@ planning half of :mod:`repro.distributed.elastic`).
 rank computes the same mesh on its own.  :func:`plan_mesh` is the
 reference's ``plan_mesh(n_devices, *, max_model, model_divides)``: it
 builds the planned mesh over the initialised process group through
-:func:`repro_torch.distributed.mesh.make_mesh`.  (``mesh.plan_mesh(axes)``
-is another function: a mesh with no process groups, to plan blas
-routes on; ``repro_torch.distributed`` exports this module's.)
+:func:`repro_torch.distributed.mesh.make_mesh`.
 
 Re-sharding a saved state onto another world (``reshard_*``) waits for
 ROADMAP A8.

@@ -87,7 +87,7 @@ class Mesh:
     (the last axis varies fastest), as ``jax.make_mesh`` lays devices.
 
     ``shape`` maps axis name to size (what the planner reads).  A mesh
-    made by :func:`plan_mesh` has no groups and no device: it plans
+    made by :func:`planning_mesh` has no groups and no device: it plans
     routes but every collective on it raises.
     """
 
@@ -138,7 +138,7 @@ class Mesh:
         return tb.check(), rep.check()
 
 
-def plan_mesh(axes: Dict[str, int]) -> Mesh:
+def planning_mesh(axes: Dict[str, int]) -> Mesh:
     """A mesh of the given axis sizes with no process groups: enough to
     plan routes (``plan_route``, ``explain``), not to run them."""
     return Mesh(axes)

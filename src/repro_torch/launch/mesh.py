@@ -1,33 +1,25 @@
-"""Meshes for the trainer and tests (port of :mod:`repro.launch.mesh`)
-over the port's :class:`~repro_torch.distributed.mesh.Mesh`.
+"""Mesh helpers of the trainer (port of :mod:`repro.launch.mesh`) over the
+port's :class:`~repro_torch.distributed.mesh.Mesh`.
 
-Each is a function, so importing this module touches no process group.
+A mesh of the ranks at hand is built by
+:func:`repro_torch.distributed.mesh.make_mesh` (named axes, ``pod`` first
+when there is one), or planned by
+:func:`repro_torch.distributed.elastic.plan_mesh`, as the trainer does.
 """
 from __future__ import annotations
 
 from ..distributed.mesh import Mesh
-from ..distributed.mesh import make_mesh as _make_mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The reference's production mesh is a TPU pod shape: (data 16,
     model 16) = 256 chips, or (pod 2, data 16, model 16) = 512 (v5e
-    pods).  No GPU host of the port has that shape, so this raises;
-    build a mesh of the world at hand with :func:`make_mesh`."""
+    pods).  No GPU host of the port has that shape, so this raises."""
     shape = "(2, 16, 16)" if multi_pod else "(16, 16)"
     raise NotImplementedError(
-        f"the production mesh {shape} is a TPU pod shape; on GPUs use "
-        "make_mesh(data, model) over the ranks at hand")
-
-
-def make_mesh(data: int, model: int, pod: int = 1, *, device=None) -> Mesh:
-    """A (data, model) mesh, with a leading pod axis only when
-    ``pod`` > 1, over the initialised process group (collective);
-    ``device`` as in :func:`repro_torch.distributed.mesh.make_mesh`."""
-    if pod > 1:
-        return _make_mesh({"pod": pod, "data": data, "model": model},
-                          device=device)
-    return _make_mesh({"data": data, "model": model}, device=device)
+        f"the production mesh {shape} is a TPU pod shape; on GPUs build a "
+        "mesh of the ranks at hand with distributed.mesh.make_mesh("
+        "{'data': ..., 'model': ...}) or distributed.elastic.plan_mesh")
 
 
 def dp_axes(mesh) -> tuple:

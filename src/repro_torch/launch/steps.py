@@ -79,31 +79,26 @@ def make_optimizer(cfg: ArchConfig, name: str = "adamw", lr: float = 3e-4,
     raise ValueError(name)
 
 
-def _clip_by_global_norm(grads: Tree, max_norm: float
-                         ) -> Tuple[Tree, torch.Tensor]:
+def _clip_by_global_norm(grads: Tree, max_norm: float, specs=None,
+                         mesh=None) -> Tuple[Tree, torch.Tensor]:
     """Scale every gradient by min(1, max_norm / ‖g‖) (‖g‖ over all
     leaves, in f32); the clipped gradients are f32, as the reference's
-    (a bf16 leaf times its f32 scale promotes there)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                        for g in grads.values()))
-    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
-    return {k: g.float() * scale for k, g in grads.items()}, gn
-
-
-def _clip_sharded(grads: Tree, specs, mesh, max_norm: float
-                  ) -> Tuple[Tree, torch.Tensor]:
-    """:func:`_clip_by_global_norm` over this rank's blocks: the squares
-    of every leaf split over 'model' summed and all-reduced there, each
-    replicated leaf counted once."""
-    split = [k for k in grads if "model" in specs[k]]
+    (a bf16 leaf times its f32 scale promotes there).  Given this rank's
+    blocks (``specs`` on ``mesh``), the squares of the leaves split over
+    'model' are all-reduced there and each replicated leaf counts once."""
     dev = next(iter(grads.values())).device
-    sq = sum((torch.sum(torch.square(grads[k].float())) for k in split),
-             torch.zeros((), device=dev))
-    if split and mesh.shape.get("model", 1) > 1:
-        sq = collectives.all_reduce(sq, mesh.comm("model"))
-    sq = sq + sum(torch.sum(torch.square(g.float()))
-                  for k, g in grads.items() if "model" not in specs[k])
-    gn = torch.sqrt(sq)
+
+    def sq(keys) -> torch.Tensor:
+        return sum((torch.sum(torch.square(grads[k].float())) for k in keys),
+                   torch.zeros((), device=dev))
+
+    if specs is None or mesh.shape.get("model", 1) == 1:
+        total = sq(grads)
+    else:
+        split = [k for k in grads if "model" in specs[k]]
+        total = collectives.all_reduce(sq(split), mesh.comm("model")) \
+            + sq([k for k in grads if "model" not in specs[k]])
+    gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return {k: g.float() * scale for k, g in grads.items()}, gn
 
@@ -140,7 +135,8 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
     global batch's on every rank.  A ``compressor`` then replaces the
     data-axis mean (each rank's own residual; the reduction before the
     clip, as the wire needs), timed as ``compress_s``; the plain mean is
-    ``reduce_s``.  ``metrics["words"]`` / ``["bytes"]``: this rank's
+    ``reduce_s``.  With no data axis over 1 rank the compressor runs
+    after the clip, as on one device.  ``metrics["words"]`` / ``["bytes"]``: this rank's
     collectives by phase (``loss_backward``, ``reduce``, ``clip``,
     ``opt``) and kind."""
     mesh = model.mesh
@@ -199,21 +195,21 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
         inner = opt_state
         if compressor is not None:
             inner, ef = opt_state
-        if mesh is not None and compressor is not None:
-            grads, ef = compressor.allreduce(grads, ef, dp[0]) if dp \
-                else compressor.compress(grads, ef)
+        # over the data axes the int8 mean comes before the clip, as the
+        # wire needs; with none the single-device order: clip, compress
+        reduced = compressor is not None and bool(dp)
+        if reduced:
+            grads, ef = compressor.allreduce(grads, ef, dp[0])
         elif dp:
             grads = {k: dp_sum(g.float()) / n_dp for k, g in grads.items()}
         _sync(dev)
         t2 = time.perf_counter()
         marks.append(counted())
-        if mesh is None:
-            grads, gnorm = _clip_by_global_norm(grads, clip_norm)
-        else:
-            grads, gnorm = _clip_sharded(grads, model.specs, mesh, clip_norm)
+        grads, gnorm = _clip_by_global_norm(grads, clip_norm, model.specs,
+                                            mesh)
         _sync(dev)
         t3 = time.perf_counter()
-        if mesh is None and compressor is not None:
+        if compressor is not None and not reduced:
             grads, ef = compressor.compress(grads, ef)
             _sync(dev)
         t4 = time.perf_counter()
@@ -225,7 +221,6 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
         _sync(dev)
         t5 = time.perf_counter()
         marks.append(counted())
-        reduced = compressor is not None and mesh is not None
         phases = ("loss_backward", "reduce", "clip", "opt")
         metrics = {"loss": loss, "grad_norm": gnorm,
                    "loss_backward_s": t1 - t0,

@@ -28,7 +28,7 @@ from repro_torch.core import ringpath as tring
 from repro_torch.core import twodim as ttwo
 from repro_torch.core.packing import (ShardedTriTiles, TriTiles, pack_tril,
                                       packed_to_device_shard, tril_size)
-from repro_torch.distributed.mesh import grid_shapes, plan_mesh
+from repro_torch.distributed.mesh import grid_shapes, planning_mesh
 
 _CACHED = ("make_2d_plan", "tb_pack_tables", "tb_block_tables",
            "tb_device_row_starts")
@@ -158,7 +158,7 @@ def test_sharded_shape_checks():
     with pytest.raises(ValueError):
         ShardedTriTiles(off[0], diag[0], 16, 2)     # a local one needs mesh
     with pytest.raises(ValueError):
-        ShardedTriTiles(off[0], diag[0], 16, 2, plan_mesh({"x": 6}))
+        ShardedTriTiles(off[0], diag[0], 16, 2, planning_mesh({"x": 6}))
 
 
 @pytest.mark.parametrize("c,n1,n2", [(2, 16, 9), (2, 37, 24), (3, 81, 20)])
@@ -247,7 +247,7 @@ _GRID = [(n1, n2) for n1 in (24, 64, 256, 2048)
 def test_plan_route_matches_reference(op, P):
     from repro.blas.routing import plan_route as rplan
     from repro_torch.blas.routing import plan_route as tplan
-    rmesh, tmesh = _RefMesh({"x": P}), plan_mesh({"x": P})
+    rmesh, tmesh = _RefMesh({"x": P}), planning_mesh({"x": P})
     seen = set()
     for n1, n2 in _GRID:
         for M in (None, 100_000, 500_000, 4_000_000):
@@ -267,7 +267,7 @@ def test_plan_route_paths_cover_every_mesh_route():
         for n1, n2 in _GRID:
             for M in (None, 500_000):
                 paths.add(plan_route("syrk", n1, n2, device="cpu",
-                                     mesh=plan_mesh({"x": P}), M=M).path)
+                                     mesh=planning_mesh({"x": P}), M=M).path)
     assert {"1d", "2d", "ring", "3d-limited", "dense"} <= paths, paths
     assert grid_shapes(12) == [(6, 2), (12, 1)]
 
@@ -280,17 +280,17 @@ def test_plan_route_resolves_axes_as_the_reference(shape, axis):
     from repro_torch.blas.routing import plan_route as tplan
     for n1, n2 in _GRID:
         a = rplan("syrk", n1, n2, mesh=_RefMesh(shape), axis=axis, M=None)
-        b = tplan("syrk", n1, n2, device="cpu", mesh=plan_mesh(shape),
+        b = tplan("syrk", n1, n2, device="cpu", mesh=planning_mesh(shape),
                   axis=axis, M=None)
         assert _route_key(a) == _route_key(b), (shape, n1, n2)
 
 
 def test_explain_on_a_mesh():
     from repro_torch import blas
-    mesh = plan_mesh({"x": 8})
+    mesh = planning_mesh({"x": 8})
     s = blas.explain("syrk", 2048, 512, mesh=mesh, M=None)
     assert "-> ring ring P=8 nb=256 shifts=4" in s
-    s = blas.explain("syrk", 2048, 5632, mesh=plan_mesh({"x": 12}),
+    s = blas.explain("syrk", 2048, 5632, mesh=planning_mesh({"x": 12}),
                      M=500_000, grad=True)
     lines = s.splitlines()
     assert "-> 3d-limited grid c=2 p1=6 p2=2 b=244" in lines[0]
@@ -302,7 +302,7 @@ def test_explain_on_a_mesh():
 def test_pinned_mesh_route_holds_its_shape_only():
     from repro_torch.blas.routing import Route, pinned, plan_route
     from repro_torch.core.dispatch import AlgoChoice
-    mesh = plan_mesh({"x": 12})
+    mesh = planning_mesh({"x": 12})
     r = Route("syrk", "3d", "test", 64, 48, P=12, axis="x",
               choice=AlgoChoice("3d", 3, 12, c=2, p1=6, p2=2))
     with pinned(r):
@@ -319,7 +319,7 @@ def test_pinned_mesh_route_holds_its_shape_only():
 # ---------------------------------------------------------------------------
 def test_a_mesh_without_groups_plans_but_does_not_run():
     from repro_torch import blas
-    mesh = plan_mesh({"x": 4})
+    mesh = planning_mesh({"x": 4})
     a = torch.randn(24, 48)
     assert blas.plan_route("syrk", 24, 48, device="cpu", mesh=mesh,
                            M=None).path == "1d"

@@ -174,3 +174,23 @@ def test_shard_leaf_blocks_tile_the_tensor(spec, axes):
     replicas = world // int(np.prod([tsh.axis_size(axes, a)
                                      for a in spec if a is not None]))
     assert torch.equal(out, x) and bool((seen == replicas).all())
+
+
+@pytest.mark.parametrize("axes", [{"data": 2, "model": 2},
+                                  {"data": 1, "model": 4},
+                                  {"pod": 2, "data": 2, "model": 2}])
+def test_dp_axes_match_reference(axes):
+    from repro.launch.mesh import dp_axes as j_dp_axes
+    from repro_torch.distributed.mesh import planning_mesh
+    from repro_torch.launch.mesh import dp_axes
+    am = AbstractMesh(tuple(axes.values()), tuple(axes))
+    assert dp_axes(planning_mesh(axes)) == j_dp_axes(am)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_is_a_tpu_shape(multi_pod):
+    """The reference's production mesh is a TPU pod shape: the port
+    raises, naming it, rather than building another."""
+    from repro_torch.launch.mesh import make_production_mesh
+    with pytest.raises(NotImplementedError, match="TPU pod shape"):
+        make_production_mesh(multi_pod=multi_pod)
