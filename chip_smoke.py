@@ -83,11 +83,11 @@ Phases (any failure exits non-zero):
              published widths with Muon and ``--track-gram`` in a temp
              dir (its free space printed first; the depth, never the
              widths, cut only if three checkpoints would not fit), run A
-             4 steps with ``--ckpt-every 2 --ckpt-keep 2`` (its step-4
-             checkpoint set aside), run B ``--steps 4`` on the same dir,
+             3 steps with ``--ckpt-every 2 --ckpt-keep 2`` (its step-3
+             checkpoint set aside), run B ``--steps 3`` on the same dir,
              which resumes from step 2; asserts that B resumed with 0
-             mismatches from ``verify_restored``, that B's losses are
-             A's steps 2-3 bit for bit, that every leaf of B's step-4
+             mismatches from ``verify_restored``, that B's loss is A's
+             step 2 bit for bit, that every leaf of B's step-3
              checkpoint has A's crc apart from the packed Grams (bf16
              words, within 1e-2), and that both runs launched
              ``rank_update`` and ``sym_stream``; prints the bytes, the
@@ -125,16 +125,17 @@ Phases (any failure exits non-zero):
              ``checked_syrk`` on the 1d route on 4 gloo ranks sharing
              the card, a bitflip on rank 3's band: detected with
              primary 3, bit-equal on every rank, a retry's words twice
-             the schedule's.  Then ``run_recovery`` at stablelm-1.6b's
-             published widths and phase 9's depth (Muon,
-             ``--track-gram``, phase 9's traffic) in a temp dir (its
-             free space printed first): phase 1 killed by
-             ``train:step`` before step 3 after step 2's checkpoint
-             committed, phase 2 resumed from step 2 with 0 mismatches,
-             completed, its losses at steps 2-3 phase 9's run A's bit
-             for bit, both phases launching the symmetric kernels;
-             prints each phase's, the restore's and the verify's
-             seconds;
+             the schedule's.  Then the uninterrupted single-device run at
+             stablelm-1.6b's published widths and 2 layers (``muon-syrk``,
+             ``--track-gram``, phase 7's traffic, 2 steps; its Grams read
+             from its last checkpoint), and ``run_recovery`` of the same
+             run in a temp dir (its free space printed first): phase 1
+             killed by ``train:step`` before step 1 after step 1's
+             checkpoint committed, phase 2 resumed from step 1 with 0
+             mismatches, completed, every loss of both phases the
+             uninterrupted run's bit for bit, both phases launching the
+             symmetric kernels; prints each phase's, the restore's and
+             the verify's seconds;
 12. compress — int8 gradient compression with error feedback: (a)
              trains stablelm-1.6b at full width with Muon and
              ``--compress-grads`` 4 steps on phase 7's traffic, asserting
@@ -159,12 +160,13 @@ Phases (any failure exits non-zero):
              ``all_reduce``), ms on rank 0, no kernel launch;
 13. meshtrain — ``train --devices 4`` (gloo ranks sharing the card,
              the wire host-staged) with ``muon-syrk`` on phase 7's
-             traffic, 3 steps: (a) stablelm-1.6b at full width on (data
-             1, model 4), tensor-parallel, its losses within 1e-4 of
-             phase 7's Muon losses a step (step 0: init, batch and loss
-             before any update); (b) (data 2, model 2) at
-             ``--max-model 2``, cut to 2 layers, held the same way to the
-             single-device trainer at that depth.  Each asserts that
+             traffic, 2 steps, stablelm-1.6b at its published widths
+             cut to 2 layers, on (data 2, model 2) at ``--max-model 2``
+             (tensor- and data-parallel), its losses within 1e-4 of
+             phase 11's uninterrupted single-device run at that depth a
+             step (step 0: init, batch and loss before any update); the
+             (data 1, model 4) run is phase 14's phase 1.  It asserts
+             that
              every rank's losses are identical, that every rank's
              optimizer words a step are the closed form of its leaves
              (the 1D schedule, or a gather where ``_use_1d`` declines),
@@ -174,8 +176,28 @@ Phases (any failure exits non-zero):
              backward, reduce, clip, optimizer), words and bytes a rank
              by phase and kind, and each rank's peak memory.  The
              kernels line's ``train mesh`` launches are the mesh ranks'
-             alone; (b)'s single-device oracle's are printed apart.
+             alone;
+14. elastic — ``run_recovery`` with ``--devices 4 --devices-after 2
+             --max-model 4`` of ``muon-syrk`` with ``--track-gram`` at
+             stablelm-1.6b's published widths and 2 layers, phase 7's
+             traffic, gloo ranks sharing the card: phase 1 on (data 1,
+             model 4) killed before step 1 after its step-1 checkpoint
+             (every leaf gathered to rank 0, which writes) committed,
+             phase 2 on (data 1, model 2) from that checkpoint (each
+             rank its block, each Gram its slice), 0 mismatches,
+             completed; every rank's losses identical, every loss within
+             1e-4 of phase 11's
+             single-device run's, the Grams of phase 2's last
+             checkpoint within 1e-2 (bf16 words) of its; every rank's
+             optimizer words a step the NS closed form plus the Grams'
+             reduce-scatter (embed and unembed, (1 - 1/P)·Lp each);
+             ``rank_update`` (the Grams and the gathered stacks' NS) and
+             ``sym_stream`` launched on every rank of both phases, in
+             the counts the paths give; prints each phase's seconds, the
+             restore's, the verify's, the words of each phase (the
+             checkpoint's gathers apart) and the checkpoint's bytes.
 
+The seconds of each phase are printed on the ``[done]`` line.
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -267,9 +289,12 @@ def probe(torch):
 # --------------------------------------------------------------------------
 def build() -> float:
     from repro_torch.kernels import native
+    from repro_torch.models.model import preload_remat
     t0 = time.perf_counter()
+    preload = preload_remat()       # while nvcc runs, not in phase 7
     native.load()
     secs = time.perf_counter() - t0
+    preload.join()
     log(f"[build] {len(native.SOURCES)} sources, built "
         f"{native.BUILD_INFO['built']} in {secs:.2f} s into "
         f"{native.build_dir()}")
@@ -1652,11 +1677,11 @@ def _gram_words(path: str):
 
 def ckpt_phase(torch):
     """Run A trains stablelm-1.6b (published widths) with Muon and the
-    packed Gram 4 steps, saving every 2 (async) and at the end
-    (blocking); its step-4 checkpoint is set aside.  Run B, on the same
-    dir, resumes from step 2 and writes step 4 again.  B's losses must
-    equal A's steps 2-3 and every leaf of B's step 4 A's (crc), the
-    Grams (bf16 words) within GRAM_TOL."""
+    packed Gram 3 steps, saving every 2 (async) and at the end
+    (blocking); its step-3 checkpoint is set aside.  Run B, on the same
+    dir, resumes from step 2 and writes step 3 again.  B's losses must
+    equal A's step 2 and every leaf of B's step 3 A's (crc), the Grams
+    (bf16 words) within GRAM_TOL."""
     import gc
     import shutil
     import tempfile
@@ -1677,7 +1702,7 @@ def ckpt_phase(torch):
                 "(widths kept) so that three checkpoints fit")
         d = os.path.join(root, "ckpt")
         argv = ["--arch", "stablelm-1.6b", "--full", "--device", DEVICE,
-                "--optimizer", "muon", "--track-gram", "--steps", "4",
+                "--optimizer", "muon", "--track-gram", "--steps", "3",
                 "--ckpt-dir", d, "--ckpt-every", "2", "--ckpt-keep", "2",
                 "--global-batch", "8", "--seq-len", "256",
                 "--loss-chunk", "256", "--seed", "0", "--log-every", "1"]
@@ -1689,8 +1714,8 @@ def ckpt_phase(torch):
             gc.collect()
             torch.cuda.empty_cache()
             if name == "A":
-                os.rename(os.path.join(d, "step_00000004"),
-                          os.path.join(root, "A_step_00000004"))
+                os.rename(os.path.join(d, "step_00000003"),
+                          os.path.join(root, "A_step_00000003"))
         a, b = runs["A"], runs["B"]
         for name, r in runs.items():
             log(f"[ckpt {name}] layers {r['layers']} d_model {r['d_model']} "
@@ -1700,7 +1725,7 @@ def ckpt_phase(torch):
                 f"launches {r['kernel_launches']}, times {r['ckpt_s']}")
         assert (a["d_model"], a["d_ff"], a["vocab"]) == \
             (cfg.d_model, cfg.d_ff, cfg.vocab), a
-        assert not a["resumed"] and len(a["losses"]) == 4, a
+        assert not a["resumed"] and len(a["losses"]) == 3, a
         assert b["resumed"] and b["start_step"] == 2, b
         vr = b["restore_verified"]
         log(f"[ckpt B] restore verified: {vr['checked']} leaves "
@@ -1708,28 +1733,28 @@ def ckpt_phase(torch):
         assert vr["mismatches"] == [], vr
         diff = max(abs(x - y) for x, y in zip(a["losses"][2:], b["losses"]))
         bit_equal = a["losses"][2:] == b["losses"]
-        log(f"[ckpt] B's losses {b['losses']} vs A's steps 2-3 "
+        log(f"[ckpt] B's losses {b['losses']} vs A's step 2 "
             f"{a['losses'][2:]}: bit-equal {bit_equal}, largest "
             f"difference {diff}")
         assert bit_equal, (a["losses"], b["losses"])
-        with open(os.path.join(root, "A_step_00000004",
+        with open(os.path.join(root, "A_step_00000003",
                                "manifest.json")) as f:
             ma = json.load(f)["leaves"]
-        with open(os.path.join(d, "step_00000004", "manifest.json")) as f:
+        with open(os.path.join(d, "step_00000003", "manifest.json")) as f:
             mb = json.load(f)["leaves"]
         assert sorted(ma) == sorted(mb), (sorted(ma), sorted(mb))
         grams = [k for k in ma if k.startswith("opt__.gram__")
                  and "packed" in ma[k]]
         differ = [k for k in ma if ma[k]["crc"] != mb[k]["crc"]
                   and k not in grams]
-        log(f"[ckpt] step 4, B against A: {len(ma)} leaves, crc differs "
+        log(f"[ckpt] step 3, B against A: {len(ma)} leaves, crc differs "
             f"in {differ} apart from the {len(grams)} packed Grams")
         assert differ == [], differ
         gram_err = 0.0
         for k in grams:
-            ga = _gram_words(os.path.join(root, "A_step_00000004",
+            ga = _gram_words(os.path.join(root, "A_step_00000003",
                                           k + ".npy"))
-            gb = _gram_words(os.path.join(d, "step_00000004", k + ".npy"))
+            gb = _gram_words(os.path.join(d, "step_00000003", k + ".npy"))
             gram_err = max(gram_err, float((ga - gb).abs().max()
                                            / ga.abs().max()))
         log(f"[ckpt] packed Grams, B against A: largest relative "
@@ -2128,34 +2153,92 @@ def abft_phase(torch):
     return {"local": rows, "mesh": ranks, "mesh_s": mesh_s}, launches
 
 
-def recovery_phase(torch, ckpt_out):
-    """Phase 11 (c): ``run_recovery`` at stablelm-1.6b's published widths
-    (phase 9's depth) with Muon and ``--track-gram``, phase 9's traffic:
-    phase 1 killed before step 3, phase 2 resumed from step 2.  Its
-    losses at steps 2-3 must be phase 9's run A's, bit for bit."""
+#: the depth of the kill -> resume runs (phases 11 (c) and 14) and of
+#: phase 13 (b): stablelm-1.6b's published widths, 2 of its 24 layers
+RESUME_LAYERS = 2
+#: their steps, the kill before step 1, the checkpoint at step 1
+RESUME_STEPS, RESUME_KILL, RESUME_EVERY = 2, 1, 1
+
+
+def _train_argv(optimizer, steps, layers=0):
+    """The train flags of phase 7's traffic (8 x 256 tokens, seed 0) at
+    stablelm-1.6b's published widths."""
+    argv = ["--arch", "stablelm-1.6b", "--full", "--optimizer", optimizer,
+            "--steps", str(steps), "--global-batch", "8", "--seq-len",
+            "256", "--loss-chunk", "256", "--seed", "0", "--data-seed",
+            "0", "--log-every", "1"]
+    return argv + (["--layers", str(layers)] if layers else [])
+
+
+def _packed_grams(d: str):
+    """{key: bf16 words as f32} of the packed Gram leaves of the newest
+    checkpoint in ``d``."""
+    from repro_torch.distributed import read_manifest
+    m = read_manifest(d)
+    step = os.path.join(d, f"step_{m['step']:08d}")
+    return {k: _gram_words(os.path.join(step, k + ".npy"))
+            for k, v in m["leaves"].items() if "packed" in v}
+
+
+def single_resume_depth(torch):
+    """The uninterrupted single-device run at ``RESUME_LAYERS``:
+    ``muon-syrk`` with ``--track-gram`` on phase 7's traffic,
+    ``RESUME_STEPS`` steps, its one checkpoint (the last step) read for
+    its packed Grams and deleted.  Phases 11 (c), 13 (b) and 14 hold
+    their runs to it (on one device ``muon`` and ``muon-syrk`` run the
+    same chain)."""
     import gc
     import shutil
     import tempfile
 
-    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_argparser, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_single_")
+    try:
+        argv = _train_argv("muon-syrk", RESUME_STEPS, RESUME_LAYERS) + [
+            "--device", DEVICE, "--track-gram", "--ckpt-dir", root,
+            "--ckpt-every", "0"]
+        t0 = time.perf_counter()
+        out = train(build_argparser().parse_args(argv))
+        out["wall_s"] = time.perf_counter() - t0
+        out["grams"] = _packed_grams(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[single] {out['arch']} {out['layers']} layers, d_model "
+        f"{out['d_model']} d_ff {out['d_ff']} vocab {out['vocab']}, "
+        f"muon-syrk + Grams, one device: losses {out['losses']}, launches "
+        f"{out['kernel_launches']}, {out['wall_s']:.1f} s (its checkpoint "
+        "included)")
+    assert len(out["grams"]) == 2, sorted(out["grams"])
+    return out
+
+
+def recovery_phase(torch, single):
+    """Phase 11 (c): ``run_recovery`` at stablelm-1.6b's published widths
+    and ``RESUME_LAYERS`` layers with ``muon-syrk`` and ``--track-gram``,
+    phase 7's traffic: phase 1 killed before step ``RESUME_KILL``,
+    phase 2 resumed from that step.  Both phases' losses must be the
+    uninterrupted single-device run's at that depth, bit for bit."""
+    import gc
+    import shutil
+    import tempfile
+
     from repro_torch.launch.recovery import run_recovery
     gc.collect()
     torch.cuda.empty_cache()          # the phases' processes need the card
-    cfg = get_config("stablelm-1.6b")
     root = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
     try:
         free = shutil.disk_usage(root).free
-        log(f"[recovery] free space at {root}: {free} bytes; two "
-            f"checkpoints ~{2 * _ckpt_estimate(cfg, ckpt_out['layers'])} "
-            "bytes")
-        layers = 0 if ckpt_out["layers"] == cfg.n_layers \
-            else ckpt_out["layers"]
+        log(f"[recovery] free space at {root}: {free} bytes")
         t0 = time.perf_counter()
-        out = run_recovery(os.path.join(root, "ckpt"), devices=1,
-                           devices_after=1, steps=4, kill_step=3,
-                           ckpt_every=2, global_batch=8, seq_len=256,
-                           layers=layers, optimizer="muon", track_gram=True,
-                           timeout=500, extra_args=["--full"])
+        out = run_recovery(
+            os.path.join(root, "ckpt"), devices=1, devices_after=1,
+            steps=RESUME_STEPS, kill_step=RESUME_KILL,
+            ckpt_every=RESUME_EVERY, global_batch=8, seq_len=256,
+            layers=RESUME_LAYERS, optimizer="muon-syrk", track_gram=True,
+            timeout=500, device=DEVICE,
+            extra_args=["--full", "--loss-chunk", "256"])
         total = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2167,14 +2250,16 @@ def recovery_phase(torch, ckpt_out):
     log(f"[recovery] phase 2: {p2['s']:.1f} s, losses {p2.get('losses')}, "
         f"launches {p2.get('kernel_launches')}, checkpoint s "
         f"{p2.get('ckpt_s')}")
-    assert out["killed"] and out["kill_step"] == 3, out
-    assert len(p1["losses"]) == 3, p1        # steps 0-2 ran, then the kill
-    assert out["resumed_step"] == 2 and out["mismatches"] == 0, out
+    assert out["killed"] and out["kill_step"] == RESUME_KILL, out
+    assert len(p1["losses"]) == RESUME_KILL, p1
+    assert out["resumed_step"] == RESUME_EVERY, out
+    assert out["mismatches"] == 0, out
     assert out["completed"] and out["final"]["resumed"], out
-    want = ckpt_out["losses_A"][2:]
-    log(f"[recovery] phase 2's losses {p2['losses']} vs phase 9's run A at "
-        f"steps 2-3 {want}: bit-equal {p2['losses'] == want}")
-    assert p2["losses"] == want, (p2["losses"], want)
+    want = single["losses"]
+    got = p1["losses"] + p2["losses"]
+    log(f"[recovery] losses {got} vs the uninterrupted single-device run's "
+        f"{want}: bit-equal {got == want}")
+    assert got == want, (got, want)
     launches = {}
     for p in (p1, p2):
         n = p["kernel_launches"]
@@ -2186,10 +2271,10 @@ def recovery_phase(torch, ckpt_out):
              "verify_s": p2["ckpt_s"]["verify_s"],
              "save_s": p2["ckpt_s"].get("save_s")}
     log(f"[recovery] {json.dumps(times)}")
-    return {"free_bytes": free, "layers": ckpt_out["layers"],
+    return {"free_bytes": free, "layers": RESUME_LAYERS,
             "verified_leaves": out["verified_leaves"],
             "losses_phase1": p1["losses"], "losses_phase2": p2["losses"],
-            **times}, launches
+            "single_losses": want, **times}, launches
 
 
 # --------------------------------------------------------------------------
@@ -2531,12 +2616,11 @@ def compress_phase(torch, train_out):
 # --------------------------------------------------------------------------
 # phase 13: train --devices N on a (data, model) mesh of gloo ranks
 # --------------------------------------------------------------------------
-MESHTRAIN_STEPS = 3
+MESHTRAIN_STEPS = RESUME_STEPS
 #: losses a step against the single-device trainer's: the ranks sum
 #: bf16 products and gradients in another order (on the card 1.1e-5 at
 #: most; ``tests/test_torch_train_mesh.py`` holds the CPU runs to 5e-4)
 MESHTRAIN_RTOL = 1e-4
-MESHTRAIN_B_LAYERS = 2
 
 
 def _stablelm_leaves(cfg):
@@ -2596,18 +2680,13 @@ def _ns_closed_form(cfg, data, P, steps=5):
     return total, paths
 
 
-def run_mesh_train(torch, devices, max_model, layers=0):
+def run_mesh_train(torch, devices, max_model, layers):
     """``train --devices N`` (gloo ranks sharing this card) on phase 7's
-    traffic with ``muon-syrk``; ``--devices 1`` is the single-device
-    trainer."""
+    traffic with ``muon-syrk`` at ``layers`` layers."""
     from repro_torch.launch.train import build_argparser, train
-    argv = ["--arch", "stablelm-1.6b", "--full", "--device", DEVICE,
-            "--optimizer", "muon-syrk", "--steps", str(MESHTRAIN_STEPS),
-            "--global-batch", "8", "--seq-len", "256", "--loss-chunk",
-            "256", "--seed", "0", "--data-seed", "0", "--log-every", "1",
-            "--devices", str(devices), "--max-model", str(max_model)]
-    if layers:
-        argv += ["--layers", str(layers)]
+    argv = _train_argv("muon-syrk", MESHTRAIN_STEPS, layers) + [
+        "--device", DEVICE, "--devices", str(devices),
+        "--max-model", str(max_model)]
     t0 = time.perf_counter()
     out = train(build_argparser().parse_args(argv))
     out["wall_s"] = time.perf_counter() - t0
@@ -2682,44 +2761,149 @@ def _kinds(per_step):
     return total
 
 
-def meshtrain_phase(torch, train_out):
-    """Phase 13: (a) stablelm-1.6b at full width on (data 1, model 4),
-    held to phase 7's Muon losses; (b) at (data 2, model 2), cut to 2
-    layers, held to the single-device trainer at that depth."""
+def meshtrain_phase(torch, single):
+    """Phase 13: stablelm-1.6b at its published widths, cut to
+    ``RESUME_LAYERS`` layers, on (data 2, model 2), held to the
+    uninterrupted single-device run at that depth (phase 11's).  Its
+    (data 1, model 4) run is phase 14's phase 1: the same path at that
+    depth, with the Grams and a checkpoint."""
     import dataclasses
     import gc
 
     from repro_torch.configs import get_config
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("stablelm-1.6b")
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              n_layers=RESUME_LAYERS)
     t0 = time.perf_counter()
-    a = run_mesh_train(torch, 4, 4)
-    ra, la = meshtrain_check("[meshtrain a]", a,
-                             train_out["muon"]["losses"][:MESHTRAIN_STEPS],
-                             cfg, 1, 4)
+    b = run_mesh_train(torch, 4, 2, layers=RESUME_LAYERS)
+    rb, launches = meshtrain_check("[meshtrain b]", b,
+                                   single["losses"][:MESHTRAIN_STEPS],
+                                   cfg, 2, 2)
+    seconds = {"b_s": time.perf_counter() - t0}
+    log(f"[meshtrain] phase seconds {json.dumps(seconds)}")
+    return {"b": rb, **seconds}, launches
+
+
+# --------------------------------------------------------------------------
+# phase 14: elastic kill -> resume on another device count
+# --------------------------------------------------------------------------
+ELASTIC_DEVICES, ELASTIC_AFTER, ELASTIC_MAX_MODEL = 4, 2, 4
+
+
+def _gram_rs_words(cfg, P):
+    """A rank's words a step of the Grams' reduce-scatter on (1, P):
+    (1 - 1/P)·Lp for embed and for unembed, each split over 'model'
+    along its width, Lp = n(n+1)/2 padded to a multiple of P."""
+    from repro_torch.core.packing import padded_tril_size
+    lp = padded_tril_size(cfg.d_model, P)
+    return 2 * (lp * (P - 1) // P)
+
+
+def elastic_phase(torch, single):
+    """Phase 14: ``run_recovery`` of ``muon-syrk`` with ``--track-gram``
+    at stablelm-1.6b's published widths and ``RESUME_LAYERS`` layers,
+    phase 7's traffic: phase 1 on ``ELASTIC_DEVICES`` gloo ranks sharing
+    the card, (data 1, model 4), killed by ``train:step`` before step
+    ``RESUME_KILL`` after its step-2 checkpoint committed; phase 2
+    resumed on ``ELASTIC_AFTER`` ranks, (data 1, model 2).  0
+    mismatches; every loss within ``MESHTRAIN_RTOL`` of the single-device
+    run's; the Grams of the last checkpoint within ``GRAM_TOL`` of its;
+    every rank's optimizer words a step the NS closed form plus the
+    Grams' reduce-scatter; the symmetric kernels launched on every rank
+    of both phases, ``rank_update`` once a NS step a gathered stack plus
+    once a step for each Gram."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import checkpoint_bytes
+    from repro_torch.launch.recovery import run_recovery
     gc.collect()
     torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    single = run_mesh_train(torch, 1, 1, layers=MESHTRAIN_B_LAYERS)
-    gc.collect()
-    torch.cuda.empty_cache()
-    b = run_mesh_train(torch, 4, 2, layers=MESHTRAIN_B_LAYERS)
-    rb, lb = meshtrain_check(
-        "[meshtrain b]", b, single["losses"],
-        dataclasses.replace(cfg, n_layers=MESHTRAIN_B_LAYERS), 2, 2)
-    t2 = time.perf_counter()
-    # the mesh runs' ranks only: (b)'s single-device oracle is another
-    # path, reported apart
-    launches = {k: la.get(k, 0) + lb.get(k, 0) for k in la}
-    seconds = {"a_s": t1 - t0, "b_s": t2 - t1}
-    log(f"[meshtrain] phase seconds {json.dumps(seconds)}; (b)'s "
-        f"single-device reference: {single['losses']}, peak "
-        f"{single['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
-        f"{single['kernel_launches']}")
-    return {"a": ra, "b": rb, "b_single_losses": single["losses"],
-            "b_single_launches": single["kernel_launches"],
-            **seconds}, launches
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              n_layers=RESUME_LAYERS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        d = os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        out = run_recovery(
+            d, devices=ELASTIC_DEVICES, devices_after=ELASTIC_AFTER,
+            max_model=ELASTIC_MAX_MODEL, steps=RESUME_STEPS,
+            kill_step=RESUME_KILL, ckpt_every=RESUME_EVERY, global_batch=8,
+            seq_len=256, layers=RESUME_LAYERS, optimizer="muon-syrk",
+            track_gram=True, timeout=600,
+            extra_args=["--full", "--loss-chunk", "256"])
+        total = time.perf_counter() - t0
+        grams = _packed_grams(d)
+        nbytes = checkpoint_bytes(d)["total"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    p1, p2 = out["phases"]
+    summary = {k: v for k, v in out.items() if k not in ("phases", "final")}
+    log(f"[elastic] {json.dumps(summary)}; phase 2's mesh "
+        f"{out['final']['mesh']}")
+    assert out["killed"] and out["kill_step"] == RESUME_KILL, out
+    assert out["resumed_step"] == RESUME_EVERY and out["mismatches"] == 0
+    assert out["completed"] and out["final"]["resumed"], out
+    assert out["final"]["mesh"] == {"data": 1, "model": ELASTIC_AFTER}
+    for p in (p1, p2):
+        assert all(r == p["losses"] for r in p["ranks"]["losses"]), \
+            p["ranks"]["losses"]
+    got, want = p1["losses"] + p2["losses"], single["losses"]
+    log(f"[elastic] losses {got} vs the single-device run's {want}")
+    assert len(got) == len(want) == RESUME_STEPS, (got, want)
+    for i, (x, y) in enumerate(zip(got, want)):
+        rel = abs(x - y) / abs(y)
+        log(f"[elastic] step {i}: rel {rel:.3e} (<= {MESHTRAIN_RTOL:.0e})")
+        assert rel <= MESHTRAIN_RTOL, (i, x, y)
+    assert sorted(grams) == sorted(single["grams"]), sorted(grams)
+    gram_err = max(float((grams[k] - g).abs().max() / g.abs().max())
+                   for k, g in single["grams"].items())
+    log(f"[elastic] packed Grams after phase 2 (gathered, bf16 words) vs "
+        f"the single-device run's: largest relative difference {gram_err} "
+        f"(tolerance {GRAM_TOL})")
+    assert gram_err <= GRAM_TOL, gram_err
+    launches, words, gathered = {}, {}, {}
+    for p, P, steps in ((p1, ELASTIC_MAX_MODEL, RESUME_KILL),
+                        (p2, ELASTIC_AFTER, RESUME_STEPS - RESUME_EVERY)):
+        ns, paths = _ns_closed_form(cfg, 1, P)
+        gram = _gram_rs_words(cfg, P)
+        want_opt = dict(ns, reduce_scatter=ns.get("reduce_scatter", 0)
+                        + gram)
+        log(f"[elastic] (1, {P}): Muon paths {json.dumps(paths)}; words a "
+            f"rank a step: NS {ns}, the Grams' reduce-scatter {gram}")
+        log(f"[elastic] (1, {P}) rank 0: words a step by phase "
+            f"{p['words'][-1]}; checkpoint words over the phase, by rank "
+            f"{p['ranks']['ckpt_words']}")
+        for s, step in enumerate(p["words"]):
+            assert step["opt"] == want_opt, (P, s, step["opt"], want_opt)
+        words[f"1x{P}"] = {"opt": p["words"][-1]["opt"],
+                           "gram_reduce_scatter": gram,
+                           "ckpt": p["ranks"]["ckpt_words"]}
+        gathered[P] = (steps, sum(v == "gather" for v in paths.values()))
+    for p, P in ((p1, ELASTIC_MAX_MODEL), (p2, ELASTIC_AFTER)):
+        steps, stacks = gathered[P]
+        for r, n in enumerate(p["ranks"]["kernel_launches"]):
+            log(f"[elastic] (1, {P}) rank {r}: launches {n}")
+            assert n["rank_update"] == steps * (5 * stacks + 2), (P, r, n)
+            assert n["sym_stream"] == steps * 10 * stacks, (P, r, n)
+            assert n["slstm_scan"] == 0, n
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+    times = {"phase1_s": p1["s"], "phase2_s": p2["s"], "total_s": total,
+             "restore_s": p2["ckpt_s"]["restore_s"],
+             "verify_s": p2["ckpt_s"]["verify_s"],
+             "save_s": p2["ckpt_s"].get("save_s"),
+             "phase1_snapshot_s": p1["ckpt_s"]["snapshot_s"]}
+    log(f"[elastic] checkpoint {nbytes} bytes; {json.dumps(times)}")
+    return {"layers": RESUME_LAYERS, "ckpt_bytes": nbytes,
+            "verified_leaves": out["verified_leaves"],
+            "losses_phase1": p1["losses"], "losses_phase2": p2["losses"],
+            "single_losses": want, "gram_rel_err": gram_err,
+            "words": words, **times}, launches
 
 
 def main() -> int:
@@ -2730,22 +2914,34 @@ def main() -> int:
     from repro_torch.device import ieee_f32
     ieee_f32()
     t_start = time.perf_counter()
-    card, clock = probe(torch)
-    build_s = build()
-    cases = kernel_phase(torch, clock)
-    _, launches = serve_phase(torch)
-    xout, xlaunches = xlstm_phase(torch)
-    check_phase(torch)
-    tout, tlaunches = train_phase(torch, cases)
-    mout, mlaunches = mesh_phase(torch)
-    cout, claunches = ckpt_phase(torch)
-    wout, wlaunches = warm_phase(torch)
-    aout, alaunches = abft_phase(torch)
-    rout, rlaunches = recovery_phase(torch, cout)
-    pout, plaunches = compress_phase(torch, tout)
-    eout, elaunches = meshtrain_phase(torch, tout)
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            phase_s[name] = round(time.perf_counter() - t0, 1)
+
+    card, clock = timed("probe", probe, torch)
+    build_s = timed("build", build)
+    cases = timed("kernels", kernel_phase, torch, clock)
+    _, launches = timed("serve", serve_phase, torch)
+    xout, xlaunches = timed("xlstm", xlstm_phase, torch)
+    timed("check", check_phase, torch)
+    tout, tlaunches = timed("train", train_phase, torch, cases)
+    mout, mlaunches = timed("mesh", mesh_phase, torch)
+    cout, claunches = timed("ckpt", ckpt_phase, torch)
+    wout, wlaunches = timed("warm", warm_phase, torch)
+    aout, alaunches = timed("faults", abft_phase, torch)
+    single = timed("single", single_resume_depth, torch)
+    rout, rlaunches = timed("recovery", recovery_phase, torch, single)
+    pout, plaunches = timed("compress", compress_phase, torch, tout)
+    eout, elaunches = timed("meshtrain", meshtrain_phase, torch, single)
+    lout, llaunches = timed("elastic", elastic_phase, torch, single)
     log(f"[done] build {build_s:.2f} s, total "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{time.perf_counter() - t_start:.1f} s; by phase "
+        f"{json.dumps(phase_s)}")
     log(json.dumps({"xlstm_serve": {k: v for k, v in xout.items()
                                     if k not in ("cache",)}}))
     log(json.dumps({"train": tout}))
@@ -2756,6 +2952,7 @@ def main() -> int:
     log(json.dumps({"recovery": rout}))
     log(json.dumps({"compress": pout}))
     log(json.dumps({"meshtrain": eout}))
+    log(json.dumps({"elastic": lout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -2770,7 +2967,9 @@ def main() -> int:
                    "kill/resume stablelm-1.6b muon": rlaunches.get(name,
                                                                    0),
                    "train compressed stablelm-1.6b muon": plaunches[name],
-                   "train mesh stablelm-1.6b muon-syrk": elaunches[name]}
+                   "train mesh stablelm-1.6b muon-syrk": elaunches[name],
+                   "elastic kill/resume stablelm-1.6b muon-syrk":
+                   llaunches.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

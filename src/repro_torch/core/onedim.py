@@ -24,12 +24,9 @@ import torch
 
 from ..distributed import collectives
 from ..distributed.mesh import Comm
-from .packing import pack_tril, tril_size, unpack_tril
-
-
-def _padded_tril_len(n1: int, nshards: int) -> int:
-    t = tril_size(n1)
-    return -(-t // nshards) * nshards
+from .packing import pack_tril
+from .packing import padded_tril_size as _padded_tril_len
+from .packing import tril_size, unpack_tril
 
 
 def _scatter_packed(packed: torch.Tensor, comm: Comm) -> torch.Tensor:

@@ -244,6 +244,58 @@ class PackedTriangle:
         return TriTiles.from_packed(self.vec, self.n, bm)
 
 
+def padded_tril_size(n: int, parts: int) -> int:
+    """n(n+1)/2 rounded up to a multiple of ``parts``."""
+    return -(-tril_size(n) // parts) * parts
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedTriangleSlice:
+    """Slice ``index`` of ``parts`` of a packed lower triangle: the
+    element-packed words of an n × n symmetric matrix, zero-padded to
+    :func:`padded_tril_size`, cut into ``parts`` contiguous slices of
+    equal length; ``vec`` (…, that length) is slice ``index``.  What a
+    rank keeps of a 1D SYRK's reduce-scatter (paper Alg 7): Muon's
+    momentum Gram of a parameter split over P ranks, 1/P of its
+    words."""
+    vec: torch.Tensor
+    n: int
+    parts: int
+    index: int
+
+    def __post_init__(self):
+        want = padded_tril_size(self.n, self.parts) // self.parts
+        if self.vec.shape[-1] != want or not 0 <= self.index < self.parts:
+            raise ValueError(
+                f"slice {self.index} of {self.parts} of a packed n={self.n} "
+                f"triangle has length {want}, got {self.vec.shape[-1]}")
+
+    @property
+    def dtype(self):
+        return self.vec.dtype
+
+    @classmethod
+    def from_packed(cls, p: torch.Tensor, n: int, parts: int,
+                    index: int) -> "PackedTriangleSlice":
+        """Slice ``index`` of the (…, n(n+1)/2) packed words ``p``."""
+        pad = padded_tril_size(n, parts) - p.shape[-1]
+        if pad:
+            p = torch.nn.functional.pad(p, (0, pad))
+        s = p.shape[-1] // parts
+        return cls(p[..., index * s:(index + 1) * s].clone(), n, parts,
+                   index)
+
+    @staticmethod
+    def join(slices) -> torch.Tensor:
+        """Every slice of one triangle, in index order -> its (…,
+        n(n+1)/2) packed words, the padding dropped."""
+        first = slices[0]
+        if [s.index for s in slices] != list(range(first.parts)):
+            raise ValueError("join needs every slice in index order")
+        return torch.cat([s.vec for s in slices],
+                         dim=-1)[..., :tril_size(first.n)]
+
+
 # ---- TriTiles: the kernels' packed-triangular interchange format ----------
 @dataclasses.dataclass(frozen=True)
 class TriTiles:

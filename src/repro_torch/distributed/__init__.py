@@ -10,16 +10,20 @@ serving cache and the train loop fire into (``faults``); the straggler
 monitor and step timer the train loop uses on every step, and the
 replacement shard of its ``evict`` leg; int8 gradient compression with
 error feedback and the compressed all-reduces on the counted
-collectives (``compression``); the reference's mesh planner
-(``elastic``: ``plan_shape``, and ``plan_mesh``, which builds the
-planned (data, model) mesh).  Re-sharding a saved state
-waits (ROADMAP A8)."""
+collectives (``compression``); elastic scaling (``elastic``: the
+reference's mesh planner ``plan_shape`` and ``plan_mesh``, which builds
+the planned (data, model) mesh, the triangle wire's ``wire_c``, and the
+re-sharding of a state onto another mesh: ``reshard_tree``,
+``reshard_tritiles``, ``reshard_packed_state``, ``spec_tree_like``; and
+``elastic.validate_divisibility``); the checkpoints save a mesh's blocks and
+restore onto any mesh (``mesh=`` / ``specs=``)."""
 from . import faults
 from .checkpoint import (checkpoint_bytes, latest_step, read_manifest,
                          recover_stale, restore_checkpoint,
                          save_checkpoint, verify_restored,
                          wait_for_saves)
-from .elastic import plan_mesh, plan_shape
+from .elastic import (plan_mesh, plan_shape, reshard_packed_state,
+                      reshard_tree, reshard_tritiles, spec_tree_like, wire_c)
 from .compression import (ErrorFeedbackInt8, compressed_allreduce,
                           compressed_allreduce_sym, dequantize_int8,
                           quantize_int8)
@@ -36,4 +40,6 @@ __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "StepTimer", "StragglerEvent", "StragglerMonitor",
            "rebuild_replacement_shard", "checked_syrk", "checked_syr2k",
            "checked_symm", "repair_with_reference", "AbftError",
-           "AbftReport", "plan_shape", "plan_mesh"]
+           "AbftReport", "plan_shape", "plan_mesh", "reshard_tree",
+           "reshard_tritiles", "reshard_packed_state", "spec_tree_like",
+           "wire_c"]

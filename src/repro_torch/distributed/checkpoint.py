@@ -46,6 +46,21 @@ Guarantees, as in the reference:
   * **Retention**: keeps the newest ``keep`` checkpoints and sweeps the
     debris of crashed saves, never a live writer's.
 
+  * **Meshes**: given the ``mesh`` and the parameters' ``specs``
+    (``models.sharding.param_specs``), the tree is this rank's blocks: a
+    leaf under a dict keyed by the parameter paths (the parameters, the
+    momentum, the moments, the EF residuals, the Grams) takes its
+    parameter's spec by path, any other leaf is whole on every rank.
+    :func:`save_checkpoint` gathers each split leaf over its axes, one
+    leaf at a time, to rank 0's host memory (a Gram's
+    :class:`PackedTriangleSlice` slices join into one
+    :class:`PackedTriangle`, the padding dropped) and rank 0 writes the
+    same files as a single-device save; :func:`restore_checkpoint`
+    gives every rank its block of each leaf under the current mesh (a
+    Gram its slice for the current split), so a checkpoint restores
+    onto any layout and device count; :func:`verify_restored` gathers
+    the placed blocks back and checks their crcs.
+
 ``_fsync_fd`` and ``_rename`` are the only I/O sites of the commit
 protocol, each under :func:`~repro_torch.distributed.resilience.with_retries`
 and each a fault site (``ckpt:fsync``, ``ckpt:rename``) of
@@ -65,9 +80,10 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.packing import (PackedTriangle, ShardedTriTiles, TriTiles,
-                            pack_tril, unpack_tril)
-from . import faults
+from ..core.packing import (PackedTriangle, PackedTriangleSlice,
+                            ShardedTriTiles, TriTiles, pack_tril,
+                            unpack_tril)
+from . import collectives, faults
 from .resilience import with_retries
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
@@ -83,7 +99,8 @@ _ACTIVE_TMP: set = set()
 #: default narrow dtype of packed symmetric leaves (None keeps the source)
 PACKED_DTYPE = "bfloat16"
 
-_PACKED_TYPES = (TriTiles, ShardedTriTiles, PackedTriangle)
+_PACKED_TYPES = (TriTiles, ShardedTriTiles, PackedTriangle,
+                 PackedTriangleSlice)
 
 #: numpy has no bf16: its words go to disk as the reference's ml_dtypes
 #: array does, the int16 bits under this void header descr
@@ -153,6 +170,90 @@ def _leaf_key(path: str) -> str:
     return re.sub(r"[^A-Za-z0-9_.-]", "_", path).strip("_") or "leaf"
 
 
+def _leaf_specs(tree: Any, specs: Optional[Dict[Any, Any]]) -> list:
+    """Each leaf's spec, in :func:`_flatten`'s order: a leaf under a dict
+    whose keys are the parameter paths of ``specs`` takes its
+    parameter's spec (by path, never by shape: wq and wo share a shape
+    and not a split); any other leaf None (whole on every rank), as is a
+    tensor of another rank than its spec's (a Gram's empty placeholder
+    beside a parameter that is not a matrix)."""
+    out: list = []
+
+    def walk(t, spec) -> None:
+        if t is None:
+            return
+        if isinstance(t, torch.Tensor) and spec is not None \
+                and len(spec) != t.ndim:
+            out.append(None)
+        elif _is_packed_leaf(t):
+            out.append(spec)
+        elif isinstance(t, dict):
+            keyed = specs is not None and set(t) == set(specs)
+            for k in sorted(t):
+                walk(t[k], specs[k] if keyed else spec)
+        elif isinstance(t, tuple) and hasattr(t, "_fields"):
+            for f in t._fields:
+                walk(getattr(t, f), spec)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v, spec)
+        else:
+            out.append(spec)
+
+    walk(tree, None)
+    return out
+
+
+def _split_axes(spec) -> List[str]:
+    """The mesh axes a spec splits over, in order."""
+    axes: List[str] = []
+    for a in spec or ():
+        axes.extend((a,) if isinstance(a, str) else (a or ()))
+    return axes
+
+
+def _whole(leaf: Any, spec, mesh) -> Any:
+    """The whole leaf from this rank's block under ``spec``, on the rank
+    that holds the first block of each axis the leaf is split over (a
+    Gram's slices joined into its :class:`PackedTriangle`), None on the
+    others; a leaf split over no axis as it is.  Collective on the ranks
+    of each axis, counted by :mod:`.collectives` under ``gather``; on a
+    gloo mesh the blocks go to the host first, where the whole leaf is
+    wanted."""
+    from ..models.sharding import gather_leaf
+    axes = _split_axes(spec)
+    if not axes or not isinstance(leaf, (torch.Tensor,
+                                         PackedTriangleSlice)):
+        return leaf
+    host = mesh.backend == "gloo"
+    if isinstance(leaf, PackedTriangleSlice):
+        [axis] = axes
+        comm = mesh.comm(axis)
+        if (comm.size, comm.index) != (leaf.parts, leaf.index):
+            raise ValueError(f"slice {leaf.index} of {leaf.parts} on axis "
+                             f"{axis!r} at index {comm.index} of "
+                             f"{comm.size}")
+        vec = leaf.vec.cpu() if host else leaf.vec
+        parts = collectives.gather(vec[None], comm)
+        if parts is None:
+            return None
+        return PackedTriangle(PackedTriangleSlice.join(
+            [PackedTriangleSlice(v, leaf.n, leaf.parts, i)
+             for i, v in enumerate(parts)]), leaf.n)
+    return gather_leaf(leaf.cpu() if host else leaf, spec, mesh,
+                       first=True)
+
+
+def _block(t: torch.Tensor, spec, mesh, device) -> torch.Tensor:
+    """This rank's block of the whole host tensor ``t`` under ``spec``,
+    in memory of its own on ``device``."""
+    from ..models.sharding import shard_leaf
+    if _split_axes(spec):
+        t = shard_leaf(t, spec, mesh)
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    return out.copy_(t)
+
+
 def _flatten(tree: Any) -> List[Tuple[str, Any]]:
     """(key, leaf) pairs; packed symmetric formats are ONE leaf each."""
     out = []
@@ -187,6 +288,9 @@ def _host(v: Any, copy: bool) -> Tuple[np.ndarray, str]:
 
 def _packed_meta(leaf) -> Dict[str, Any]:
     """Manifest layout metadata for one packed symmetric leaf."""
+    if isinstance(leaf, PackedTriangleSlice):
+        raise TypeError("a PackedTriangleSlice is saved whole: pass the "
+                        "mesh and specs to save_checkpoint")
     src = _dtype_name(leaf.dtype)
     if isinstance(leaf, ShardedTriTiles):
         return {"format": "sharded_tritiles", "n": leaf.n, "c": leaf.c,
@@ -386,7 +490,9 @@ def _write_logged(*args) -> None:
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
                     keep: int = 3, blocking: bool = True,
                     extra: Optional[Dict[str, Any]] = None,
-                    packed_dtype: Optional[str] = PACKED_DTYPE) -> None:
+                    packed_dtype: Optional[str] = PACKED_DTYPE,
+                    mesh=None, specs: Optional[Dict[Any, Any]] = None
+                    ) -> None:
     """Snapshot ``tree`` (params / optimizer state / any nest of dicts,
     NamedTuples, lists and tensors) at ``step``.
 
@@ -399,18 +505,37 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
     Every leaf is copied to host memory here.  With ``blocking=False``
     the files are written on a background thread; call
     :func:`wait_for_saves` before exiting.
+
+    With ``mesh`` and ``specs`` (collective: every rank calls it alike)
+    ``tree`` is this rank's blocks; the ranks of the first data row
+    (the first block of every axis no leaf is split over) gather each
+    split leaf, one at a time, to rank 0, which keeps it in host memory
+    and writes; the other ranks return at once.
     """
-    os.makedirs(ckpt_dir, exist_ok=True)
     host_leaves: List[HostLeaf] = []
     packed_meta: Dict[str, Dict[str, Any]] = {}
     copy = not blocking
-    for k, v in _flatten(tree):
+    flat = _flatten(tree)
+    leaf_specs = [None] * len(flat)
+    if mesh is not None:
+        split = {a for sp in specs.values() for a in _split_axes(sp)}
+        if any(mesh.index(a) for a in mesh.shape if a not in split):
+            return                  # a replica of the first data row's
+        leaf_specs = _leaf_specs(tree, specs)
+    for (k, v), spec in zip(flat, leaf_specs):
+        if mesh is not None:
+            v = _whole(v, spec, mesh)
+            if mesh.rank != 0:
+                continue
         if _is_packed_leaf(v):
             arr, name = _host_packed(v, packed_dtype, copy)
             packed_meta[k] = _packed_meta(v)
         else:
             arr, name = _host(v, copy)
         host_leaves.append((k, arr, name))
+    if mesh is not None and mesh.rank != 0:
+        return
+    os.makedirs(ckpt_dir, exist_ok=True)
     args = (ckpt_dir, step, host_leaves, keep, extra or {}, packed_meta)
     if blocking:
         _write(*args)
@@ -491,7 +616,7 @@ def _load_leaf(d: str, key: str, meta: Dict[str, Any]) -> torch.Tensor:
 def _device_of(like: Any) -> torch.device:
     if isinstance(like, torch.Tensor):
         return like.device
-    if isinstance(like, PackedTriangle):
+    if isinstance(like, (PackedTriangle, PackedTriangleSlice)):
         return like.vec.device
     if isinstance(like, TriTiles):
         return like.tiles.device
@@ -510,6 +635,9 @@ def _packed_into(vec: torch.Tensor, n: int, like: Any):
             raise ValueError(f"packed leaf dimension mismatch: checkpoint "
                              f"has n={n}, restore target has n={like.n}")
         vec = vec.to(like.dtype)
+        if isinstance(like, PackedTriangleSlice):
+            return PackedTriangleSlice.from_packed(vec, n, like.parts,
+                                                   like.index)
         if isinstance(like, ShardedTriTiles):
             return ShardedTriTiles.from_packed(vec, n, like.c, like.mesh,
                                                like.axis)
@@ -521,24 +649,40 @@ def _packed_into(vec: torch.Tensor, n: int, like: Any):
 
 
 def restore_checkpoint(ckpt_dir: str, like: Any, *,
-                       step: Optional[int] = None) -> Tuple[int, Any]:
+                       step: Optional[int] = None, mesh=None,
+                       specs: Optional[Dict[Any, Any]] = None
+                       ) -> Tuple[int, Any]:
     """Restore the newest (or ``step``) checkpoint into the structure of
     ``like``; each leaf lands on the device of its ``like`` leaf.
 
     Plain leaves come back in their stored dtype (an int ``like`` leaf
     as int).  Packed manifest leaves rebuild into whatever layout the
-    ``like`` leaf asks for (:func:`_packed_into`); a packed ``like``
-    also takes a legacy dense-stored leaf (its lower triangle)."""
+    ``like`` leaf asks for (:func:`_packed_into`; a
+    :class:`PackedTriangleSlice` its slice); a packed ``like`` also takes
+    a legacy dense-stored leaf (its lower triangle).
+
+    With ``mesh`` and ``specs`` (the reference's ``shardings=``),
+    ``like`` is this rank's blocks and every rank takes its block of
+    each stored leaf under its parameter's spec on ``mesh``, whatever
+    layout and device count wrote it."""
     recover_stale(ckpt_dir)
     step, d = _manifest_path(ckpt_dir, step)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     loaded = []
-    for key, lk in _flatten(like):
+    flat = _flatten(like)
+    leaf_specs = _leaf_specs(like, specs) if mesh is not None \
+        else [None] * len(flat)
+    for (key, lk), spec in zip(flat, leaf_specs):
         meta = manifest["leaves"].get(key)
         if meta is None:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        t = _load_leaf(d, key, meta).to(_device_of(lk))
+        t = _load_leaf(d, key, meta)
+        if mesh is not None and not _is_packed_leaf(lk) \
+                and not isinstance(lk, int):
+            t = _block(t, spec, mesh, _device_of(lk))
+        else:
+            t = t.to(_device_of(lk))
         if "packed" in meta:
             leaf = _packed_into(t, int(meta["packed"]["n"]), lk)
         elif _is_packed_leaf(lk):
@@ -556,15 +700,31 @@ def restore_checkpoint(ckpt_dir: str, like: Any, *,
 
 
 def verify_restored(ckpt_dir: str, tree: Any, *,
-                    step: Optional[int] = None) -> Dict[str, Any]:
+                    step: Optional[int] = None, mesh=None,
+                    specs: Optional[Dict[Any, Any]] = None
+                    ) -> Dict[str, Any]:
     """Prove a restore round-tripped bit-exactly: re-encode every leaf
     of ``tree`` as :func:`save_checkpoint` did (packed leaves in their
     stored dtype from the manifest) and compare its crc32 with the
-    manifest's.  Returns ``{"checked", "packed", "mismatches"}``."""
+    manifest's.  Returns ``{"checked", "packed", "mismatches"}``.
+
+    With ``mesh`` and ``specs`` (collective: every rank calls it alike)
+    ``tree`` is this rank's blocks as placed: each split leaf is
+    gathered back over its axes, one at a time, to the rank holding the
+    first block of each (every data row's own), which checks the whole
+    leaf; every rank checks the leaves it holds whole.  A rank's counts
+    cover the leaves it checked."""
     manifest = read_manifest(ckpt_dir, step)
     checked = packed = 0
     mismatches: List[str] = []
-    for k, v in _flatten(tree):
+    flat = _flatten(tree)
+    leaf_specs = _leaf_specs(tree, specs) if mesh is not None \
+        else [None] * len(flat)
+    for (k, v), spec in zip(flat, leaf_specs):
+        if mesh is not None:
+            v = _whole(v, spec, mesh)
+            if v is None:               # checked on its axes' first rank
+                continue
         meta = manifest["leaves"].get(k)
         if meta is None:
             mismatches.append(k)

@@ -5,6 +5,8 @@ Counterparts of the reference's ``shard_map`` collectives:
 
   ``reduce_scatter`` — ``lax.psum_scatter(..., tiled=True)``
   ``all_gather``     — ``lax.all_gather(..., tiled=True)``
+  ``gather``         — an all-gather whose result only the first rank
+                       keeps (a checkpoint's leaf on its writer)
   ``all_to_all``     — ``lax.all_to_all(x, axis, 0, 0, tiled=True)``
   ``ppermute``       — ``lax.ppermute`` (on ``batch_isend_irecv``)
   ``all_reduce``     — ``lax.psum`` (``lax.pmax`` with ``op="max"``)
@@ -13,7 +15,7 @@ Each works along dim 0 of its operand on one :class:`Comm` (a mesh
 axis, or a 3d grid's tb / rep axis) and adds to this rank's word count
 what this rank puts on the wire, in elements: (P−1)/P of its operand
 for a reduce-scatter or an all-to-all, (P−1) times it for an
-all-gather, 2(P−1)/P of it for an all-reduce, the whole buffer for
+all-gather, all of it for a gather from any rank but the first, 2(P−1)/P of it for an all-reduce, the whole buffer for
 each send of a ppermute to another rank.  These are the ring
 algorithms' counts (the closed forms of the paper's word bounds);
 :func:`word_counts` reads them by kind, :func:`byte_counts` the same
@@ -110,6 +112,22 @@ def all_gather(x: torch.Tensor, comm: Comm,
     dist.all_gather_into_tensor(out, xs, group=comm.group)
     _count(kind, x.numel() * (P - 1), x)
     return _home(out, x, comm)
+
+
+def gather(x: torch.Tensor, comm: Comm) -> "torch.Tensor | None":
+    """(s, …) on every rank -> (P·s, …), the ranks' operands in order,
+    on the group's first rank (index 0); None on the others."""
+    P = comm.size
+    if P == 1:
+        return x
+    xs = _stage(x, comm)
+    first = comm.index == 0
+    parts = [torch.empty_like(xs) for _ in range(P)] if first else None
+    dist.gather(xs, parts, dst=comm.ranks[0], group=comm.group)
+    if not first:
+        _count("gather", x.numel(), x)
+        return None
+    return _home(torch.cat(parts), x, comm)
 
 
 def all_to_all(x: torch.Tensor, comm: Comm) -> torch.Tensor:

@@ -36,15 +36,16 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core.packing import (PackedTriangle, ShardedTriTiles, TriTiles,
-                            pack_tril, tril_size, unpack_tril)
+from ..core.packing import (PackedTriangle, PackedTriangleSlice,
+                            ShardedTriTiles, TriTiles, pack_tril, tril_size,
+                            unpack_tril)
 from . import collectives
 from .checkpoint import _is_packed_leaf, _unflatten, _walk
 from .mesh import Comm
 
 #: the arrays a packed leaf is made of, in the reference's pytree order
-_COMPONENTS = {PackedTriangle: ("vec",), TriTiles: ("tiles",),
-               ShardedTriTiles: ("off", "diag")}
+_COMPONENTS = {PackedTriangle: ("vec",), PackedTriangleSlice: ("vec",),
+               TriTiles: ("tiles",), ShardedTriTiles: ("off", "diag")}
 
 
 def _pad_to(x: torch.Tensor, block: int) -> torch.Tensor:

@@ -13,11 +13,11 @@ calls ``work(mesh, **kwargs)``
 and returns its result (anything picklable) to the caller, in rank
 order.  Ranks on the CPU split the host's cores between them (intra-op
 threads).  ``device`` is every rank's device: "cpu" (asked for, as the
-tests do); "cuda:0" puts all ranks on one card, as a one-card machine
-must with gloo; "cuda" gives rank r the card r, as NCCL needs.  With no
-``device`` the ranks run on the card (the current one with gloo, one
-each with NCCL), and the launch raises when there is none, as every
-entry point of the port does.  A rank that fails makes the launch
+tests do); "cuda:0" puts all ranks on one card; "cuda" gives rank r the
+card r mod the cards present (all on the one card of a one-card
+machine), as NCCL needs.  With no ``device`` the ranks run on the cards
+as with "cuda", whatever the backend, and the launch raises when there
+is none, as every entry point of the port does.  A rank that fails makes the launch
 raise with the end of its log; a launch that outlives ``timeout``
 seconds is killed and raises.  Nothing is retried or switched.
 """
@@ -39,6 +39,21 @@ def _src_dir() -> str:
         repro_torch.__file__)))
 
 
+def spec_device(device: Optional[str]) -> str:
+    """The device string the ranks are given: "cuda" (spread over the
+    cards, :func:`rank_device`) when none was asked for, which raises
+    without a card; else the one asked for."""
+    from ..device import resolve_device
+    card = resolve_device(device)    # no device: the card, or raise
+    return "cuda" if device is None else str(card)
+
+
+def rank_device(device: str, rank: int, n_cards: int) -> str:
+    """Rank ``rank``'s device from the spec's: "cuda" is card
+    ``rank mod n_cards``; anything else is taken as it is."""
+    return f"cuda:{rank % n_cards}" if device == "cuda" else device
+
+
 def run_ranks(target: str, world: int, *, backend: str = "gloo",
               device: Optional[str] = None,
               kwargs: Optional[Dict[str, Any]] = None,
@@ -47,9 +62,7 @@ def run_ranks(target: str, world: int, *, backend: str = "gloo",
     """Run ``target`` ("module:function") on ``world`` ranks; returns
     each rank's result.  ``paths`` are prepended to the ranks' module
     search path."""
-    from ..device import resolve_device
-    card = resolve_device(device)    # no device: the card, or raise
-    device = "cuda" if device is None and backend == "nccl" else str(card)
+    device = spec_device(device)
     tmp = tempfile.mkdtemp(prefix="repro_ranks_")
     try:
         spec = {"target": target, "world": world, "backend": backend,
@@ -118,7 +131,7 @@ def _rank_main(spec_path: str, rank: int) -> None:
     ieee_f32()
     device = spec["device"]
     if device == "cuda":
-        device = f"cuda:{rank % torch.cuda.device_count()}"
+        device = rank_device(device, rank, torch.cuda.device_count())
     if device.startswith("cuda"):
         torch.cuda.set_device(torch.device(device))
     else:

@@ -1,30 +1,35 @@
-"""Chaos recovery: device death -> resume (port of
+"""Chaos recovery: device death -> elastic resume (port of
 :mod:`repro.launch.recovery`).
 
     PYTHONPATH=src python -m repro_torch.launch.recovery --device cpu \
         --steps 4 --kill-step 3 -- --d-model 64 --d-ff 128 --ckpt-every 2
 
+    PYTHONPATH=src python -m repro_torch.launch.recovery --device cpu \
+        --devices 4 --devices-after 2 --steps 4 --kill-step 3 -- \
+        --ckpt-every 2
+
 One call to :func:`run_recovery` runs the whole sequence, each phase a
 subprocess ``python -m repro_torch.launch.train`` (``PYTHONPATH=src``),
 as a restart looks to a scheduler:
 
-  1. **Phase 1**: train with an armed ``train:step`` *kill* fault
-     (:mod:`repro_torch.distributed.faults`, delivered through
+  1. **Phase 1**: train on ``devices`` ranks (``--devices``, the mesh
+     planned with ``--max-model``) with an armed ``train:step`` *kill*
+     fault (:mod:`repro_torch.distributed.faults`, delivered through
      ``REPRO_FAULTS`` so the injection is reproducible from the
-     environment alone).  At ``kill_step`` the training loop commits
-     its pending checkpoint writes and raises
+     environment alone).  At ``kill_step`` every rank stops after rank
+     0 committed its pending checkpoint writes, and the trainer raises
      :class:`~repro_torch.distributed.faults.DeviceLossError`.
-  2. **Phase 2**: restart the same job without the fault.
-     ``restore_checkpoint`` places the saved state (the packed Gram
-     EMAs travel as triangle words) and ``verify_restored`` checks every
-     restored leaf against the checkpoint's crc before a step runs; the
-     run then completes.
+  2. **Phase 2**: restart the same job without the fault on
+     ``devices_after`` ranks, the surviving world, whose mesh the
+     trainer plans from that count.  ``restore_checkpoint`` gives each
+     rank its block of the saved state (the packed Gram EMAs travel as
+     triangle words, each rank taking its slice) and
+     ``verify_restored`` gathers the placed blocks back and checks every
+     leaf against the checkpoint's crc before a step runs; the run then
+     completes.
 
 Runs on the card unless ``device="cpu"`` (``--device cpu``) is given,
-and raises when there is none.  One card is one device: ``devices`` and
-``devices_after`` must both be 1.  A resume on another device count is
-ROADMAP A8 (elastic resume), and so is a kill -> resume on a mesh:
-it needs the mesh's checkpoints and ``--fail-at`` there (A8).
+and raises when there is none; a mesh's ranks share the card (gloo).
 """
 from __future__ import annotations
 
@@ -48,19 +53,21 @@ def _run_phase(ckpt_dir: str, ndev: int, extra_args: Sequence[str],
                extra_env: Optional[Dict[str, str]] = None,
                *, steps: int, global_batch: int, seq_len: int,
                layers: int, ckpt_every: int, optimizer: str,
-               track_gram: bool, timeout: float, device: str
-               ) -> subprocess.CompletedProcess:
+               track_gram: bool, timeout: float, device: Optional[str],
+               max_model: int) -> subprocess.CompletedProcess:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
     env.pop(faults.ENV_SPECS, None)            # phase 2 runs fault-free
     if extra_env:
         env.update(extra_env)
     cmd = [sys.executable, "-m", "repro_torch.launch.train",
-           "--device", device, "--devices", str(ndev),
+           *(["--device", device] if device else []),
+           "--devices", str(ndev),
            "--steps", str(steps), "--global-batch", str(global_batch),
            "--seq-len", str(seq_len), "--layers", str(layers),
            "--ckpt-dir", ckpt_dir, "--ckpt-every", str(ckpt_every),
-           "--log-every", str(max(ckpt_every, 1)), "--max-model", "2",
+           "--log-every", str(max(ckpt_every, 1)),
+           "--max-model", str(max_model),
            "--optimizer", optimizer]
     if track_gram:
         cmd.append("--track-gram")
@@ -71,9 +78,17 @@ def _run_phase(ckpt_dir: str, ndev: int, extra_args: Sequence[str],
 
 def _port_line(stdout: str) -> Dict[str, Any]:
     """The trainer's ``[train] port:`` line (losses, kernel launches,
-    checkpoint seconds), the last one printed."""
-    found = re.findall(r"^\[train\] port: (\{.*\})$", stdout, re.M)
-    return json.loads(found[-1]) if found else {}
+    checkpoint seconds; on a mesh rank 0's words), the last one printed,
+    and a mesh run's ``[train] ranks:`` line as ``"ranks"`` (every
+    rank's losses, kernel launches and checkpoint words)."""
+    out: Dict[str, Any] = {}
+    for tag in ("port", "ranks"):
+        found = re.findall(rf"^\[train\] {tag}: (\{{.*\}})$", stdout,
+                           re.M)
+        if found:
+            got = json.loads(found[-1])
+            out.update(got if tag == "port" else {"ranks": got})
+    return out
 
 
 def run_recovery(ckpt_dir: str, *, devices: int = 1,
@@ -83,11 +98,15 @@ def run_recovery(ckpt_dir: str, *, devices: int = 1,
                  ckpt_every: int = 10, optimizer: str = "muon",
                  track_gram: bool = True, seed: int = 0,
                  timeout: float = 900.0, device: Optional[str] = None,
+                 max_model: int = 2,
                  extra_args: Sequence[str] = ()) -> Dict[str, Any]:
-    """Kill the device mid-train, restart, resume, finish.
+    """Kill a device mid-train, restart on ``devices_after`` ranks,
+    resume, finish.
 
     ``extra_args`` go to both phases' trainer (``["--full"]`` with
-    ``layers=0`` trains a config at its published widths and depth).
+    ``layers=0`` trains a config at its published widths and depth);
+    ``max_model`` caps both meshes' model axis (the reference's
+    ``--max-model 2``).
     Returns the reference's summary dict::
 
         {"killed": True,            # phase 1 died of DeviceLossError
@@ -103,21 +122,13 @@ def run_recovery(ckpt_dir: str, *, devices: int = 1,
     seconds).  Raises ``RuntimeError`` when either phase deviates from
     the script (no injected death, failed restart, restore mismatch).
     """
-    if devices_after != devices:
-        raise NotImplementedError(
-            f"resuming on {devices_after} devices after {devices}: a "
-            "restore at another device count waits for ROADMAP A8 "
-            "(elastic resume)")
-    if devices > 1:
-        raise NotImplementedError(
-            f"{devices} devices: a kill -> resume on a mesh needs sharded "
-            "checkpoints, which wait for ROADMAP A8")
-    dev = str(resolve_device(device))
+    resolve_device(device)             # no device and no card: raise
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     phase_kw = dict(steps=steps, global_batch=global_batch,
                     seq_len=seq_len, layers=layers,
                     ckpt_every=ckpt_every, optimizer=optimizer,
-                    track_gram=track_gram, timeout=timeout, device=dev)
+                    track_gram=track_gram, timeout=timeout, device=device,
+                    max_model=max_model)
 
     # -- phase 1: armed kill at kill_step --------------------------------
     chaos_env = faults.env_dict(
@@ -131,11 +142,12 @@ def run_recovery(ckpt_dir: str, *, devices: int = 1,
             "phase 1 did not die of the injected device loss:\n"
             + p1.stderr[-2000:])
 
-    # -- phase 2: resume --------------------------------------------------
+    # -- phase 2: resume on the surviving world -------------------------
     p2 = _run_phase(ckpt_dir, devices_after, extra_args, None, **phase_kw)
     t2 = time.perf_counter()
     if p2.returncode != 0:
-        raise RuntimeError("phase 2 (resume) failed:\n" + p2.stderr[-2000:])
+        raise RuntimeError("phase 2 (elastic resume) failed:\n"
+                           + p2.stderr[-2000:])
     m_res = re.search(r"resumed from step (\d+)", p2.stdout)
     m_ver = re.search(r"restore verified: (\d+) leaves, (\d+) mismatch",
                       p2.stdout)
@@ -172,6 +184,7 @@ def main(argv=None):
                          "on the host)")
     ap.add_argument("--devices", type=int, default=1)
     ap.add_argument("--devices-after", type=int, default=1)
+    ap.add_argument("--max-model", type=int, default=2)
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--kill-step", type=int, default=20)
     ap.add_argument("train_args", nargs="*")
@@ -182,7 +195,7 @@ def main(argv=None):
         out = run_recovery(args.ckpt_dir or tmp, devices=args.devices,
                            devices_after=args.devices_after,
                            steps=args.steps, kill_step=args.kill_step,
-                           device=args.device,
+                           device=args.device, max_model=args.max_model,
                            extra_args=args.train_args)
     finally:
         if tmp:

@@ -1,4 +1,5 @@
-"""Single-device trainer (port of :mod:`repro.launch.train`).
+"""The trainer, on one device or a mesh (port of
+:mod:`repro.launch.train`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
         --full --optimizer muon --steps 6 --global-batch 8 --seq-len 256
@@ -65,15 +66,35 @@ bytes by collective kind:
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --devices 4 --max-model 2 --steps 3 --optimizer muon-syrk
 
-Waiting, each raising a clear error that names its ROADMAP item: on a
-mesh, ``--ckpt-dir`` / ``--fail-at`` (A8, sharded save and restore) and
-``--track-gram`` (A7b); training an xlstm config (A9: its sLSTM kernel
-has no backward yet).
+On a mesh ``--track-gram`` keeps the Gram of embed and unembed (split
+over 'model' along their long side) as each rank's slice of the 1D
+SYRK's reduce-scatter (words under the optimizer phase);
+``--ckpt-dir`` saves the reference's files, each split leaf gathered to
+rank 0, which writes (the gathers' words: ``ckpt_words_a_rank``), and
+restores any checkpoint onto this mesh, whatever mesh or device count
+wrote it; ``--fail-at`` and a ``train:step`` kill stop every rank at the
+same step after rank 0 committed its writes, and the launcher raises
+the failure as one device does.  A kill, then a resume on another
+device count:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --devices 4 --max-model 2 --steps 4 --optimizer muon-syrk \
+        --track-gram --ckpt-dir /path/to/ckpt --ckpt-every 2 --fail-at 3
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --devices 2 --max-model 2 --steps 4 --optimizer muon-syrk \
+        --track-gram --ckpt-dir /path/to/ckpt --ckpt-every 2
+
+Waiting, each raising a clear error that names its ROADMAP item:
+``--ckpt-dir`` on a mesh with state that is each rank's own (the 8-bit
+AdamW moments; the EF residuals of ``--compress-grads`` over a data
+axis: A8b); training an xlstm config (A9: its sLSTM kernel has no
+backward yet).
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -87,16 +108,16 @@ from ..configs import get_config, get_smoke_config
 from ..data import DataConfig, make_train_iterator
 from ..device import describe, resolve_device
 from ..distributed import (ErrorFeedbackInt8, StepTimer, StragglerMonitor,
-                           checkpoint_bytes, faults, latest_step,
-                           plan_mesh, plan_shape,
+                           checkpoint_bytes, collectives, faults,
+                           latest_step, plan_mesh, plan_shape, recover_stale,
                            restore_checkpoint, save_checkpoint,
                            verify_restored, wait_for_saves)
 from ..distributed.launch import run_ranks
 from ..kernels import counts
-from ..models.model import init_model
+from ..models.model import init_model, preload_remat
 from ..models.sharding import batch_specs, global_shape, shard_leaf
-from .steps import (describe_blas_routing, init_opt_state, make_optimizer,
-                    make_train_step)
+from .steps import (_delta, describe_blas_routing, init_opt_state,
+                    make_optimizer, make_train_step)
 
 
 def build_config(args):
@@ -113,21 +134,27 @@ def build_config(args):
     return cfg
 
 
+class InjectedFailure(RuntimeError):
+    """``--fail-at N``: the run stops before step N."""
+
+
 def _refuse_waiting(args, cfg) -> None:
     """The reference's options the port does not carry yet."""
     if args.devices < 1:
         raise ValueError(f"--devices {args.devices}")
-    if args.devices > 1:
-        for flag, on in (("--ckpt-dir", args.ckpt_dir is not None),
-                         ("--fail-at", args.fail_at is not None)):
-            if on:
-                raise NotImplementedError(
-                    f"{flag} with --devices {args.devices}: sharded "
-                    "checkpoints and their restore wait for ROADMAP A8")
-        if args.track_gram:
+    if args.devices > 1 and args.ckpt_dir is not None:
+        data, _ = plan_shape(args.devices, max_model=args.max_model)
+        local = None
+        if args.optimizer == "adamw8bit":
+            local = "the 8-bit AdamW moments, quantized in each rank's " \
+                "blocks,"
+        elif args.compress_grads and data > 1:
+            local = "the error-feedback residuals, each data rank's own,"
+        if local:
             raise NotImplementedError(
-                f"--track-gram with --devices {args.devices}: the packed "
-                "momentum Grams of sharded parameters wait for ROADMAP A7b")
+                f"--ckpt-dir with --devices {args.devices}: {local} have no "
+                "layout-free form to save; checkpoints of rank-local "
+                "optimizer state on a mesh wait for ROADMAP A8b")
     if any(s.mixer in ("mlstm", "slstm") for s in cfg.pattern):
         raise NotImplementedError(
             f"training {cfg.name} waits: the sLSTM kernel (slstm_scan) has "
@@ -155,9 +182,16 @@ def _train_on_mesh(args) -> Dict[str, Any]:
     out = ranks[0]
     for line in out.pop("log"):
         print(line)
+    print("[train] ranks: " + json.dumps(
+        {k: [r["port"][k] for r in ranks]
+         for k in ("losses", "kernel_launches", "ckpt_words")}))
+    if "error" in out:
+        raise out["error"]            # every rank's injected failure
+    out.pop("port")
     out["ranks"] = [{k: r[k] for k in ("losses", "peak_memory_bytes",
                                        "words", "bytes", "step_s",
-                                       "split_s", "kernel_launches")}
+                                       "split_s", "kernel_launches",
+                                       "ckpt_words_a_rank")}
                     for r in ranks]
     return out
 
@@ -166,21 +200,41 @@ def train_rank(mesh_x, flags: Dict[str, Any]) -> Dict[str, Any]:
     """One rank of ``train --devices N`` (the ``run_ranks`` target):
     the (data, model) mesh planned as the reference plans it, then the
     train loop on this rank's blocks and rows.  Rank 0 keeps its log
-    lines for the launcher to print."""
+    lines for the launcher to print.  An injected failure (every rank
+    meets it at the same step, after rank 0 committed its writes) is
+    returned under ``"error"`` for the launcher to raise; ``"port"`` is
+    this rank's last ``[train] port:`` payload."""
     args = argparse.Namespace(**flags)
     cfg = build_config(args)
+    preload_remat()
     mesh = plan_mesh(max_model=args.max_model, device=mesh_x.device)
     log: List[str] = []
     say = log.append if mesh.rank == 0 else (lambda line: None)
-    out = _run(args, cfg, mesh.device, mesh=mesh, say=say)
-    out["log"] = log
+    ports: List[Dict[str, Any]] = []
+    try:
+        out = _run(args, cfg, mesh.device, mesh=mesh, say=say,
+                   port=ports.append)
+    except (faults.DeviceLossError, InjectedFailure) as e:
+        out = {"error": e}
+    out.update(log=log, port=ports[-1])
     return out
 
 
-def _run(args, cfg, dev, mesh=None,
-         say: Callable[[str], None] = print) -> Dict[str, Any]:
+def _world_sum(mesh, x: int) -> int:
+    """``x`` summed over every rank of ``mesh`` (collective: a barrier
+    too)."""
+    t = torch.tensor([x], dtype=torch.int64, device=mesh.device)
+    for axis in mesh.shape:
+        t = collectives.all_reduce(t, mesh.comm(axis))
+    return int(t.item())
+
+
+def _run(args, cfg, dev, mesh=None, say: Callable[[str], None] = print,
+         port: Callable[[Dict[str, Any]], None] = lambda payload: None
+         ) -> Dict[str, Any]:
     """The train loop on ``dev``: the whole model, or on ``mesh`` this
-    rank's blocks of it."""
+    rank's blocks of it.  ``port`` gets each ``[train] port:``
+    payload."""
     model = init_model(cfg, seed=args.seed, device=dev,
                        **({} if mesh is None else {"mesh": mesh}))
     opt = make_optimizer(cfg, args.optimizer, lr=args.lr,
@@ -209,20 +263,41 @@ def _run(args, cfg, dev, mesh=None,
         return {"params": model.stacked(), "opt": opt_state[0],
                 "ef": opt_state[1]}
 
+    # on a mesh every rank takes its blocks (restore) and rank 0 writes
+    # the gathered leaves (save); their words are the "ckpt" phase's
+    on_mesh = {} if mesh is None else {"mesh": mesh, "specs": model.specs}
+    ckpt_words: Dict[str, int] = collections.Counter()
+
+    @contextlib.contextmanager
+    def ckpt_phase():
+        before = collectives.word_counts()
+        yield
+        ckpt_words.update(_delta(collectives.word_counts(), before))
+
     # ---- init or resume -------------------------------------------------
     start_step, resumed, ckpt_s, verified = 0, False, {}, None
+    if args.ckpt_dir and mesh is not None:
+        if mesh.rank == 0:
+            recover_stale(args.ckpt_dir)
+        with ckpt_phase():
+            _world_sum(mesh, 0)        # every rank reads the same steps
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None \
             and not args.fresh:
         t0 = time.perf_counter()
-        start_step, state = restore_checkpoint(args.ckpt_dir, state_tree())
+        start_step, state = restore_checkpoint(args.ckpt_dir, state_tree(),
+                                               **on_mesh)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
-        verified = verify_restored(args.ckpt_dir, state, step=start_step)
+        with ckpt_phase():
+            verified = verify_restored(args.ckpt_dir, state,
+                                       step=start_step, **on_mesh)
+            bad = len(verified["mismatches"]) if mesh is None \
+                else _world_sum(mesh, len(verified["mismatches"]))
         ckpt_s.update(restore_s=t1 - t0,
                       verify_s=time.perf_counter() - t1)
         say(f"[train] restore verified: {verified['checked']} leaves, "
-            f"{len(verified['mismatches'])} mismatches")
+            f"{bad} mismatches")
         model.load_stacked(state["params"])
         opt_state = state["opt"] if compressor is None \
             else (state["opt"], state["ef"])
@@ -240,10 +315,11 @@ def _run(args, cfg, dev, mesh=None,
             return
         saved = at
         t0 = time.perf_counter()
-        save_checkpoint(args.ckpt_dir, at, state_tree(),
-                        keep=args.ckpt_keep, blocking=blocking,
-                        extra={"global_batch": args.global_batch,
-                               "seq_len": args.seq_len})
+        with ckpt_phase():
+            save_checkpoint(args.ckpt_dir, at, state_tree(),
+                            keep=args.ckpt_keep, blocking=blocking,
+                            extra={"global_batch": args.global_batch,
+                                   "seq_len": args.seq_len}, **on_mesh)
         if blocking:
             ckpt_s["save_s"] = time.perf_counter() - t0
         else:
@@ -266,9 +342,13 @@ def _run(args, cfg, dev, mesh=None,
 
     def report(**extra) -> None:
         """The port's line beside the reference's summary: the losses
-        so far and ``extra`` (what a restart reads)."""
-        say("[train] port: " + json.dumps(
-            {"start_step": start_step, "losses": losses, **extra}))
+        so far and ``extra`` (what a restart reads); on a mesh rank 0's
+        words a step by phase and the checkpoints' words."""
+        if mesh is not None:
+            extra.update(words=words, ckpt_words=dict(ckpt_words))
+        payload = {"start_step": start_step, "losses": losses, **extra}
+        port(payload)
+        say("[train] port: " + json.dumps(payload))
 
     def flush() -> None:
         """Before an injected failure surfaces: commit the checkpoints
@@ -277,13 +357,14 @@ def _run(args, cfg, dev, mesh=None,
         resumes from the last one."""
         it.close()
         wait_for_saves()
-        report(kernel_launches=counts.launch_counts())
+        report(kernel_launches=counts.launch_counts(),
+               ckpt_s=dict(ckpt_s, snapshot_s=snapshot_s))
 
     for step in range(start_step, args.steps):
         if args.fail_at is not None and step == args.fail_at \
                 and not resumed:
             flush()
-            raise RuntimeError(f"injected failure at step {step}")
+            raise InjectedFailure(f"injected failure at step {step}")
         if not resumed:
             try:
                 faults.maybe_fail("train:step", step)
@@ -309,8 +390,13 @@ def _run(args, cfg, dev, mesh=None,
         if timer.event is not None:
             say(f"[straggler] step {step}: {timer.event.action} "
                 f"({timer.event.ratio:.1f}x median)")
-            if timer.event.action == "checkpoint" and args.ckpt_dir:
-                save(step + 1)
+        asked = timer.event is not None \
+            and timer.event.action == "checkpoint"
+        if args.ckpt_dir and mesh is not None:
+            with ckpt_phase():          # one rank's straggler: all save
+                asked = _world_sum(mesh, int(asked)) > 0
+        if asked and args.ckpt_dir:
+            save(step + 1)
         if step % args.log_every == 0 or step == args.steps - 1:
             comp = f", compress {metrics['compress_s'] * 1e3:.0f} ms" \
                 if compressor is not None else ""
@@ -327,6 +413,9 @@ def _run(args, cfg, dev, mesh=None,
     if args.ckpt_dir:
         wait_for_saves()
         save(args.steps, blocking=True)
+        if mesh is not None:
+            with ckpt_phase():
+                _world_sum(mesh, 0)     # rank 0's last save committed
     timed = step_s[1:] or step_s
     out = {"arch": cfg.name, "params": n_params, "steps": run_steps,
            "final_loss": losses[-1] if losses else None,
@@ -342,6 +431,7 @@ def _run(args, cfg, dev, mesh=None,
         # this rank's collectives over the run, by kind
         out["words_a_rank"] = _by_kind(words)
         out["bytes_a_rank"] = _by_kind(nbytes)
+        out["ckpt_words_a_rank"] = dict(ckpt_words)
     say("[train] done: " + json.dumps(out))
     report(kernel_launches=launches,
            ckpt_s=dict(ckpt_s, snapshot_s=snapshot_s))
@@ -422,6 +512,8 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    if args.devices == 1:
+        preload_remat()              # the ranks of a mesh run their own
     train(args)
 
 

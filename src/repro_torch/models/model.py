@@ -29,6 +29,8 @@ sharded model raises.
 from __future__ import annotations
 
 import functools
+import importlib
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -60,6 +62,20 @@ def _save_dots(ctx, op, *args, **kwargs):
     if op == torch.ops.aten.mm.default:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def preload_remat() -> threading.Thread:
+    """Start importing, on a daemon thread, what the first call of
+    ``torch.utils.checkpoint`` (the per-period remat) imports:
+    ``torch._dynamo``, seconds of Python imports that a process's first
+    training step would otherwise wait for.  A process calls it once its
+    own imports are done and before it waits on the card, the disk or
+    its peers; the first remat call then waits only for what is left of
+    the import (the module's import lock)."""
+    th = threading.Thread(target=importlib.import_module,
+                          args=("torch._dynamo",), daemon=True)
+    th.start()
+    return th
 
 
 def _remat_context(cfg: ArchConfig):

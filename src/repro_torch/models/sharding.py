@@ -191,17 +191,26 @@ def shard_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
 
 
 def gather_leaf(x_loc: torch.Tensor, spec: Spec, mesh,
-                kind: str = collectives.REPLICATE) -> torch.Tensor:
+                kind: str = collectives.REPLICATE,
+                first: bool = False) -> Optional[torch.Tensor]:
     """The whole tensor from every rank's block under ``spec``: one
     counted all-gather per mesh axis it is split over (under ``kind``;
-    by default the replication of a sharded result)."""
+    by default the replication of a sharded result).  With ``first``
+    only the rank holding the first block of each of those axes gets it
+    (``collectives.gather``); the others get None."""
     if len(spec) != x_loc.ndim:
         raise ValueError(f"spec {spec} for a tensor of {x_loc.ndim} dims")
     x = x_loc
     for dim, axis in enumerate(spec):
         for a in reversed(_tuplize(axis)):    # the inner axis first
-            parts = collectives.all_gather(x.movedim(dim, 0).contiguous(),
-                                           mesh.comm(a), kind=kind)
+            part = x.movedim(dim, 0).contiguous()
+            if first:
+                parts = collectives.gather(part, mesh.comm(a))
+                if parts is None:
+                    return None
+            else:
+                parts = collectives.all_gather(part, mesh.comm(a),
+                                               kind=kind)
             x = parts.movedim(0, dim)
     return x
 

@@ -38,6 +38,18 @@ its block back.  For stablelm-1.6b at |model| = 4 that is embed and
 unembed on the 1D schedule and every block stack gathered (2048² and
 2048 × 5632 are outside Thm 9 case 1 at P = 4); at |model| = 2 the MLP
 stacks join the 1D schedule.
+
+With ``gram_decay`` each 2-D matrix leaf also carries the EMA of its
+momentum's packed short-side Gram over the width (``MuonState.gram``).
+With ``specs``, a leaf split over the NS axis along that width (embed's
+rows, unembed's columns) computes it as the paper's 1D SYRK (Alg 7):
+each rank's partial Gram of its block (``blas.syrk(fill="packed")``,
+the kernel on the card), one reduce-scatter of the padded packed
+triangle, and the rank keeps its slice
+(:class:`~repro_torch.core.packing.PackedTriangleSlice`): 1/P of the
+state, (1 − 1/P)·n(n+1)/2 words a step (padded to a multiple of P).  A
+replicated leaf runs the single-device update on every rank; any other
+split gathers the momentum first.
 """
 from __future__ import annotations
 
@@ -48,9 +60,10 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .. import blas
-from ..core.onedim import (column_shard, gather_columns, gather_packed,
-                           syrk_1d_local)
-from ..core.packing import PackedTriangle, tril_size, unpack_tril
+from ..core.onedim import (_pad_packed, _scatter_packed, column_shard,
+                           gather_columns, gather_packed, syrk_1d_local)
+from ..core.packing import (PackedTriangle, PackedTriangleSlice, tril_size,
+                            unpack_tril)
 from ..distributed import collectives
 from ..models.sharding import (gather_leaf, global_shape, is_sharded,
                                shard_leaf)
@@ -65,8 +78,9 @@ class MuonState(NamedTuple):
     step: int
     momentum: Tree
     #: optional per-matrix Gram EMA of the momentum (PackedTriangle
-    #: leaves; an empty placeholder where a leaf is not a 2-D matrix);
-    #: None unless ``Muon.gram_decay`` is set
+    #: leaves, or this rank's PackedTriangleSlice of a leaf split along
+    #: its width; an empty placeholder where a leaf is not a 2-D
+    #: matrix); None unless ``Muon.gram_decay`` is set
     gram: Optional[Dict[Any, Any]] = None
 
 
@@ -193,18 +207,37 @@ class Muon:
     #: every rank holds its parameters whole
     specs: Optional[Dict[Any, Any]] = None
 
-    def _gram_zero(self, p: torch.Tensor):
-        if _is_matrix(p) and p.ndim == 2:
-            m = min(p.shape)
-            return PackedTriangle(torch.zeros((tril_size(m),),
-                                              dtype=torch.float32,
-                                              device=p.device), m)
+    def _spec(self, k):
+        return None if self.specs is None else self.specs[k]
+
+    def _gram_split(self, shape, spec) -> bool:
+        """Whether a 2-D leaf of whole ``shape`` is split over the NS
+        axis (of more than one rank) along its Gram's width alone: the
+        columns when rows <= cols, else the rows."""
+        if spec is None or self.mesh.shape.get(self.axis, 1) == 1:
+            return False
+        width = (None, self.axis) if shape[0] <= shape[1] \
+            else (self.axis, None)
+        return tuple(spec) == width
+
+    def _gram_zero(self, p: torch.Tensor, spec=None):
+        shape = global_shape(p.shape, spec, self.mesh)
+        if len(shape) == 2 and min(shape) >= 8:          # _is_matrix
+            m = min(shape)
+            zeros = torch.zeros((tril_size(m),), dtype=torch.float32,
+                                device=p.device)
+            if self._gram_split(shape, spec):
+                comm = self.mesh.comm(self.axis)
+                return PackedTriangleSlice.from_packed(zeros, m, comm.size,
+                                                       comm.index)
+            return PackedTriangle(zeros, m)
         return torch.zeros((0,), dtype=torch.float32, device=p.device)
 
     def init(self, params: Tree) -> MuonState:
         gram = None
         if self.gram_decay is not None:
-            gram = {k: self._gram_zero(p) for k, p in params.items()}
+            gram = {k: self._gram_zero(p, self._spec(k))
+                    for k, p in params.items()}
         return MuonState(step=0, momentum={
             k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for k, p in params.items()}, gram=gram)
@@ -282,12 +315,9 @@ class Muon:
         step = state.step + 1
         mom = {k: self.momentum * state.momentum[k] + g.float()
                for k, g in grads.items()}
-        if self.specs is not None and self.gram_decay is not None:
-            raise NotImplementedError("Gram tracking on sharded parameters "
-                                      "waits (ROADMAP A7b)")
 
         def upd(k, p, mm):
-            spec = None if self.specs is None else self.specs[k]
+            spec = self._spec(k)
             shape = global_shape(p.shape, spec, self.mesh)
             if len(shape) >= 2 and min(shape[-2:]) >= 8:   # _is_matrix
                 o = self._orthogonalize(mm) if spec is None \
@@ -304,16 +334,31 @@ class Muon:
         if self.gram_decay is not None and gram is not None:
             d = self.gram_decay
 
-            def upd_gram(gm, mm):
+            def upd_gram(k, gm, mm):
+                spec = self._spec(k)
+                if isinstance(gm, PackedTriangleSlice):
+                    # Alg 7: this rank's partial Gram of its block, the
+                    # reduce-scatter of the padded packed triangle
+                    shape = global_shape(mm.shape, spec, self.mesh)
+                    x = mm if shape[0] <= shape[1] else mm.T
+                    comm = self.mesh.comm(self.axis)
+                    part = blas.syrk(x.float().contiguous(), fill="packed")
+                    g = _scatter_packed(_pad_packed(part, gm.n, comm.size),
+                                        comm) / (x.shape[-1] * comm.size)
+                    ema = d * gm.vec.float() + (1.0 - d) * g
+                    return PackedTriangleSlice(ema.to(gm.dtype), gm.n,
+                                               gm.parts, gm.index)
                 if not isinstance(gm, PackedTriangle):
                     return gm
+                if is_sharded(spec):        # another split: gather it
+                    mm = gather_leaf(mm, spec, self.mesh, kind="all_gather")
                 x = mm if mm.shape[0] <= mm.shape[1] else mm.T
                 g = blas.syrk(x.float().contiguous(),
                               fill="packed") / x.shape[-1]
                 ema = d * gm.vec.float() + (1.0 - d) * g
                 return PackedTriangle(ema.to(gm.dtype), gm.n)
 
-            gram = {k: upd_gram(gm, mom[k]) for k, gm in gram.items()}
+            gram = {k: upd_gram(k, gm, mom[k]) for k, gm in gram.items()}
         return new_params, MuonState(step=step, momentum=mom, gram=gram)
 
 

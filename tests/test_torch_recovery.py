@@ -174,12 +174,3 @@ def test_run_recovery_on_the_host(tmp_path):
     assert p2["losses"][0] == p1["losses"][2]
     assert [p2["losses"][0], p2["losses"][-1]] == \
         [out["final"]["first_loss"], out["final"]["final_loss"]]
-
-
-@pytest.mark.parametrize("devices,devices_after,item",
-                         [(1, 2, "A8"), (2, 2, "A8")])
-def test_run_recovery_other_device_counts_wait(tmp_path, devices,
-                                               devices_after, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        run_recovery(str(tmp_path), device="cpu", devices=devices,
-                     devices_after=devices_after)

@@ -199,16 +199,6 @@ def test_train_cli_other_optimizers_and_gram(optimizer):
     assert out["device"] == "cpu"
 
 
-@pytest.mark.parametrize("flag,value", [("ckpt_dir", "ckpt"),
-                                        ("fail_at", 1),
-                                        ("track_gram", True)])
-def test_train_waiting_flags_raise(flag, value):
-    """On a mesh (``--devices 2``), the flags whose items wait."""
-    item = {"ckpt_dir": "A8", "fail_at": "A8", "track_gram": "A7b"}[flag]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ttrain.train(_args(devices=2, **{flag: value}))
-
-
 def _run_capturing(monkeypatch, **kw):
     """``train`` with the smoke model kept for inspection: (summary,
     model)."""
