@@ -195,7 +195,27 @@ Phases (any failure exits non-zero):
              ``sym_stream`` launched on every rank of both phases, in
              the counts the paths give; prints each phase's seconds, the
              restore's, the verify's, the words of each phase (the
-             checkpoint's gathers apart) and the checkpoint's bytes.
+             checkpoint's gathers apart) and the checkpoint's bytes;
+15. xlstmtrain — trains xlstm-350m: first the sLSTM kernels of
+             training at the train path's (8, 256, 1024) bf16 quads, at
+             f32 gates, with ties f == i at t = 0 (and final-state
+             gradients, without which no gradient reaches the
+             stabiliser), with n_t = 1, at a ragged shape: the stash
+             variant of ``slstm_scan`` bit for bit today's launch in y
+             and the final state, its stash within the state tolerance
+             of the plain version's, and ``slstm_scan_bwd`` within
+             ``SLSTM_GRAD_TOL`` of autograd of the plain version (and
+             missing it against a stabiliser that gives a tie wholly to
+             f + m), the first two cases timed beside their byte bounds;
+             then xlstm-350m at its published widths (24 layers, d_model
+             1024, 4 heads, vocab 50304; random bf16 init from seed 0;
+             phase 7's traffic) 4 ``muon-syrk`` and 2 AdamW steps:
+             finite losses, step 0's loss the same under both, every
+             sLSTM forward on the stash kernel and backward on
+             ``slstm_scan_bwd`` (12 and 6 launches a step: the
+             per-period remat runs the forward twice), no plain scan
+             on the card, Muon's NS SYRK / SYMM with n1 >= 256 on
+             ``rank_update`` / ``sym_stream``.
 
 The seconds of each phase are printed on the ``[done]`` line.
 The line before the last is a JSON object with one entry per kernel;
@@ -241,11 +261,14 @@ REPLACES = {
     "rank_update": "src/repro/kernels/trigrid.py:151",
     "sym_stream": "src/repro/kernels/trigrid.py:224",
     "slstm_scan": "src/repro/kernels/slstm.py:59",
+    # no pallas_call: the reference differentiates its jnp mixer here
+    "slstm_scan_bwd": "src/repro/models/ssm.py:437",
 }
 SOURCES = {
     "rank_update": "src/repro_torch/csrc/rank_update.cu",
     "sym_stream": "src/repro_torch/csrc/sym_stream.cu",
     "slstm_scan": "src/repro_torch/csrc/slstm_scan.cu",
+    "slstm_scan_bwd": "src/repro_torch/csrc/slstm_scan.cu",
 }
 
 
@@ -385,7 +408,8 @@ def kernel_phase(torch, card_clock_mhz):
         return torch.randn(*shape, generator=gen, device=dev)
 
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = {"rank_update": [], "sym_stream": [], "slstm_scan": []}
+    cases = {"rank_update": [], "sym_stream": [], "slstm_scan": [],
+             "slstm_scan_bwd": []}
 
     def timing(row, kernel, plain, library, nbytes, flops, tensor=True):
         row["ms"] = cuda_ms(torch, kernel)
@@ -746,7 +770,7 @@ def slstm_issue(card_clock_mhz):
     per_step = {}
     for tag, key in (("F32", "f32"), ("BF16", "bf16")):
         found = [v for k, v in sizes.items() if "slstm_kernel" in k and
-                 re.search(rf"{len(tag)}{tag}E?Lb1E", k)]
+                 re.search(rf"{len(tag)}{tag}E?Lb1ELb0E", k)]
         if len(found) != 1 or not found[0]:
             raise SystemExit(f"no step loop of the {key} quad kernel in "
                              f"the SASS: {sizes}")
@@ -793,10 +817,12 @@ def slstm_cases(torch, randn, rows, card_clock_mhz):
     from repro_torch.kernels import native, slstm
     ring = native.load()["repro_slstm_ring_bytes"]
     usage = resource_usage(str(native._lib_path("slstm_scan.cu")))
-    if sum("slstm_kernel" in k for k in usage) != 4:
-        raise SystemExit(f"not the 4 slstm_scan kernels' resources: {usage}")
+    if sum("slstm_kernel" in k for k in usage) != 6 or \
+            sum("slstm_bwd_kernel" in k for k in usage) != 2:
+        raise SystemExit("not the 6 slstm_scan and 2 slstm_scan_bwd "
+                         f"kernels' resources: {usage}")
     for k, (regs, smem, local) in usage.items():
-        if "slstm_kernel" in k:
+        if "slstm_kernel" in k or "slstm_bwd_kernel" in k:
             dyn = ring(int("BF16" in k)) if "Lb1E" in k else 0
             log(f"[build] {k}: {regs} registers, {smem} B static smem "
                 f"(+ {dyn} B ring), {local} B local (spills)")
@@ -1347,13 +1373,16 @@ def muon_split(torch):
     return {"leaves": rows, "total_s": total}
 
 
-def run_train(torch, optimizer, steps, compress=False):
-    """stablelm-1.6b at its published widths (nothing cut), random bf16
-    init from seed 0, global batch 8 x 256 tokens; the launch counts set
-    to 0 just before and read just after (inside ``train``)."""
+def run_train(torch, optimizer, steps, compress=False,
+              arch="stablelm-1.6b"):
+    """``arch`` (stablelm-1.6b, or xlstm-350m in phase 15) at its
+    published widths (nothing cut), random bf16 init from seed 0, global
+    batch 8 x 256 tokens; the launch counts set to 0 just before and
+    read just after (inside ``train``)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.train import build_argparser, train
     args = build_argparser().parse_args([
-        "--arch", "stablelm-1.6b", "--full", "--device", DEVICE,
+        "--arch", arch, "--full", "--device", DEVICE,
         "--optimizer", optimizer, "--steps", str(steps),
         "--global-batch", "8", "--seq-len", "256", "--loss-chunk", "256",
         "--seed", "0", "--log-every", "1"]
@@ -1374,15 +1403,17 @@ def run_train(torch, optimizer, steps, compress=False):
     log(f"{tag} tokens/s {out['tokens_per_s']:.1f} (after warm-up); peak "
         f"memory {out['peak_memory_bytes'] / 2**30:.2f} GiB; launches "
         f"{launches} ({per_step} a step)")
+    cfg = get_config(arch)
     assert (out["layers"], out["d_model"], out["d_ff"], out["vocab"]) == \
-        (24, 2048, 5632, 100352), out
+        (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab), out
     assert all(map(math.isfinite, out["losses"])), out["losses"]
     return out, launches
 
 
-def assert_kernel_routes(out, launches, tag):
+def assert_kernel_routes(out, launches, tag, slstm=(0, 0)):
     """Every NS SYRK / SYMM with n1 >= 256 of a Muon run took the kernel
-    route, one launch per blas call, stacks included."""
+    route, one launch per blas call, stacks included; ``slstm_scan`` and
+    ``slstm_scan_bwd`` launched ``slstm`` times."""
     routes = out["routes"]                 # [op, n1, n2, path, batched, n]
     big = [r for r in routes if r[1] >= 256]
     log(f"{tag} routes (op, n1, n2, path, batched): calls over the "
@@ -1393,7 +1424,8 @@ def assert_kernel_routes(out, launches, tag):
     assert launches["rank_update"] == n_syrk and \
         launches["sym_stream"] == n_symm, (launches, n_syrk, n_symm)
     assert launches["rank_update"] > 0 and launches["sym_stream"] > 0
-    assert launches["slstm_scan"] == 0, launches
+    assert (launches["slstm_scan"], launches["slstm_scan_bwd"]) == slstm, \
+        launches
 
 
 def train_phase(torch, cases):
@@ -2906,6 +2938,264 @@ def elastic_phase(torch, single):
             "words": words, **times}, launches
 
 
+# --------------------------------------------------------------------------
+# phase 15: train xlstm-350m at full width: the sLSTM's stash forward and
+# its backward kernel
+# --------------------------------------------------------------------------
+#: ``slstm_scan_bwd`` against autograd of the plain version on the same
+#: inputs: |got − want| ≤ tol·(1 + |want|) for the f32 results; d(pre) in
+#: bf16 may also round the other way from a nearly equal f32 value, one
+#: bf16 ulp: + 2^-7·|want| there
+SLSTM_GRAD_TOL = 1e-4
+#: f32 operations per (b, t, channel) step of the backward (adds,
+#: multiplies, divisions, compares; the three exp and the tanh once each)
+SLSTM_BWD_OPS_PER_STEP = 45
+#: (B, S, d, gate dtype, case, label): the first is the train path's
+#: (8 x 256 tokens, d 1024, bf16 quads, the state from zero, no gradient
+#: of the final state).  "ties": f == i at t = 0 on every channel (m0 =
+#: 0, so m_0 = max(f, i) is a tie), with gradients of the final state:
+#: y, c and n do not depend on the stabiliser m, so only m1's gradient
+#: reaches a tie; "n1": n_t = 1 exactly on the first 6 steps; "warm": a
+#: carried state and gradients of the final state
+SLSTM_BWD_CASES = (
+    (8, 256, 1024, "bf16", "cold", "the train path"),
+    (8, 256, 1024, "f32", "cold", "f32 gates"),
+    (8, 256, 1024, "bf16", "ties", "f == i at t = 0"),
+    (8, 256, 1024, "f32", "ties", "f == i at t = 0"),
+    (2, 40, 256, "f32", "n1", "n_t = 1 on the first steps"),
+    (2, 99, 200, "bf16", "warm", "S not a multiple of 8, ragged d, "
+     "final-state gradients"),
+)
+XLSTM_MUON_STEPS, XLSTM_ADAMW_STEPS = 4, 2
+
+
+def _scan_autograd(torch, pre, state, gy, fin, tie_to_a=False):
+    """autograd of the plain scan on the f32 upcast of ``pre``: (d(pre)
+    in pre's dtype, dc0, dn0, dm0).  ``tie_to_a``: a stabiliser that
+    gives a tie's gradient wholly to f + m (``torch.where(a >= i, ...)``),
+    the convention the kernel must not follow."""
+    from repro_torch.kernels import slstm
+    leaf = pre.detach().clone().requires_grad_(True)
+    st = [x.detach().clone().requires_grad_(True) for x in state]
+    if tie_to_a:
+        q = leaf.float()
+        c, n, m = st
+        ys = []
+        for t in range(q.shape[1]):
+            z, i, f, o = q[:, t].unbind(-1)
+            a = f + m
+            m_new = torch.where(a >= i, a, i)
+            e_i, e_f = torch.exp(i - m_new), torch.exp(a - m_new)
+            c = e_f * c + e_i * torch.tanh(z)
+            n = e_f * n + e_i
+            ys.append(torch.sigmoid(o) * c / torch.maximum(
+                n, n.new_ones(())))
+            m = m_new
+        y = torch.stack(ys, dim=1)
+    else:
+        y, c, n, m = slstm._slstm_scan_plain(*leaf.float().unbind(-1), *st)
+    loss = (y * gy).sum()
+    if fin is not None:
+        loss = loss + sum((x * g).sum() for x, g in zip((c, n, m), fin))
+    return torch.autograd.grad(loss, [leaf, *st])
+
+
+def _grad_errs(torch, got, want):
+    """(max |Δ| over the four results, whether each is within
+    ``SLSTM_GRAD_TOL`` — with one more bf16 rounding for a bf16 d(pre) —
+    and finite)."""
+    worst, ok = 0.0, True
+    for g, w in zip(got, want):
+        g, wf = g.float(), w.float()
+        diff = (g - wf).abs()
+        lim = SLSTM_GRAD_TOL * (1 + wf.abs())
+        if w.dtype == torch.bfloat16:
+            lim = lim + 2.0 ** -7 * wf.abs()
+        ok = ok and bool((diff <= lim).all()) and \
+            bool(torch.isfinite(g).all())
+        worst = max(worst, float(diff.max()))
+    return worst, ok
+
+
+def slstm_bwd_cases(torch, cases):
+    """The stash forward and ``slstm_scan_bwd`` on the card
+    (``SLSTM_BWD_CASES``): the stash variant's y and final state bit for
+    bit today's launch, its stash within the state tolerance of the plain
+    version's; the backward against autograd of the plain version within
+    ``SLSTM_GRAD_TOL`` (and, in a tie case, missing it against a
+    stabiliser that gives the tie wholly to f + m); the train path's case
+    and the f32 one timed (back to back, in a CUDA graph, the plain
+    versions) beside their byte bounds."""
+    from repro_torch.kernels import native, slstm
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    scale = torch.tensor([1.0, 2.5, 2.5, 1.0], device=dev)
+    usage = resource_usage(str(native._lib_path("slstm_scan.cu")))
+    for i, (b, s, d, dt, kind, label) in enumerate(SLSTM_BWD_CASES):
+        pre = randn(b, s, d, 4) * scale
+        if kind == "ties":
+            pre[:, 0, :, 2] = pre[:, 0, :, 1]
+        if kind == "n1":
+            pre[:, :6, :, 1] = -30.0
+            pre[:, :6, :, 2] = pre[:, :6, :, 2].abs()
+        pre = pre.to(dtypes[dt])
+        if kind == "warm":
+            state = (randn(b, d), 1.0 + randn(b, d).abs(), randn(b, d))
+        else:
+            state = (torch.zeros(b, d, device=dev),
+                     torch.ones(b, d, device=dev),
+                     torch.zeros(b, d, device=dev))
+        fin = [randn(b, d) for _ in range(3)] \
+            if kind in ("warm", "ties") else None
+        gy = randn(b, s, d)
+        gates = pre.unbind(-1)
+        name = f"({b}, {s}, {d}) {dt} {kind}: {label}"
+        today = slstm.slstm_scan(*gates, *state)
+        y, c1, n1, m1, stash = slstm.slstm_scan(*gates, *state, stash=True)
+        same = all(torch.equal(a, x) for a, x in zip(today, (y, c1, n1,
+                                                               m1)))
+        log(f"[xlstm-train] slstm_scan {name}: stash variant's y and state "
+            f"bit-equal to today's launch: {same}")
+        if not same:
+            raise SystemExit("the stash variant of slstm_scan changed y")
+        want_stash = slstm._slstm_scan_plain(
+            *[g.float() for g in gates], *state, stash=True)[4]
+        stash_err = slstm_close(torch, f"slstm_scan stash {name}", stash,
+                                want_stash, SLSTM_STATE_TOL)
+        if kind == "n1":
+            assert bool((stash[1][:, :6] == 1.0).all())
+        got = slstm.slstm_scan_bwd(pre, stash, *state, gy,
+                                   *(fin or (None,) * 3))
+        want = _scan_autograd(torch, pre, state, gy, fin)
+        err, ok = _grad_errs(torch, got, want)
+        log(f"[xlstm-train] slstm_scan_bwd {name}: max_abs_err {err:.3e} "
+            f"(<= {SLSTM_GRAD_TOL:.0e}·(1+|x|), + 2^-7·|x| in bf16) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"slstm_scan_bwd {name} disagrees with "
+                             "autograd of its plain version")
+        if kind == "ties":
+            _, missed = _grad_errs(torch, got, _scan_autograd(
+                torch, pre, state, gy, fin, tie_to_a=True))
+            log(f"[xlstm-train]   against a tie given wholly to f + m: "
+                f"within the tolerance {missed} (must be False)")
+            if missed:
+                raise SystemExit("the tie case does not tell the "
+                                 "conventions apart")
+        row = {"case": name, "main": i == 0, "dtype": dt,
+               "max_abs_err": err, "library_ms": None}
+        if i < 2:
+            steps, e = b * s * d, pre.element_size()
+            f32_gates = [g.float() for g in gates]
+
+            def bwd():
+                return slstm.slstm_scan_bwd(pre, stash, *state, gy)
+
+            def bwd_plain():
+                return slstm._slstm_scan_bwd_plain(pre, stash, *state, gy)
+
+            def fwd():
+                return slstm.slstm_scan(*gates, *state, stash=True)
+
+            def fwd_plain():
+                return slstm._slstm_scan_plain(*f32_gates, *state,
+                                               stash=True)
+            row.update(ms=cuda_ms(torch, bwd), device_ms=graph_ms(
+                torch, bwd), plain_ms=cuda_ms(torch, bwd_plain, warmup=1))
+            # a step: the quad read and written, 3 stashed words, gy
+            nbytes = steps * (2 * 4 * e + 3 * 4 + 4) + 6 * b * d * 4
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                nbytes, SLSTM_BWD_OPS_PER_STEP * steps, tensor=False)
+            row["ffma_bound_ms"] = row["bound_ms"]
+            fwd = {"case": f"{name}, stash (training's forward)",
+                   "main": False, "dtype": dt, "layout": "quad",
+                   "max_abs_err": stash_err, "library_ms": None,
+                   "ms": cuda_ms(torch, fwd),
+                   "device_ms": graph_ms(torch, fwd),
+                   "plain_ms": cuda_ms(torch, fwd_plain, warmup=1)}
+            # a step: the quad, y and 3 stashed words
+            fb = steps * (4 * e + 4 + 3 * 4) + 6 * b * d * 4
+            fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+                fb, SLSTM_OPS_PER_STEP * steps, tensor=False)
+            fwd["ffma_bound_ms"] = fwd["bound_ms"]
+            for tag, r in (("slstm_scan stash", fwd),
+                           ("slstm_scan_bwd", row)):
+                log(f"[xlstm-train]   {tag}: ms {r['ms']:.4f}  device "
+                    f"{r['device_ms']:.4f}  plain {r['plain_ms']:.4f}  "
+                    f"library none  bound {r['bound_ms']:.4f} "
+                    f"({r['bound_by']})")
+            cases["slstm_scan"].append(fwd)
+        cases["slstm_scan_bwd"].append(row)
+        del pre, stash, got, want
+    for k, (regs, smem, local) in usage.items():
+        if "slstm_bwd_kernel" in k:
+            log(f"[build] {k}: {regs} registers, {smem} B static smem, "
+                f"{local} B local (spills)")
+    torch.cuda.empty_cache()
+
+
+def xlstm_train_phase(torch, cases):
+    """Phase 15: the kernel cases, then xlstm-350m at its published
+    widths (24 layers, 6 of them sLSTM) on phase 7's traffic,
+    ``muon-syrk`` then AdamW: finite losses, step 0's the same under
+    both (init, batch and loss precede any update); each step's sLSTM
+    forward on the stash kernel (the per-period remat runs it twice) and
+    its backward on ``slstm_scan_bwd``, never a plain version on the
+    card; Muon's NS on the symmetric kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import slstm
+    slstm_bwd_cases(torch, cases)
+    cfg = get_config("xlstm-350m")
+    n_slstm = sum(cfg.pattern[i % cfg.period].mixer == "slstm"
+                  for i in range(cfg.n_layers))
+    plain, bwd_plain = slstm._slstm_scan_plain, slstm._slstm_scan_bwd_plain
+
+    def guard(fn):
+        def on_host_only(*args, **kw):
+            assert not args[0].is_cuda, "a CUDA tensor reached a plain scan"
+            return fn(*args, **kw)
+        return on_host_only
+    out, launches = {}, {}
+    slstm._slstm_scan_plain = guard(plain)
+    slstm._slstm_scan_bwd_plain = guard(bwd_plain)
+    try:
+        for opt, steps in (("muon-syrk", XLSTM_MUON_STEPS),
+                           ("adamw", XLSTM_ADAMW_STEPS)):
+            torch.cuda.empty_cache()
+            out[opt], launches[opt] = run_train(torch, opt, steps,
+                                                arch="xlstm-350m")
+            want = (2 * n_slstm * steps, n_slstm * steps)
+            log(f"[train {opt}] slstm_scan (stash) / slstm_scan_bwd "
+                f"launches {launches[opt]['slstm_scan']} / "
+                f"{launches[opt]['slstm_scan_bwd']} = (2, 1) x {n_slstm} "
+                f"sLSTM layers x {steps} steps")
+            if opt == "adamw":
+                assert (launches[opt]["slstm_scan"],
+                        launches[opt]["slstm_scan_bwd"]) == want, launches
+                assert launches[opt]["rank_update"] == 0 and \
+                    launches[opt]["sym_stream"] == 0, launches
+            else:
+                assert_kernel_routes(out[opt], launches[opt],
+                                     f"[train {opt}]", slstm=want)
+    finally:
+        slstm._slstm_scan_plain, slstm._slstm_scan_bwd_plain = \
+            plain, bwd_plain
+    l0 = [out[o]["losses"][0] for o in out]
+    log(f"[xlstm-train] step 0 loss under muon-syrk and adamw: {l0}, "
+        f"bit-equal {l0[0] == l0[1]}")
+    assert l0[0] == l0[1], l0
+    total = {k: sum(n[k] for n in launches.values())
+             for k in launches["adamw"]}
+    keep = ("losses", "step_s", "split_s", "tokens_per_s",
+            "peak_memory_bytes", "kernel_launches", "params")
+    torch.cuda.empty_cache()
+    return {o: {k: out[o][k] for k in keep} for o in out}, total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2939,6 +3229,8 @@ def main() -> int:
     pout, plaunches = timed("compress", compress_phase, torch, tout)
     eout, elaunches = timed("meshtrain", meshtrain_phase, torch, single)
     lout, llaunches = timed("elastic", elastic_phase, torch, single)
+    xtout, xtlaunches = timed("xlstmtrain", xlstm_train_phase, torch,
+                              cases)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s; by phase "
         f"{json.dumps(phase_s)}")
@@ -2953,6 +3245,7 @@ def main() -> int:
     log(json.dumps({"compress": pout}))
     log(json.dumps({"meshtrain": eout}))
     log(json.dumps({"elastic": lout}))
+    log(json.dumps({"xlstm_train": xtout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -2969,7 +3262,8 @@ def main() -> int:
                    "train compressed stablelm-1.6b muon": plaunches[name],
                    "train mesh stablelm-1.6b muon-syrk": elaunches[name],
                    "elastic kill/resume stablelm-1.6b muon-syrk":
-                   llaunches.get(name, 0)}
+                   llaunches.get(name, 0),
+                   "train xlstm-350m muon-syrk + adamw": xtlaunches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

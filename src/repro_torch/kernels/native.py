@@ -43,8 +43,9 @@ SIGNATURES = {
         "repro_sym_stream_narrow": [_I, _P, _P, _I, _I, _P, _P, _F, _P, _P,
                                     _I, _P]},
     "slstm_scan.cu": {
-        "repro_slstm_scan_quad": [_I, _P, _L, _L] + [_P] * 5 + [_I] * 3
+        "repro_slstm_scan_quad": [_I, _P, _L, _L] + [_P] * 6 + [_I] * 3
         + [_P],
+        "repro_slstm_scan_bwd": [_I] + [_P] * 11 + [_I] * 3 + [_P],
         "repro_slstm_scan": [_I] + [_P, _L, _L, _L] * 4 + [_P] * 5
         + [_I] * 3 + [_P],
         "repro_slstm_ring_bytes": [_I]},

@@ -12,8 +12,20 @@ upcasts before its plain version).  The serving mixer hands in the four
 d-major views of its bf16 (B, S, d, 4) pre-activation, which the kernel
 reads as one quad per step.
 
-``slstm_scan.launches`` counts wrapper calls that launched the kernel,
-incremented only there (``kernels.counts`` reads and resets it).
+Training goes through :class:`SlstmScan`, an autograd operator on the
+whole (B, S, d, 4) pre-activation: its forward is the same kernel with
+``stash=True`` (it also writes c_t, n_t, m_t for every t, (3, B, S, d)
+f32), its backward the hand-written ``slstm_scan_bwd`` (CUDA C++ in the
+same source), which walks each chain from t = S-1 down to 0.  The
+reference's Pallas kernel has no VJP; its training differentiates the
+jnp mixer, so ``slstm_scan_bwd`` replaces no TPU kernel and computes
+``jax.grad`` of the reference's recurrence, ties included:
+``jnp.maximum`` gives each side half of the gradient at a tie, and so do
+the plain versions here (``torch.maximum``, never ``torch.clamp``).
+
+``slstm_scan.launches`` and ``slstm_scan_bwd.launches`` count wrapper
+calls that launched the kernel, incremented only there
+(``kernels.counts`` reads and resets them).
 """
 from __future__ import annotations
 
@@ -30,11 +42,15 @@ Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 GATE_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _slstm_scan_plain(z, ig, fg, og, c0, n0, m0) -> Result:
+def _slstm_scan_plain(z, ig, fg, og, c0, n0, m0, stash: bool = False):
     """The stabilised recurrence one step at a time (gates (B, S, d),
-    state (B, d), f32), in the order of operations of ``_slstm_seq``."""
+    state (B, d), f32), in the order of operations of ``_slstm_seq``;
+    ``max(n, 1)`` is ``torch.maximum``, whose gradient at n = 1 is
+    ``jnp.maximum``'s (half).  With ``stash`` a fifth result: c_t, n_t,
+    m_t of every step, (3, B, S, d)."""
     c, n, m = c0, n0, m0
-    ys = []
+    one = n0.new_ones(())
+    ys, states = [], []
     for t in range(z.shape[1]):
         zt, it, ft, ot = z[:, t], ig[:, t], fg[:, t], og[:, t]
         m_new = torch.maximum(ft + m, it)
@@ -42,10 +58,63 @@ def _slstm_scan_plain(z, ig, fg, og, c0, n0, m0) -> Result:
         f_ = torch.exp(ft + m - m_new)
         c = f_ * c + i_ * torch.tanh(zt)
         n = f_ * n + i_
-        ys.append(torch.sigmoid(ot) * c / torch.clamp(n, min=1.0))
+        ys.append(torch.sigmoid(ot) * c / torch.maximum(n, one))
         m = m_new
+        if stash:
+            states.append(torch.stack((c, n, m)))
     y = torch.stack(ys, dim=1) if ys else torch.empty_like(z)
-    return y, c, n, m
+    if not stash:
+        return y, c, n, m
+    b, s, d = z.shape
+    st = torch.stack(states, dim=2) if states else z.new_empty((3, b, 0, d))
+    return y, c, n, m, st
+
+
+def _slstm_scan_bwd_plain(pre, stash, c0, n0, m0, gy, gc1=None, gn1=None,
+                          gm1=None) -> Result:
+    """``slstm_scan_bwd``'s plain version: the gradient of the scan at
+    the pre-activation quads ``pre`` (B, S, d, 4) and the state (c0, n0,
+    m0), from gy (B, S, d) and the final state's gradients (None: zero),
+    walking t from S-1 down to 0 with the algebra of the kernel (the
+    comment above ``slstm_bwd_kernel`` in ``csrc/slstm_scan.cu``): f32
+    throughout, d(pre) rounded once to pre's dtype.  Returns (d(pre),
+    dc0, dn0, dm0)."""
+    q = pre.float()
+    b, s, d, _ = q.shape
+    zero = torch.zeros_like(c0)
+    gc = zero if gc1 is None else gc1.float()
+    gn = zero if gn1 is None else gn1.float()
+    gm = zero if gm1 is None else gm1.float()
+    dq = torch.empty_like(q)
+    one = q.new_ones(())
+    for t in range(s - 1, -1, -1):
+        z, i, f, o = q[:, t].unbind(-1)
+        c, n, m = stash[:, :, t]
+        if t:
+            cp, np_, mp = stash[:, :, t - 1]
+        else:
+            cp, np_, mp = c0, n0, m0
+        g = gy[:, t]
+        a = f + mp
+        ie = torch.exp(i - m)
+        fe = torch.exp(a - m)
+        h = torch.tanh(z)
+        sg = torch.sigmoid(o)
+        big_n = torch.maximum(n, one)
+        gc = gc + g * sg / big_n
+        wn = torch.where(n > 1, 1.0, torch.where(n == 1, 0.5, 0.0))
+        gn = gn - g * sg * c / (big_n * big_n) * wn
+        do = g * c / big_n * (sg * (1 - sg))
+        g_fe = gc * cp + gn * np_
+        g_ie = gc * h + gn
+        dz = gc * ie * (1 - h * h)
+        gm_t = gm - g_fe * fe - g_ie * ie
+        wa = torch.where(a > i, 1.0, torch.where(a == i, 0.5, 0.0))
+        ga = g_fe * fe + gm_t * wa
+        di = g_ie * ie + gm_t * (1 - wa)
+        dq[:, t] = torch.stack((dz, di, ga, do), dim=-1)
+        gc, gn, gm = gc * fe, gn * fe, ga
+    return dq.to(pre.dtype), gc, gn, gm
 
 
 def _quad_base(gates: Sequence[torch.Tensor]) -> Optional[int]:
@@ -112,60 +181,171 @@ _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
 _FUNCS = {}
 
 
-def _launch(funcs, gates, state, b: int, s: int, d: int) -> Result:
-    """Allocate y and the state and launch through ``funcs`` (the bound C
-    entry points) on the current stream; raises on a launch error.  Not
-    counted: ``slstm_scan`` is the wrapper (``tools/kernel_ab.py`` calls
-    this with the entry points of its source variants)."""
+def _launch(funcs, gates, state, b: int, s: int, d: int,
+            stash: bool = False):
+    """Allocate y and the state (and with ``stash`` the (3, B, S, d)
+    states of every step, a fifth result) and launch through ``funcs``
+    (the bound C entry points) on the current stream; raises on a launch
+    error.  Not counted: ``slstm_scan`` is the wrapper
+    (``tools/kernel_ab.py`` calls this with the entry points of its
+    source variants)."""
     z = gates[0]
     dev = z.device
     y = torch.empty((b, s, d), dtype=torch.float32, device=dev)
     out = torch.empty((3, b, d), dtype=torch.float32, device=dev)
+    st = torch.empty((3, b, s, d), dtype=torch.float32, device=dev) \
+        if stash else None
     bf16 = int(z.dtype == torch.bfloat16)
     tail = (state[0].data_ptr(), state[1].data_ptr(), state[2].data_ptr(),
-            y.data_ptr(), out.data_ptr(), b, s, d)
+            y.data_ptr(), out.data_ptr())
+    dims = (b, s, d)
     base = _quad_base(gates)
+    assert base is not None or not stash, "the stash needs the quad views"
     if base is not None:
-        st = z.stride()
-        fn, args = funcs["repro_slstm_scan_quad"], (bf16, base, st[0],
-                                                    st[1], *tail)
+        zs = z.stride()
+        fn, args = funcs["repro_slstm_scan_quad"], (
+            bf16, base, zs[0], zs[1], *tail,
+            0 if st is None else st.data_ptr(), *dims)
     else:
         fn, args = funcs["repro_slstm_scan"], (bf16,)
         for g in gates:
             args += (g.data_ptr(), *g.stride())
-        args += tail
+        args += tail + dims
+    _call(fn, args, dev, f"slstm_scan[{b}x{s}x{d}]")
+    return (y, *out.unbind(0)) + ((st,) if stash else ())
+
+
+def _call(fn, args, dev: torch.device, what: str) -> None:
+    """Launch a C entry point on ``dev``'s current stream."""
     if dev.index == torch.cuda.current_device():
         rc = fn(*args, _raw_stream(dev.index))
     else:                       # entering a device context costs host time
         with torch.cuda.device(dev):
             rc = fn(*args, _raw_stream(dev.index))
-    native.check(rc, f"slstm_scan[{b}x{s}x{d}]")
-    return (y, *out.unbind(0))
+    native.check(rc, what)
+
+
+def _kernel_device(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one
+    (run the plain version); raises for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    if not _FUNCS:
+        _FUNCS.update(native.load())
+    return True
 
 
 def slstm_scan(z: torch.Tensor, ig: torch.Tensor, fg: torch.Tensor,
                og: torch.Tensor, c0: torch.Tensor, n0: torch.Tensor,
-               m0: torch.Tensor) -> Result:
+               m0: torch.Tensor, stash: bool = False):
     """z/ig/fg/og: (B, S, d) f32 or bf16 (one dtype), any strides;
     c0/n0/m0: (B, d) f32, contiguous.  Returns (y (B, S, d), c1, n1, m1),
     f32 and contiguous — the TPU kernel's contract (c1, n1, m1 are the
-    rows of one (3, B, d) tensor)."""
+    rows of one (3, B, d) tensor).  With ``stash`` (the gates the quad
+    views of one (B, S, d, 4) tensor) also the (3, B, S, d) f32 c_t,
+    n_t, m_t of every step, written by the same launch, y bit for bit
+    the launch without it."""
     gates, state = (z, ig, fg, og), (c0, n0, m0)
     b, s, d = _check(gates, state)
-    if z.device.type == "cpu":
-        return _slstm_scan_plain(*_upcast(gates), *state)
-    if z.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {z.device}")
+    if stash and _quad_base(gates) is None:
+        raise ValueError("slstm_scan(stash=True) takes the quad views of "
+                         "one (B, S, d, 4) tensor")
+    if not _kernel_device(z):
+        return _slstm_scan_plain(*_upcast(gates), *state, stash=stash)
     if b == 0 or d == 0:
         raise ValueError(f"slstm_scan needs B, d > 0, got {(b, s, d)}")
-    if not _FUNCS:
-        _FUNCS.update(native.load())
-    out = _launch(_FUNCS, gates, state, b, s, d)
+    out = _launch(_FUNCS, gates, state, b, s, d, stash=stash)
     native.count_launch(slstm_scan)
     return out
 
 
 slstm_scan.launches = 0
+
+
+def slstm_scan_bwd(pre: torch.Tensor, stash: torch.Tensor,
+                   c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor,
+                   gy: torch.Tensor, gc1: Optional[torch.Tensor] = None,
+                   gn1: Optional[torch.Tensor] = None,
+                   gm1: Optional[torch.Tensor] = None) -> Result:
+    """The scan's gradient: ``pre`` the (B, S, d, 4) f32 or bf16 quads,
+    contiguous; ``stash`` the (3, B, S, d) f32 states that
+    ``slstm_scan(stash=True)`` wrote; c0/n0/m0 (B, d) f32; gy (B, S, d)
+    f32, the gradient of y; gc1/gn1/gm1 (B, d) f32 those of the final
+    state, or None (zero).  Returns (d(pre) (B, S, d, 4) in pre's dtype,
+    dc0, dn0, dm0 (B, d) f32)."""
+    if pre.dim() != 4 or pre.shape[-1] != 4 or not pre.is_contiguous():
+        raise ValueError(f"pre must be a contiguous (B, S, d, 4) tensor, "
+                         f"got {tuple(pre.shape)}")
+    b, s, d, _ = pre.shape
+    gates = pre.unbind(-1)
+    _check(gates, (c0, n0, m0))
+    carried = [g for g in (gc1, gn1, gm1) if g is not None]
+    for name, x, shape in (("stash", stash, (3, b, s, d)),
+                           ("gy", gy, (b, s, d)),
+                           *(("final state grad", g, (b, d))
+                             for g in carried)):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} {tuple(x.shape)} != {shape}")
+        if x.dtype != torch.float32 or x.device != pre.device:
+            raise TypeError(f"{name} must be float32 on {pre.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not _kernel_device(pre):
+        return _slstm_scan_bwd_plain(pre, stash, c0, n0, m0, gy, gc1, gn1,
+                                     gm1)
+    if b == 0 or d == 0:
+        raise ValueError(f"slstm_scan_bwd needs B, d > 0, got {(b, s, d)}")
+    if pre.data_ptr() % (4 * pre.element_size()):
+        raise ValueError("pre must be aligned to a quad")
+    dpre = torch.empty_like(pre)
+    dstate = torch.empty((3, b, d), dtype=torch.float32, device=pre.device)
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
+    args = (int(pre.dtype == torch.bfloat16), pre.data_ptr(),
+            stash.data_ptr(), c0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
+            gy.data_ptr(), ptr(gc1), ptr(gn1), ptr(gm1), dpre.data_ptr(),
+            dstate.data_ptr(), b, s, d)
+    _call(_FUNCS["repro_slstm_scan_bwd"], args, pre.device,
+          f"slstm_scan_bwd[{b}x{s}x{d}]")
+    native.count_launch(slstm_scan_bwd)
+    return (dpre, *dstate.unbind(0))
+
+
+slstm_scan_bwd.launches = 0
+
+
+class SlstmScan(torch.autograd.Function):
+    """The scan under autograd: ``SlstmScan.apply(pre, c0, n0, m0)`` with
+    ``pre`` the whole (B, S, d, 4) pre-activation (so its gradient is one
+    tensor, not four views' scattered back) returns (y, c1, n1, m1).  The
+    forward is ``slstm_scan(stash=True)``, the backward
+    ``slstm_scan_bwd``: each the kernel on CUDA tensors and its plain
+    version on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, pre, c0, n0, m0):
+        pre = pre.contiguous()
+        y, c1, n1, m1, st = slstm_scan(*pre.unbind(-1), c0, n0, m0,
+                                       stash=True)
+        ctx.save_for_backward(pre, st, c0, n0, m0)
+        ctx.set_materialize_grads(False)
+        return y, c1, n1, m1
+
+    @staticmethod
+    def backward(ctx, gy, gc1, gn1, gm1):
+        pre, st, c0, n0, m0 = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros(pre.shape[:3], dtype=torch.float32,
+                             device=pre.device)
+        grads = slstm_scan_bwd(
+            pre, st, c0, n0, m0, gy.float().contiguous(),
+            *(None if g is None else g.float().contiguous()
+              for g in (gc1, gn1, gm1)))
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def hbm_traffic_bytes(b: int, s: int, d: int) -> dict:

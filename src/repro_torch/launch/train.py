@@ -84,11 +84,20 @@ device count:
         --devices 2 --max-model 2 --steps 4 --optimizer muon-syrk \
         --track-gram --ckpt-dir /path/to/ckpt --ckpt-every 2
 
+xlstm trains on one device with the same flags (its sLSTM layers on
+``slstm_scan`` with a stash forward and the ``slstm_scan_bwd`` kernel
+backward, its mLSTM layers under autograd):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch xlstm-350m --smoke --steps 3 --optimizer muon-syrk
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
+        --full --optimizer muon-syrk --steps 4 --seq-len 256
+
 Waiting, each raising a clear error that names its ROADMAP item:
 ``--ckpt-dir`` on a mesh with state that is each rank's own (the 8-bit
 AdamW moments; the EF residuals of ``--compress-grads`` over a data
-axis: A8b); training an xlstm config (A9: its sLSTM kernel has no
-backward yet).
+axis: A8b); an xlstm config on a mesh (A9b: tensor-parallel recurrent
+mixers).
 """
 from __future__ import annotations
 
@@ -155,10 +164,12 @@ def _refuse_waiting(args, cfg) -> None:
                 f"--ckpt-dir with --devices {args.devices}: {local} have no "
                 "layout-free form to save; checkpoints of rank-local "
                 "optimizer state on a mesh wait for ROADMAP A8b")
-    if any(s.mixer in ("mlstm", "slstm") for s in cfg.pattern):
+    if args.devices > 1 and any(s.mixer in ("mlstm", "slstm")
+                                for s in cfg.pattern):
         raise NotImplementedError(
-            f"training {cfg.name} waits: the sLSTM kernel (slstm_scan) has "
-            "no backward yet (ROADMAP A9, xlstm training)")
+            f"training {cfg.name} with --devices {args.devices} waits: "
+            "tensor-parallel mLSTM / sLSTM mixers and xlstm on a mesh are "
+            "ROADMAP A9b; train it on one device")
 
 
 def train(args) -> Dict[str, Any]:

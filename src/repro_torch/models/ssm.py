@@ -12,10 +12,19 @@ gates).  State layouts (per layer, batch on dim 0, f32):
 
 sLSTM: every call, prefill and decode alike, goes through
 ``kernels.slstm.slstm_scan`` — the hand-written kernel on a CUDA tensor,
-its plain version (``_slstm_seq``'s loop) on a CPU tensor.  The
-reference switches to an associative-scan form (``_slstm_parallel``)
+its plain version (``_slstm_seq``'s loop) on a CPU tensor.  When the
+pre-activation needs a gradient (training) it goes through
+``kernels.slstm.SlstmScan`` instead: the same kernel with a stash of
+every step's state, and the hand-written backward ``slstm_scan_bwd``.
+The reference switches to an associative-scan form (``_slstm_parallel``)
 for s > 8; that form is not ported, because on the card the kernel
 takes its place and both compute the same stabilised recurrence.
+
+Gradients at ties follow ``jax.grad`` of the reference: ``max(·, 1)`` is
+``torch.maximum`` (half the gradient to each side at a tie, as
+``jnp.maximum``), and the chunkwise mLSTM's running maximum is
+:func:`_cummax`, ``lax.cummax``'s parallel prefix, whose gradient
+splits at ties as jax's does.
 
 mLSTM has no TPU kernel: the per-step recurrence (``_mlstm_seq``) and
 the chunkwise-parallel form (``_mlstm_chunkwise``) are plain PyTorch,
@@ -29,7 +38,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.slstm import _slstm_scan_plain, slstm_scan
+from ..kernels.slstm import SlstmScan, _slstm_scan_plain, slstm_scan
 from .common import ArchConfig, BlockSpec, dense_init
 
 State = Dict[str, torch.Tensor]
@@ -70,6 +79,7 @@ def _mlstm_seq(q, k, v, ig, fg, st: State) -> Tuple[torch.Tensor, State]:
     the chunkwise form does not take).  q/k/v (B,S,H,hd), ig/fg (B,S,H)
     log-space gates, all f32."""
     C, n, m = st["C"], st["n"], st["m"]
+    one = q.new_ones(())
     ys = []
     for t in range(q.shape[1]):
         qt, kt, vt, it, ft = q[:, t], k[:, t], v[:, t], ig[:, t], fg[:, t]
@@ -80,10 +90,30 @@ def _mlstm_seq(q, k, v, ig, fg, st: State) -> Tuple[torch.Tensor, State]:
             * (vt[..., :, None] * kt[..., None, :])
         n = f_[..., None] * n + i_[..., None] * kt
         num = (C @ qt[..., None])[..., 0]
-        den = torch.clamp((n * qt).sum(-1).abs(), min=1.0)
+        den = torch.maximum((n * qt).sum(-1).abs(), one)
         ys.append(num / den[..., None])
         m = m_new
     return torch.stack(ys, dim=1), {"C": C, "n": n, "m": m}
+
+
+def _cummax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The running maximum of ``x`` along ``dim`` as ``lax.cummax``
+    differentiates it: ``lax.associative_scan``'s odd / even parallel
+    prefix of ``maximum``.  The values are ``torch.cummax``'s; the
+    gradient at equal values is jax's, split in halves down the prefix
+    tree (``torch.cummax`` gives all of it to the last of them)."""
+    x = x.movedim(dim, 0)
+
+    def scan(e: torch.Tensor) -> torch.Tensor:
+        n = e.shape[0]
+        if n < 2:
+            return e
+        odd = scan(torch.maximum(e[0:n - 1:2], e[1::2]))
+        even = torch.maximum(odd[:-1] if n % 2 == 0 else odd, e[2::2])
+        even = torch.cat([e[:1], even])
+        pairs = torch.stack([even[:len(odd)], odd], dim=1).flatten(0, 1)
+        return torch.cat([pairs, even[len(odd):]])
+    return scan(x).movedim(0, dim)
 
 
 def _mlstm_chunkwise(q, k, v, ig, fg, st: State,
@@ -103,6 +133,7 @@ def _mlstm_chunkwise(q, k, v, ig, fg, st: State,
     C0, n0, m0 = st["C"], st["n"], st["m"]
     tri = torch.ones((chunk, chunk), dtype=torch.bool,
                      device=q.device).tril()[None, :, :, None]
+    one = q.new_ones(())
     ys = []
     for j0 in range(0, s, chunk):
         sl = slice(j0, j0 + chunk)
@@ -110,7 +141,7 @@ def _mlstm_chunkwise(q, k, v, ig, fg, st: State,
             fg[:, sl]
         bcum = torch.cumsum(ft, dim=1)                        # (B,L,H)
         a_l = it - bcum                                       # i_l − b_l
-        w = torch.maximum(m0[:, None], torch.cummax(a_l, dim=1).values)
+        w = torch.maximum(m0[:, None], _cummax(a_l, dim=1))
         m_j = bcum + w
         D = torch.where(tri, torch.exp(a_l[:, None] - w[:, :, None]),
                         torch.zeros((), device=q.device))     # (B,j,l,H)
@@ -121,7 +152,7 @@ def _mlstm_chunkwise(q, k, v, ig, fg, st: State,
             * torch.einsum("bjhe,bhde->bjhd", qt, C0)
         nq_j = S.sum(dim=2) \
             + carry_scale * torch.einsum("bjhe,bhe->bjh", qt, n0)
-        ys.append(num / torch.clamp(nq_j.abs(), min=1.0)[..., None])
+        ys.append(num / torch.maximum(nq_j.abs(), one)[..., None])
         scale_l = torch.exp(a_l - w[:, -1:])                  # (B,L,H)
         end_scale = torch.exp(m0 - w[:, -1])                  # (B,H)
         C0 = end_scale[..., None, None] * C0 + torch.einsum(
@@ -191,9 +222,12 @@ def slstm_mixer(cfg: ArchConfig, p, x: torch.Tensor,
     # into the kernel as they are (it reads one quad a step and upcasts in
     # registers; on the CPU the wrapper upcasts the quads to f32)
     pre = (x @ p.wx).reshape(b, s, d, 4)
-    z, ig, fg, og = pre.unbind(-1)
     st = state if state is not None else slstm_state_init(cfg, b, x.device)
-    ys, c, n, m = slstm_scan(z, ig, fg, og, st["c"], st["n"], st["m"])
+    if torch.is_grad_enabled() and pre.requires_grad:
+        ys, c, n, m = SlstmScan.apply(pre, st["c"], st["n"], st["m"])
+    else:
+        ys, c, n, m = slstm_scan(*pre.unbind(-1), st["c"], st["n"],
+                                 st["m"])
     out = ys.to(x.dtype) @ p.wo
     return out, (None if state is None else {"c": c, "n": n, "m": m})
 

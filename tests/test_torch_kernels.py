@@ -173,7 +173,7 @@ def test_launch_counters_only_count_kernel_launches():
     symm_tiles(TriTiles.from_tril(torch.ones(16, 16), 8).tiles,
                torch.ones(16, 2), bm=8)
     assert counts.launch_counts() == {"rank_update": 0, "sym_stream": 0,
-                                       "slstm_scan": 0}
+                                       "slstm_scan": 0, "slstm_scan_bwd": 0}
 
 
 @pytest.mark.parametrize("op", ["syrk", "syr2k", "symm"])

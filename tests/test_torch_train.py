@@ -279,8 +279,8 @@ def test_train_fresh_ignores_the_checkpoints(monkeypatch, tmp_path):
 
 
 def test_train_xlstm_raises_and_no_card_raises(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9, xlstm"):
-        ttrain.train(_args(arch="xlstm-350m", d_model=0, d_ff=0))
+    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
+        ttrain.train(_args(arch="xlstm-350m", d_model=0, d_ff=0, devices=2))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.train(_args(device=None))

@@ -230,7 +230,7 @@ def test_cpu_serve_launches_no_kernel():
     assert out["model_forwards"] == out["warmup_forwards"] + 3 + \
         out["decode_steps"]
     assert counts.launch_counts() == {"rank_update": 0, "sym_stream": 0,
-                                       "slstm_scan": 0}
+                                       "slstm_scan": 0, "slstm_scan_bwd": 0}
 
 
 def test_init_model_xlstm_is_seeded():
