@@ -80,9 +80,10 @@ Phases (any failure exits non-zero):
              (2e-3).  The mesh path launches none of the three
              kernels; its launch counts are printed and must read 0;
 9. ckpt    — checkpoints and resume: trains stablelm-1.6b at its
-             published widths with Muon and ``--track-gram`` in a temp
-             dir (its free space printed first; the depth, never the
-             widths, cut only if three checkpoints would not fit), run A
+             published widths, 4 layers deep, with Muon and
+             ``--track-gram`` in a temp dir (its free space printed
+             first; the depth, never the widths, cut further only if
+             three checkpoints would not fit), run A
              3 steps with ``--ckpt-every 2 --ckpt-keep 2`` (its step-3
              checkpoint set aside), run B ``--steps 3`` on the same dir,
              which resumes from step 2; asserts that B resumed with 0
@@ -171,7 +172,8 @@ Phases (any failure exits non-zero):
              optimizer words a step are the closed form of its leaves
              (the 1D schedule, or a gather where ``_use_1d`` declines),
              and that every rank launched ``rank_update`` /
-             ``sym_stream`` (the gathered stacks' chain); prints the
+             ``sym_stream`` 5 / 10 times a step for each gathered stack
+             (its NS chain); prints the
              Muon path of each leaf, s per step and its split (loss +
              backward, reduce, clip, optimizer), words and bytes a rank
              by phase and kind, and each rank's peak memory.  The
@@ -215,7 +217,22 @@ Phases (any failure exits non-zero):
              ``slstm_scan_bwd`` (12 and 6 launches a step: the
              per-period remat runs the forward twice), no plain scan
              on the card, Muon's NS SYRK / SYMM with n1 >= 256 on
-             ``rank_update`` / ``sym_stream``.
+             ``rank_update`` / ``sym_stream``;
+16. xlstmmesh — ``train --devices 4 --max-model 4 --optimizer
+             muon-syrk`` of xlstm-350m at its published widths cut to 8
+             layers (6 mLSTM, 2 sLSTM), phase 7's traffic, 2 steps, on
+             (data 1, model 4): one head and 256 sLSTM channels a rank,
+             each rank's ``slstm_scan`` (stash) and ``slstm_scan_bwd``
+             on its own (8, 256, 256) quads; every rank's losses
+             identical and within 1e-4 of the uninterrupted
+             single-device run at that depth (run first); the plain
+             scans raise on a CUDA tensor in every process; every
+             rank's Muon words a step the closed form (embed, unembed
+             and ``wx`` on the 1D schedule, the other stacks gathered)
+             and its launches a step the paths' count (``slstm_scan`` 4,
+             ``slstm_scan_bwd`` 2, ``rank_update`` 5 and ``sym_stream``
+             10 a gathered stack of n1 >= 256); prints each rank's step
+             time, peak memory, and words and bytes by phase and kind.
 
 The seconds of each phase are printed on the ``[done]`` line.
 The line before the last is a JSON object with one entry per kernel;
@@ -1707,10 +1724,16 @@ def _gram_words(path: str):
     return _gram_bits(path).view(torch.bfloat16).float()
 
 
+#: phase 9's depth: the published widths, 4 of the 24 layers (the
+#: embeddings, 2.47 GB of the checkpoint's bytes, are whole)
+CKPT_LAYERS = 4
+
+
 def ckpt_phase(torch):
-    """Run A trains stablelm-1.6b (published widths) with Muon and the
-    packed Gram 3 steps, saving every 2 (async) and at the end
-    (blocking); its step-3 checkpoint is set aside.  Run B, on the same
+    """Run A trains stablelm-1.6b (published widths, ``CKPT_LAYERS``
+    layers) with Muon and the packed Gram 3 steps, saving every 2
+    (async) and at the end (blocking); its step-3 checkpoint is set
+    aside.  Run B, on the same
     dir, resumes from step 2 and writes step 3 again.  B's losses must
     equal A's step 2 and every leaf of B's step 3 A's (crc), the Grams
     (bf16 words) within GRAM_TOL."""
@@ -1724,13 +1747,13 @@ def ckpt_phase(torch):
     try:
         free = shutil.disk_usage(root).free
         cfg = get_config("stablelm-1.6b")
-        layers = cfg.n_layers
+        layers = CKPT_LAYERS
         log(f"[ckpt] free space at {root}: {free} bytes; one checkpoint "
             f"~{_ckpt_estimate(cfg, layers)} bytes at {layers} layers")
         while layers > 1 and 3 * _ckpt_estimate(cfg, layers) > free:
             layers -= 1
-        if layers != cfg.n_layers:
-            log(f"[ckpt] depth cut to {layers} of {cfg.n_layers} layers "
+        if layers != CKPT_LAYERS:
+            log(f"[ckpt] depth cut to {layers} of {CKPT_LAYERS} layers "
                 "(widths kept) so that three checkpoints fit")
         d = os.path.join(root, "ckpt")
         argv = ["--arch", "stablelm-1.6b", "--full", "--device", DEVICE,
@@ -2192,10 +2215,10 @@ RESUME_LAYERS = 2
 RESUME_STEPS, RESUME_KILL, RESUME_EVERY = 2, 1, 1
 
 
-def _train_argv(optimizer, steps, layers=0):
+def _train_argv(optimizer, steps, layers=0, arch="stablelm-1.6b"):
     """The train flags of phase 7's traffic (8 x 256 tokens, seed 0) at
-    stablelm-1.6b's published widths."""
-    argv = ["--arch", "stablelm-1.6b", "--full", "--optimizer", optimizer,
+    ``arch``'s published widths."""
+    argv = ["--arch", arch, "--full", "--optimizer", optimizer,
             "--steps", str(steps), "--global-batch", "8", "--seq-len",
             "256", "--loss-chunk", "256", "--seed", "0", "--data-seed",
             "0", "--log-every", "1"]
@@ -2655,22 +2678,14 @@ MESHTRAIN_STEPS = RESUME_STEPS
 MESHTRAIN_RTOL = 1e-4
 
 
-def _stablelm_leaves(cfg):
-    """{path: whole stacked shape} of the model's parameter tree."""
-    L, d, f, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
-    hq, hkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-    leaves = {("embed",): (V, d), ("unembed",): (d, V),
-              ("final_norm", "scale"): (d,), ("final_norm", "bias"): (d,)}
-    for part, names in (("mixer", {"wq": (d, hq), "wk": (d, hkv),
-                                   "wv": (d, hkv), "wo": (hq, d)}),
-                        ("mlp", {"wi": (d, f), "wg": (d, f),
-                                 "wo": (f, d)})):
-        for n, shape in names.items():
-            leaves[("periods", "b0", part, n)] = (L,) + shape
-    for norm in ("norm1", "norm2"):
-        for n in ("scale", "bias"):
-            leaves[("periods", "b0", norm, n)] = (L, d)
-    return leaves
+def _leaves(cfg):
+    """{path: whole stacked shape} of the model's parameter tree (a model
+    on the meta device: shapes, no weights)."""
+    import torch
+
+    from repro_torch.models.model import Model
+    return Model(cfg, torch.Generator(),
+                 torch.device("meta")).stacked_shapes()
 
 
 def _ns_closed_form(cfg, data, P, steps=5):
@@ -2683,7 +2698,7 @@ def _ns_closed_form(cfg, data, P, steps=5):
     from repro_torch.core.dispatch import choose_algorithm
     from repro_torch.core.packing import tril_size
     from repro_torch.models.sharding import param_specs
-    shapes = _stablelm_leaves(cfg)
+    shapes = _leaves(cfg)
     specs = param_specs(cfg, shapes, {"data": data, "model": P})
     total, paths = {}, {}
     for k, shape in shapes.items():
@@ -2712,11 +2727,11 @@ def _ns_closed_form(cfg, data, P, steps=5):
     return total, paths
 
 
-def run_mesh_train(torch, devices, max_model, layers):
+def run_mesh_train(torch, devices, max_model, layers, arch="stablelm-1.6b"):
     """``train --devices N`` (gloo ranks sharing this card) on phase 7's
     traffic with ``muon-syrk`` at ``layers`` layers."""
     from repro_torch.launch.train import build_argparser, train
-    argv = _train_argv("muon-syrk", MESHTRAIN_STEPS, layers) + [
+    argv = _train_argv("muon-syrk", MESHTRAIN_STEPS, layers, arch) + [
         "--device", DEVICE, "--devices", str(devices),
         "--max-model", str(max_model)]
     t0 = time.perf_counter()
@@ -2725,11 +2740,19 @@ def run_mesh_train(torch, devices, max_model, layers):
     return out
 
 
+def _n_slstm(cfg) -> int:
+    return sum(cfg.pattern[i % cfg.period].mixer == "slstm"
+               for i in range(cfg.n_layers))
+
+
 def meshtrain_check(tag, out, want, cfg, data, P):
     """Every rank's losses identical and within ``MESHTRAIN_RTOL`` of
     ``want`` a step, the optimizer's words a rank a step the closed
-    form, the symmetric kernels launched on every rank (the gathered
-    stacks' chain); prints the split, words, bytes and peaks."""
+    form, every rank's launches a step the paths' count: the gathered
+    stacks' NS chain (n1 >= 256: the kernels) ``rank_update`` 5 and
+    ``sym_stream`` 10 a stack, the 1D leaves none; the sLSTM layers'
+    stash forward twice (the remat) and backward once, on the rank's own
+    channels; prints the split, words, bytes and peaks."""
     assert out["mesh"] == {"data": data, "model": P}, out["mesh"]
     ranks = out["ranks"]
     losses = out["losses"]
@@ -2746,8 +2769,19 @@ def meshtrain_check(tag, out, want, cfg, data, P):
         log(f"{tag} step {i}: rel {rel:.3e} (<= {MESHTRAIN_RTOL:.0e})")
         assert rel <= MESHTRAIN_RTOL, (i, got, ref)
     predicted, paths = _ns_closed_form(cfg, data, P)
+    shapes = _leaves(cfg)
+    stacks = sum(v == "gather" and min(shapes[tuple(k.split("/"))][-2:])
+                 >= 256 for k, v in paths.items())
+    steps, n_slstm = MESHTRAIN_STEPS, _n_slstm(cfg)
+    want_launches = {"rank_update": steps * 5 * stacks,
+                     "sym_stream": steps * 10 * stacks,
+                     "slstm_scan": steps * 2 * n_slstm,
+                     "slstm_scan_bwd": steps * n_slstm}
     log(f"{tag} Muon path per matrix leaf: {json.dumps(paths)}")
     log(f"{tag} Muon words a rank a step, closed form: {predicted}")
+    log(f"{tag} launches a rank over {steps} steps, from the paths "
+        f"({stacks} gathered stacks, {n_slstm} sLSTM layers): "
+        f"{want_launches}")
     for i, r in enumerate(ranks):
         for s, step in enumerate(r["words"]):
             assert step["opt"] == predicted, (i, s, step["opt"], predicted)
@@ -2761,13 +2795,14 @@ def meshtrain_check(tag, out, want, cfg, data, P):
         log(f"{tag} rank 0 a step, {phase}: words "
             f"{r0['words'][-1][phase]}, bytes {r0['bytes'][-1][phase]}")
     for i, r in enumerate(ranks):
-        log(f"{tag} rank {i}: words over the run {_kinds(r['words'])}, "
-            f"bytes {_kinds(r['bytes'])}; peak memory "
+        log(f"{tag} rank {i}: s per step {r['step_s']}; words the last "
+            f"step by phase {r['words'][-1]}, bytes {r['bytes'][-1]}; "
+            f"words over the run {_kinds(r['words'])}, bytes "
+            f"{_kinds(r['bytes'])}; peak memory "
             f"{r['peak_memory_bytes'] / 2**30:.2f} GiB; launches "
             f"{r['kernel_launches']}")
-        kl = r["kernel_launches"]
-        assert kl["rank_update"] > 0 and kl["sym_stream"] > 0, kl
-        assert kl["slstm_scan"] == 0, kl
+        assert r["kernel_launches"] == want_launches, (
+            i, r["kernel_launches"], want_launches)
     launches = {}
     for r in ranks:
         for k, v in r["kernel_launches"].items():
@@ -2776,6 +2811,7 @@ def meshtrain_check(tag, out, want, cfg, data, P):
         "and build included)")
     return {"mesh": out["mesh"], "losses": losses, "want": want,
             "paths": paths, "ns_words": predicted,
+            "launches_a_rank": want_launches,
             "step_s": [r["step_s"] for r in ranks],
             "split_s": r0["split_s"],
             "words": _kinds(r0["words"]), "bytes": _kinds(r0["bytes"]),
@@ -3138,6 +3174,21 @@ def slstm_bwd_cases(torch, cases):
     torch.cuda.empty_cache()
 
 
+def guard_plain_scans() -> None:
+    """Make the plain sLSTM scans (forward and backward) of this process
+    raise when a CUDA tensor reaches them (the wrappers never fall back:
+    this shows it on the path)."""
+    from repro_torch.kernels import slstm
+
+    def guard(fn):
+        def on_host_only(*args, **kw):
+            assert not args[0].is_cuda, "a CUDA tensor reached a plain scan"
+            return fn(*args, **kw)
+        return on_host_only
+    slstm._slstm_scan_plain = guard(slstm._slstm_scan_plain)
+    slstm._slstm_scan_bwd_plain = guard(slstm._slstm_scan_bwd_plain)
+
+
 def xlstm_train_phase(torch, cases):
     """Phase 15: the kernel cases, then xlstm-350m at its published
     widths (24 layers, 6 of them sLSTM) on phase 7's traffic,
@@ -3150,18 +3201,10 @@ def xlstm_train_phase(torch, cases):
     from repro_torch.kernels import slstm
     slstm_bwd_cases(torch, cases)
     cfg = get_config("xlstm-350m")
-    n_slstm = sum(cfg.pattern[i % cfg.period].mixer == "slstm"
-                  for i in range(cfg.n_layers))
+    n_slstm = _n_slstm(cfg)
     plain, bwd_plain = slstm._slstm_scan_plain, slstm._slstm_scan_bwd_plain
-
-    def guard(fn):
-        def on_host_only(*args, **kw):
-            assert not args[0].is_cuda, "a CUDA tensor reached a plain scan"
-            return fn(*args, **kw)
-        return on_host_only
     out, launches = {}, {}
-    slstm._slstm_scan_plain = guard(plain)
-    slstm._slstm_scan_bwd_plain = guard(bwd_plain)
+    guard_plain_scans()
     try:
         for opt, steps in (("muon-syrk", XLSTM_MUON_STEPS),
                            ("adamw", XLSTM_ADAMW_STEPS)):
@@ -3194,6 +3237,78 @@ def xlstm_train_phase(torch, cases):
             "peak_memory_bytes", "kernel_launches", "params")
     torch.cuda.empty_cache()
     return {o: {k: out[o][k] for k in keep} for o in out}, total
+
+
+# --------------------------------------------------------------------------
+# phase 16: train xlstm-350m on a (data, model) mesh
+# --------------------------------------------------------------------------
+#: two periods: 6 mLSTM and 2 sLSTM layers
+XLSTM_MESH_LAYERS = 8
+XLSTM_MESH_DEVICES = XLSTM_MESH_MAX_MODEL = 4
+
+
+def guarded_train_rank(mesh_x, flags):
+    """``launch.train.train_rank`` (what ``train --devices N`` runs on
+    each rank) with this rank's plain sLSTM scans guarded."""
+    from repro_torch.launch.train import train_rank
+    guard_plain_scans()
+    return train_rank(mesh_x, flags)
+
+
+def xlstm_mesh_phase(torch):
+    """Phase 16: ``train --devices 4 --max-model 4 --optimizer
+    muon-syrk`` of xlstm-350m at its published widths (d_model 1024, 4
+    heads, vocab 50304) cut to ``XLSTM_MESH_LAYERS`` layers, phase 7's
+    traffic, on (data 1, model 4): one head and 256 sLSTM channels a
+    rank, the ranks' ``train_rank`` with the plain scans guarded.  Held
+    to the uninterrupted single-device run at that depth (run here,
+    guarded too), the launches a rank from the paths
+    (``meshtrain_check``)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import slstm
+    from repro_torch.launch import train as ttrain
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("xlstm-350m"),
+                              n_layers=XLSTM_MESH_LAYERS)
+    plain, bwd_plain = slstm._slstm_scan_plain, slstm._slstm_scan_bwd_plain
+    real_run_ranks = ttrain.run_ranks
+
+    def guarded(target, world, **kw):
+        assert target == "repro_torch.launch.train:train_rank", target
+        return real_run_ranks("chip_smoke:guarded_train_rank", world,
+                              paths=[ROOT], **kw)
+    guard_plain_scans()
+    ttrain.run_ranks = guarded
+    try:
+        t0 = time.perf_counter()
+        single = ttrain.train(ttrain.build_argparser().parse_args(
+            _train_argv("muon-syrk", MESHTRAIN_STEPS, XLSTM_MESH_LAYERS,
+                        "xlstm-350m") + ["--device", DEVICE]))
+        t1 = time.perf_counter()
+        n = _n_slstm(cfg)
+        log(f"[xlstm-mesh single] {single['arch']} {single['layers']} "
+            f"layers, one device: losses {single['losses']}, launches "
+            f"{single['kernel_launches']}, {t1 - t0:.1f} s")
+        assert_kernel_routes(single, single["kernel_launches"],
+                             "[xlstm-mesh single]",
+                             slstm=(2 * n * MESHTRAIN_STEPS,
+                                    n * MESHTRAIN_STEPS))
+        out = run_mesh_train(torch, XLSTM_MESH_DEVICES, XLSTM_MESH_MAX_MODEL,
+                             XLSTM_MESH_LAYERS, arch="xlstm-350m")
+    finally:
+        ttrain.run_ranks = real_run_ranks
+        slstm._slstm_scan_plain, slstm._slstm_scan_bwd_plain = \
+            plain, bwd_plain
+    res, launches = meshtrain_check("[xlstm-mesh]", out, single["losses"],
+                                    cfg, 1, XLSTM_MESH_MAX_MODEL)
+    seconds = {"single_s": t1 - t0, "mesh_s": time.perf_counter() - t1}
+    log(f"[xlstm-mesh] phase seconds {json.dumps(seconds)}")
+    return {"mesh": res, "single_launches": single["kernel_launches"],
+            **seconds}, launches, single["kernel_launches"]
 
 
 def main() -> int:
@@ -3231,6 +3346,8 @@ def main() -> int:
     lout, llaunches = timed("elastic", elastic_phase, torch, single)
     xtout, xtlaunches = timed("xlstmtrain", xlstm_train_phase, torch,
                               cases)
+    xmout, xmlaunches, xslaunches = timed("xlstmmesh", xlstm_mesh_phase,
+                                          torch)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s; by phase "
         f"{json.dumps(phase_s)}")
@@ -3246,6 +3363,7 @@ def main() -> int:
     log(json.dumps({"meshtrain": eout}))
     log(json.dumps({"elastic": lout}))
     log(json.dumps({"xlstm_train": xtout}))
+    log(json.dumps({"xlstm_mesh": xmout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -3263,7 +3381,10 @@ def main() -> int:
                    "train mesh stablelm-1.6b muon-syrk": elaunches[name],
                    "elastic kill/resume stablelm-1.6b muon-syrk":
                    llaunches.get(name, 0),
-                   "train xlstm-350m muon-syrk + adamw": xtlaunches[name]}
+                   "train xlstm-350m muon-syrk + adamw": xtlaunches[name],
+                   "train xlstm-350m 8 layers muon-syrk (mesh oracle)":
+                   xslaunches[name],
+                   "train mesh xlstm-350m muon-syrk": xmlaunches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

@@ -34,7 +34,7 @@ its operand to the host and its result back.
 from __future__ import annotations
 
 import collections
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -226,3 +226,14 @@ def reduce_from_group(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     if comm.size == 1:
         return x
     return _ReduceFromGroup.apply(x, comm)
+
+
+def row_parallel(y: torch.Tensor, w: torch.Tensor,
+                 comm: Optional[Comm]) -> torch.Tensor:
+    """``y @ w`` in ``y``'s dtype.  With a ``comm``, ``w`` is this
+    rank's row block and ``y`` the matching columns (a row-parallel
+    output projection): the partial products, taken in f32, are summed
+    over the group by :func:`reduce_from_group`, then cast back."""
+    if comm is None:
+        return y @ w
+    return reduce_from_group(y.float() @ w.float(), comm).to(y.dtype)

@@ -84,20 +84,25 @@ device count:
         --devices 2 --max-model 2 --steps 4 --optimizer muon-syrk \
         --track-gram --ckpt-dir /path/to/ckpt --ckpt-every 2
 
-xlstm trains on one device with the same flags (its sLSTM layers on
-``slstm_scan`` with a stash forward and the ``slstm_scan_bwd`` kernel
-backward, its mLSTM layers under autograd):
+xlstm trains with the same flags, on one device or a mesh (its sLSTM
+layers on ``slstm_scan`` with a stash forward and the ``slstm_scan_bwd``
+kernel backward, on a mesh each rank on its own channels; its mLSTM
+layers under autograd):
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch xlstm-350m --smoke --steps 3 --optimizer muon-syrk
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch xlstm-350m --smoke --devices 4 --max-model 2 --steps 3 \
+        --optimizer muon-syrk
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
         --full --optimizer muon-syrk --steps 4 --seq-len 256
 
+A model axis that does not divide a headed mixer's head count raises
+``ValueError`` before any rank starts (a rank runs whole heads).
 Waiting, each raising a clear error that names its ROADMAP item:
 ``--ckpt-dir`` on a mesh with state that is each rank's own (the 8-bit
 AdamW moments; the EF residuals of ``--compress-grads`` over a data
-axis: A8b); an xlstm config on a mesh (A9b: tensor-parallel recurrent
-mixers).
+axis: A8b).
 """
 from __future__ import annotations
 
@@ -123,8 +128,9 @@ from ..distributed import (ErrorFeedbackInt8, StepTimer, StragglerMonitor,
                            verify_restored, wait_for_saves)
 from ..distributed.launch import run_ranks
 from ..kernels import counts
-from ..models.model import init_model, preload_remat
-from ..models.sharding import batch_specs, global_shape, shard_leaf
+from ..models.model import Model, check_head_split, init_model, preload_remat
+from ..models.sharding import (batch_specs, global_shape, param_specs,
+                               shard_leaf)
 from .steps import (_delta, describe_blas_routing, init_opt_state,
                     make_optimizer, make_train_step)
 
@@ -148,28 +154,28 @@ class InjectedFailure(RuntimeError):
 
 
 def _refuse_waiting(args, cfg) -> None:
-    """The reference's options the port does not carry yet."""
+    """The reference's options the port does not carry yet, and a mesh
+    the port cannot split the model over (checked before any rank
+    starts)."""
     if args.devices < 1:
         raise ValueError(f"--devices {args.devices}")
-    if args.devices > 1 and args.ckpt_dir is not None:
-        data, _ = plan_shape(args.devices, max_model=args.max_model)
-        local = None
-        if args.optimizer == "adamw8bit":
-            local = "the 8-bit AdamW moments, quantized in each rank's " \
-                "blocks,"
-        elif args.compress_grads and data > 1:
-            local = "the error-feedback residuals, each data rank's own,"
-        if local:
-            raise NotImplementedError(
-                f"--ckpt-dir with --devices {args.devices}: {local} have no "
-                "layout-free form to save; checkpoints of rank-local "
-                "optimizer state on a mesh wait for ROADMAP A8b")
-    if args.devices > 1 and any(s.mixer in ("mlstm", "slstm")
-                                for s in cfg.pattern):
+    if args.devices == 1:
+        return
+    data, model = plan_shape(args.devices, max_model=args.max_model)
+    local = None
+    if args.ckpt_dir is not None and args.optimizer == "adamw8bit":
+        local = "the 8-bit AdamW moments, quantized in each rank's blocks,"
+    elif args.ckpt_dir is not None and args.compress_grads and data > 1:
+        local = "the error-feedback residuals, each data rank's own,"
+    if local:
         raise NotImplementedError(
-            f"training {cfg.name} with --devices {args.devices} waits: "
-            "tensor-parallel mLSTM / sLSTM mixers and xlstm on a mesh are "
-            "ROADMAP A9b; train it on one device")
+            f"--ckpt-dir with --devices {args.devices}: {local} have no "
+            "layout-free form to save; checkpoints of rank-local "
+            "optimizer state on a mesh wait for ROADMAP A8b")
+    shapes = Model(cfg, torch.Generator(),
+                   torch.device("meta")).stacked_shapes()
+    check_head_split(cfg, param_specs(cfg, shapes, {"data": data,
+                                                    "model": model}), model)
 
 
 def train(args) -> Dict[str, Any]:

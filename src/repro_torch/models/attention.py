@@ -15,7 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..distributed.collectives import copy_to_group, reduce_from_group
+from ..distributed.collectives import copy_to_group, row_parallel
 from .common import ArchConfig, BlockSpec, apply_rope, dense_init, softcap
 
 NEG_INF = -2.0e38
@@ -98,10 +98,7 @@ class GQA(nn.Module):
             valid = k_pos <= positions[:, -1:]
             mask = _attn_mask(positions, k_pos, spec.local_window, valid)
             y = _sdpa(q, ck, cv, mask, cfg.attn_softcap, scale)
-        if self.tp is not None:             # partial sums, reduced in f32
-            return reduce_from_group(y.float() @ self.wo.float(),
-                                     self.tp).to(y.dtype), cache
-        return y @ self.wo, cache
+        return row_parallel(y, self.wo, self.tp), cache
 
 
 def gqa_cache_init(cfg: ArchConfig, batch: int, s_max: int,

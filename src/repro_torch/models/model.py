@@ -19,12 +19,12 @@ on dim 0 in both.
 
 On a (data, model) mesh (``init_model(..., mesh=)``, ``Model.shard_``)
 each rank holds its block of every parameter under
-:func:`~.sharding.param_specs`: attention and the MLP Megatron-split
-over 'model' (``collectives.copy_to_group`` / ``reduce_from_group``
-around them), the embedding on its vocab rows (a masked gather and an
-all-reduce) and the unembedding on its vocab columns, so that
-:func:`lm_loss` is vocab-parallel.  That path trains; serving a
-sharded model raises.
+:func:`~.sharding.param_specs`: attention, the mLSTM / sLSTM mixers and
+the MLP Megatron-split over 'model' (``collectives.copy_to_group`` /
+``row_parallel`` around them), the embedding on its vocab rows (a
+masked gather and an all-reduce) and the unembedding on its vocab
+columns, so that :func:`lm_loss` is vocab-parallel.  That path trains;
+serving a sharded model raises.
 """
 from __future__ import annotations
 
@@ -53,6 +53,37 @@ from .ssm import MLSTM, SLSTM, mlstm_state_init, slstm_state_init
 Cache = List[Dict[str, torch.Tensor]]
 
 MIXERS = {"attn": GQA, "mlstm": MLSTM, "slstm": SLSTM}
+#: each mixer's weights that tensor parallelism splits together: the
+#: column-parallel projections and the row-parallel ``wo``
+TP_WEIGHTS = {"attn": ("wq", "wk", "wv", "wo"),
+              "mlstm": ("wq", "wk", "wv", "wif", "wo_gate", "wo"),
+              "slstm": ("wx", "wo")}
+#: the heads each headed mixer's split weights hold, by config field
+HEADS = {"attn": {"wq": "n_heads", "wk": "n_kv_heads", "wv": "n_kv_heads",
+                  "wo": "n_heads"},
+         "mlstm": {w: "n_heads" for w in TP_WEIGHTS["mlstm"]}}
+
+
+def check_head_split(cfg: ArchConfig, specs, model: int) -> None:
+    """Raise ``ValueError`` where ``specs`` (:func:`~.sharding.param_specs`
+    on a 'model' axis of ``model`` ranks) split a headed mixer's weight
+    (attention, mLSTM) over a head count that ``model`` does not divide:
+    a shard would cut a head, and the port's explicit tensor
+    parallelism runs whole heads on a rank (the reference's GSPMD would
+    split one).  The sLSTM's channels need no such check: a rank takes
+    whole channel quads wherever ``wx`` splits."""
+    for path, spec in specs.items():
+        if path[0] != "periods" or path[-2] != "mixer" \
+                or "model" not in spec:
+            continue
+        mixer = cfg.pattern[int(path[1][1:])].mixer
+        field = HEADS.get(mixer, {}).get(path[-1])
+        if field and getattr(cfg, field) % model:
+            raise ValueError(
+                f"{'/'.join(path)}: {field}={getattr(cfg, field)} does not "
+                f"split over model={model}; a shard of {spec} would cut a "
+                f"head (the port runs whole heads on a rank): plan a "
+                f"model axis that divides {field} with --max-model")
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -204,27 +235,22 @@ class Model(nn.Module):
         """Keep this rank's block of every parameter under
         :func:`~.sharding.param_specs` on ``mesh`` (the whole model was
         built first, so the blocks are the single-device weights): the
-        attention and MLP weights Megatron-split over 'model', embed on
-        its vocab rows, unembed on its vocab columns, the norms whole.
-        A column shard that would cut a head, a layer's weights split
-        only in part, or weights split over another axis than 'model'
-        (``fsdp_params``) raise, naming the leaf."""
+        attention, mLSTM, sLSTM and MLP weights Megatron-split over
+        'model' (whole heads, whole sLSTM channel quads), embed on its
+        vocab rows, unembed on its vocab columns, the norms whole.  A
+        column shard that would cut a head (:func:`check_head_split`), a
+        layer's weights split only in part, or weights split over
+        another axis than 'model' (``fsdp_params``) raise, naming the
+        leaf."""
         cfg = self.cfg
         specs = param_specs(cfg, self.stacked_shapes(), mesh)
         P = mesh.shape.get("model", 1)
-        heads = {"wq": cfg.n_heads, "wk": cfg.n_kv_heads,
-                 "wv": cfg.n_kv_heads, "wo": cfg.n_heads}
+        check_head_split(cfg, specs, P)
         for path, spec in specs.items():
-            name = "/".join(path)
             if any(a not in (None, "model") for a in spec):
                 raise NotImplementedError(
-                    f"{name}: spec {spec} splits weights over another axis "
-                    "than 'model' (fsdp_params) and waits")
-            if path[-2:-1] == ("mixer",) and path[-1] in heads \
-                    and "model" in spec and heads[path[-1]] % P:
-                raise ValueError(
-                    f"{name}: {heads[path[-1]]} heads do not split over "
-                    f"model={P}; a shard of {spec} would cut a head")
+                    f"{'/'.join(path)}: spec {spec} splits weights over "
+                    "another axis than 'model' (fsdp_params) and waits")
         comm = mesh.comm("model") if P > 1 else None
 
         def split(*paths) -> bool:
@@ -238,16 +264,10 @@ class Model(nn.Module):
         for i in range(cfg.period):
             spec_i = self.blocks[i].spec
             base = ("periods", f"b{i}")
-            if spec_i.mixer == "attn":
-                tp = split(*(base + ("mixer", w)
-                             for w in ("wq", "wk", "wv", "wo")))
-                for li in range(i, cfg.n_layers, cfg.period):
-                    self.blocks[li].mixer.tp = comm if tp else None
-            elif any("model" in sp for k, sp in specs.items()
-                     if k[:3] == base + ("mixer",)):
-                raise NotImplementedError(
-                    f"{'/'.join(base)}: a tensor-parallel {spec_i.mixer} "
-                    "mixer waits (ROADMAP A9)")
+            tp = split(*(base + ("mixer", w)
+                         for w in TP_WEIGHTS[spec_i.mixer]))
+            for li in range(i, cfg.n_layers, cfg.period):
+                self.blocks[li].mixer.tp = comm if tp else None
             if spec_i.mlp == "dense":
                 tp = split(*(base + ("mlp", w) for w in ("wi", "wg", "wo")))
                 for li in range(i, cfg.n_layers, cfg.period):

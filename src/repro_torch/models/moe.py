@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..distributed.collectives import copy_to_group, reduce_from_group
+from ..distributed.collectives import copy_to_group, row_parallel
 from .common import ArchConfig, dense_init
 
 
@@ -38,10 +38,8 @@ class MLP(nn.Module):
                 dense_init(shape, gen, device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.tp is None:
-            return (self.act(x @ self.wi) * (x @ self.wg)) @ self.wo
-        x = copy_to_group(x, self.tp)
-        h = self.act(x @ self.wi) * (x @ self.wg)
-        # partial sums over this rank's f, reduced in f32
-        return reduce_from_group(h.float() @ self.wo.float(),
-                                 self.tp).to(h.dtype)
+        if self.tp is not None:
+            x = copy_to_group(x, self.tp)
+        # tensor-parallel: partial sums over this rank's f
+        return row_parallel(self.act(x @ self.wi) * (x @ self.wg), self.wo,
+                            self.tp)

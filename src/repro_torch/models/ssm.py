@@ -30,6 +30,16 @@ mLSTM has no TPU kernel: the per-step recurrence (``_mlstm_seq``) and
 the chunkwise-parallel form (``_mlstm_chunkwise``) are plain PyTorch,
 chosen by the reference's rule (chunkwise iff s % 128 == 0 and
 s > 128).
+
+Tensor-parallel (``tp`` set by ``Model.shard_``), a rank holds the
+columns of ``wq`` / ``wk`` / ``wv`` / ``wif`` / ``wo_gate`` of its
+n_heads / |model| whole heads (mLSTM) or the columns of ``wx`` of its
+d / |model| channel quads (sLSTM), and the matching rows of ``wo``: the
+recurrences work head by head and channel by channel, so each rank runs
+them (the sLSTM kernels included) on its own heads or channels, with
+the head and channel counts read off its weights.  The mixer enters
+through ``copy_to_group`` and its output projection's partial sums are
+all-reduced in f32, as attention's are.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..distributed.collectives import copy_to_group, row_parallel
 from ..kernels.slstm import SlstmScan, _slstm_scan_plain, slstm_scan
 from .common import ArchConfig, BlockSpec, dense_init
 
@@ -61,10 +72,12 @@ def mlstm_params(cfg: ArchConfig, gen: torch.Generator,
         ("wo_gate", (d, d)), ("wo", (d, d)))}
 
 
-def mlstm_state_init(cfg: ArchConfig, batch: int,
-                     device: torch.device) -> State:
-    h = cfg.n_heads
-    hd = cfg.d_model // h
+def mlstm_state_init(cfg: ArchConfig, batch: int, device: torch.device,
+                     heads: Optional[int] = None) -> State:
+    """The zero state of ``heads`` heads (default all of them: fewer on
+    a tensor-parallel rank)."""
+    hd = cfg.d_model // cfg.n_heads
+    h = cfg.n_heads if heads is None else heads
     f32 = torch.float32
     return {"C": torch.zeros((batch, h, hd, hd), dtype=f32, device=device),
             "n": torch.zeros((batch, h, hd), dtype=f32, device=device),
@@ -166,23 +179,28 @@ def mlstm_mixer(cfg: ArchConfig, p, x: torch.Tensor,
                 state: Optional[State] = None
                 ) -> Tuple[torch.Tensor, Optional[State]]:
     """Exponential-gated matrix-memory LSTM (xLSTM eq. 19–27),
-    stabilised.  ``p`` holds wq, wk, wv, wif, wo_gate, wo (bf16)."""
+    stabilised.  ``p`` holds wq, wk, wv, wif, wo_gate, wo (bf16): all
+    heads, or a tensor-parallel rank's (``p.tp``)."""
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        x = copy_to_group(x, tp)
     b, s, d = x.shape
-    h = cfg.n_heads
-    hd = d // h
+    hd = d // cfg.n_heads
+    h = p.wq.shape[1] // hd                 # this rank's heads
     q = (x @ p.wq).reshape(b, s, h, hd).float() * hd ** -0.5
     k = (x @ p.wk).reshape(b, s, h, hd).float() * hd ** -0.5
     v = (x @ p.wv).reshape(b, s, h, hd).float()
     gif = (x @ p.wif).reshape(b, s, h, 2).float()
     ig, fg = gif[..., 0], gif[..., 1]                    # log-space gates
-    st = state if state is not None else mlstm_state_init(cfg, b, x.device)
+    st = state if state is not None \
+        else mlstm_state_init(cfg, b, x.device, heads=h)
     if s % MLSTM_CHUNK == 0 and s > MLSTM_CHUNK:
         ys, new_st = _mlstm_chunkwise(q, k, v, ig, fg, st)
     else:
         ys, new_st = _mlstm_seq(q, k, v, ig, fg, st)
-    y = ys.reshape(b, s, d).to(x.dtype)
+    y = ys.reshape(b, s, h * hd).to(x.dtype)
     og = torch.sigmoid(x @ p.wo_gate)
-    out = (y * og) @ p.wo
+    out = row_parallel(y * og, p.wo, tp)
     return out, (None if state is None else new_st)
 
 
@@ -196,9 +214,12 @@ def slstm_params(cfg: ArchConfig, gen: torch.Generator,
             "wo": dense_init((d, d), gen, device)}
 
 
-def slstm_state_init(cfg: ArchConfig, batch: int,
-                     device: torch.device) -> State:
-    shape, f32 = (batch, cfg.d_model), torch.float32
+def slstm_state_init(cfg: ArchConfig, batch: int, device: torch.device,
+                     channels: Optional[int] = None) -> State:
+    """The initial state of ``channels`` channels (default d_model:
+    fewer on a tensor-parallel rank)."""
+    d = cfg.d_model if channels is None else channels
+    shape, f32 = (batch, d), torch.float32
     return {"c": torch.zeros(shape, dtype=f32, device=device),
             "n": torch.ones(shape, dtype=f32, device=device),
             "m": torch.zeros(shape, dtype=f32, device=device)}
@@ -215,20 +236,26 @@ def _slstm_seq(z, ig, fg, og, st: State) -> Tuple[torch.Tensor, State]:
 def slstm_mixer(cfg: ArchConfig, p, x: torch.Tensor,
                 state: Optional[State] = None
                 ) -> Tuple[torch.Tensor, Optional[State]]:
-    """``p`` holds wx (d, 4d) and wo (d, d), bf16."""
-    b, s, d = x.shape
+    """``p`` holds wx (d, 4d) and wo (d, d), bf16, or a tensor-parallel
+    rank's (``p.tp``) columns of wx and rows of wo: its channels."""
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        x = copy_to_group(x, tp)
+    b, s, _ = x.shape
+    d = p.wx.shape[1] // 4                  # this rank's channels
     # d-major gate layout, as the reference: (B,S,4d) -> (B,S,d,4), gate
     # g is channel stride 4 at offset g; the four strided bf16 views go
     # into the kernel as they are (it reads one quad a step and upcasts in
     # registers; on the CPU the wrapper upcasts the quads to f32)
     pre = (x @ p.wx).reshape(b, s, d, 4)
-    st = state if state is not None else slstm_state_init(cfg, b, x.device)
+    st = state if state is not None \
+        else slstm_state_init(cfg, b, x.device, channels=d)
     if torch.is_grad_enabled() and pre.requires_grad:
         ys, c, n, m = SlstmScan.apply(pre, st["c"], st["n"], st["m"])
     else:
         ys, c, n, m = slstm_scan(*pre.unbind(-1), st["c"], st["n"],
                                  st["m"])
-    out = ys.to(x.dtype) @ p.wo
+    out = row_parallel(ys.to(x.dtype), p.wo, tp)
     return out, (None if state is None else {"c": c, "n": n, "m": m})
 
 
@@ -246,6 +273,9 @@ class _Recurrent(nn.Module):
                  device: torch.device):
         super().__init__()
         self.cfg = cfg
+        #: the 'model' axis group when the weights hold this rank's heads
+        #: or channels (``Model.shard_``)
+        self.tp = None
         _register(self, self.params(cfg, gen, device))
 
     def forward(self, spec: BlockSpec, x: torch.Tensor,

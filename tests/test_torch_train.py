@@ -279,8 +279,11 @@ def test_train_fresh_ignores_the_checkpoints(monkeypatch, tmp_path):
 
 
 def test_train_xlstm_raises_and_no_card_raises(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        ttrain.train(_args(arch="xlstm-350m", d_model=0, d_ff=0, devices=2))
+    """xlstm on a model axis that does not divide its heads (the smoke
+    config's 2 over 4) raises; so does a run with no card asked for."""
+    with pytest.raises(ValueError, match="n_heads=2 .*--max-model"):
+        ttrain.train(_args(arch="xlstm-350m", layers=0, d_model=0, d_ff=0,
+                           devices=4, max_model=4))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.train(_args(device=None))

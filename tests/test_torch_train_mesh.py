@@ -49,7 +49,7 @@ case of that size in turn, each through the trainer's own loop
   its parameters not compared (1.5e-3 of the model's norm, too near
   the bound to hold), and the reference's 8-bit AdamW does not trace
   under ``jax.jit`` on this jax, so it has no reference run;
-* the refusals name their ROADMAP items, and the CLI's own launch
+* a model axis that would cut a head is refused, and the CLI's own launch
   (``train --devices 2``, init from the seed) follows the single-device
   trainer and reports the mesh and each rank's losses.
 """
@@ -398,11 +398,14 @@ def test_compressed_bytes_are_the_byte_model():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (dict(arch="xlstm-350m"), "ROADMAP A9"),
+    (dict(arch="xlstm-350m", devices=4, max_model=4),
+     r"n_heads=2 does not split over model=4.*--max-model"),
 ])
 def test_mesh_refusals_name_their_items(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.train(_args(devices=2, **flags))
+    """A mesh the port cannot split the model over is refused before any
+    rank starts: the xlstm smoke config's 2 heads over model=4."""
+    with pytest.raises(ValueError, match=item):
+        ttrain.train(_args(**flags))
 
 
 def test_global_batch_must_divide_the_data_axis():

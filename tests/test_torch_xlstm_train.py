@@ -28,8 +28,8 @@ Oracles, on the same numpy inputs from a seed:
   4 heads, where the mLSTM's ``wif`` stack is a Muon matrix) against the
   reference's single-device train step from the same init, losses at
   ``rtol=2e-3`` a step;
-- a resume after ``--fail-at`` bit for bit, and the ``--devices 2``
-  refusal (ROADMAP A9b).
+- a resume after ``--fail-at`` bit for bit, and the refusal of a model
+  axis that would cut a head (``--devices 4 --max-model 4`` at 2 heads).
 """
 import dataclasses
 
@@ -439,5 +439,8 @@ def test_train_resume_after_fail_at_is_bit_exact(monkeypatch, tmp_path):
 
 
 def test_train_xlstm_on_a_mesh_raises_a9b():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        ttrain.train(_args(devices=2))
+    """xlstm trains on a mesh (``tests/test_torch_xlstm_mesh.py``); what
+    still raises is a model axis that would cut a head: the smoke
+    config's 2 heads over model=4."""
+    with pytest.raises(ValueError, match="n_heads=2 does not split"):
+        ttrain.train(_args(devices=4, max_model=4))
