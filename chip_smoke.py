@@ -25,7 +25,10 @@ Phases (any failure exits non-zero):
              multiple of the step group, ragged d, n0 in (0, 1)) and a
              long single prefill, every case also in a CUDA graph,
              beside its byte bound and an issue bound read from the
-             SASS of its step loop;
+             SASS of its step loop; the symmetric kernels also at
+             jamba's d = 4096 (Gram update, NS T², NS seed, NS product,
+             embedding) and at the mesh trainer's ``--track-gram``
+             block, a (2048, 25088) SYRK;
 4. serve   — serves stablelm-1.6b at full width (24 layers, d_model
              2048, vocab 100352; random weights from a seed) with the
              whitening cache on, and asserts that every request
@@ -80,7 +83,7 @@ Phases (any failure exits non-zero):
              (2e-3).  The mesh path launches none of the three
              kernels; its launch counts are printed and must read 0;
 9. ckpt    — checkpoints and resume: trains stablelm-1.6b at its
-             published widths, 4 layers deep, with Muon and
+             published widths, 2 layers deep, with Muon and
              ``--track-gram`` in a temp dir (its free space printed
              first; the depth, never the widths, cut further only if
              three checkpoints would not fit), run A
@@ -232,7 +235,24 @@ Phases (any failure exits non-zero):
              and its launches a step the paths' count (``slstm_scan`` 4,
              ``slstm_scan_bwd`` 2, ``rank_update`` 5 and ``sym_stream``
              10 a gathered stack of n1 >= 256); prints each rank's step
-             time, peak memory, and words and bytes by phase and kind.
+             time, peak memory, and words and bytes by phase and kind;
+17. jamba — serves jamba-v0.1-52b at full width (d_model 4096, 16
+             experts top-2, vocab 65536; random bf16 weights from seed
+             0) cut to one period of its pattern, 8 of its 32 layers (7
+             Mamba, 1 attention; 4 dense and 4 MoE MLPs: all 32 do not
+             fit 80 GB), phase 4's traffic with the whitening cache at d
+             4096: every request completed, every embedding finite,
+             ``rank_update`` / ``sym_stream`` launched exactly their
+             closed forms in admits and refreshes (warm-up 6 / 4, one
+             Gram update an admit, one embedding a factor hit, 30 / 61 a
+             refresh), no sLSTM kernel, peak memory under the card's;
+             host seconds by block kind per prefill bucket and a decode
+             step; the NS factor (30 steps) and an embedding at d 4096
+             on the kernels against their plain versions on the same
+             card inputs; one full-width Mamba layer (prefill 64:
+             sequential, 128: chunked, then a decode step) and one MoE
+             layer (T = 64) against the same module on the CPU, within
+             5e-2 of the CPU's scale.
 
 The seconds of each phase are printed on the ``[done]`` line.
 The line before the last is a JSON object with one entry per kernel;
@@ -511,6 +531,14 @@ def kernel_phase(torch, card_clock_mhz):
     rank_case("syrk full 1024x1024 (xlstm NS T^2)", "syrk", t1, timed=True)
     rank_case("syrk packed 1024x64 (xlstm Gram)", "syrk", randn(1024, 64),
               timed=True)
+    # jamba's refresh and Gram update at d = 4096 (32 tiles of 128)
+    t4 = randn(4096, 4096) / 4096 ** 0.5
+    rank_case("syrk packed 4096x64 (jamba Gram)", "syrk", randn(4096, 64),
+              timed=True)
+    rank_case("syrk full 4096x4096 (jamba NS T^2)", "syrk", t4, timed=True)
+    # the mesh trainer's --track-gram: a rank's local SYRK of its block
+    rank_case("syrk packed 2048x25088 (mesh --track-gram block)", "syrk",
+              randn(2048, 25088), timed=True)
     # epilogue variants: alpha, beta·C0, diag_scale, bf16 out, every bm
     a64, b64 = randn(d, 64), randn(d, 64)
     c0 = randn(136, 128, 128)
@@ -587,6 +615,27 @@ def kernel_phase(torch, card_clock_mhz):
     symm_case("dense 1024^2 x 1024^2 (xlstm NS)", pack_tril_tiles(
         t1, 128).contiguous(), randn(1024, 1024), 128, dense=x1s,
         timed=True)
+    # jamba's refresh and embedding at d = 4096
+    g4 = randn(4096, 4096)
+    g4 = (g4 + g4.T) / 2
+    symm_case("4096 TriTiles bm 32 x I (jamba NS seed)", TriTiles.from_tril(
+        g4, 32).tiles.contiguous(), torch.eye(4096, device=dev), 32,
+        dense=g4, timed=True)
+    del g4
+    x4t = pack_tril_tiles(t4, 128).contiguous()
+    x4s = torch.tril(t4) + torch.tril(t4, -1).T
+    symm_case("dense 4096^2 x 4096^2 (jamba NS)", x4t, randn(4096, 4096),
+              128, dense=x4s, timed=True)
+    p4 = randn(4096, 1)
+    symm_case("4096^2 x (4096, 1) unpadded (jamba embedding)", x4t, p4, 128,
+              dense=x4s, timed=True)
+    emb4 = cases["sym_stream"][-1]
+    emb4["device_ms"] = graph_ms(torch, lambda: trigrid.sym_stream(
+        x4t, p4, bm=128))
+    emb4["library_device_ms"] = graph_ms(torch, lambda: x4s @ p4)
+    log(f"[kernels]   in a CUDA graph (device time, no host): ms "
+        f"{emb4['device_ms']:.4f}  library {emb4['library_device_ms']:.4f}")
+    del t4, x4t, x4s
     # ragged shapes: rows past a 128-block, 4 B copies, narrow widths
     a160 = randn(160, 160)
     t160 = pack_tril_tiles(a160, 32).contiguous()
@@ -902,11 +951,12 @@ def slstm_cases(torch, randn, rows, card_clock_mhz):
 # phases 4-5: serve at full width with the whitening cache
 # --------------------------------------------------------------------------
 def run_serve(torch, arch, tenants=1, label="", warm_start=None,
-              save_cache=None):
+              save_cache=None, cfg=None):
     """Serve 8 requests of 8–47 prompt tokens on 4 slots (s_max 256, 16
     new tokens, ``tenants`` tenants, whitening cache with refresh stride
-    2, optionally warm-started from / saved to a dir); the launch counts
-    are set to 0 just before and read just after."""
+    2, optionally warm-started from / saved to a dir; ``cfg`` in place
+    of the published config, e.g. cut in depth); the launch counts are
+    set to 0 just before and read just after."""
     from repro_torch.kernels import counts
     from repro_torch.launch.serve import serve
     args = argparse.Namespace(
@@ -915,7 +965,7 @@ def run_serve(torch, arch, tenants=1, label="", warm_start=None,
         tenants=tenants, whiten="cache", refresh_stride=2,
         warm_start=warm_start, save_cache=save_cache, no_eos=True, seed=0)
     counts.reset_launch_counts()
-    out = serve(args)
+    out = serve(args, cfg=cfg)
     launches = counts.launch_counts()
     tag = f"[{arch}{label}]"
     log(f"{tag} {out['arch']} layers {out['layers']} d_model "
@@ -987,14 +1037,15 @@ def xlstm_phase(torch):
         out["model_forwards"] - out["warmup_forwards"]), out
     log(f"[xlstm] slstm_scan launches {launches['slstm_scan']} = "
         f"{n_slstm} x {out['model_forwards']} forwards")
-    out["prefill_split"] = prefill_split(torch, cfg)
+    out["prefill_split"] = prefill_split(torch, cfg, "[xlstm]")
     return out, launches
 
 
-def prefill_split(torch, cfg):
-    """Host seconds by block kind in one full-width prefill per bucket
-    and one 4-slot decode step, with a sync after every block (so the
-    split, not the sum, is the point)."""
+def prefill_split(torch, cfg, tag):
+    """Host seconds by block kind (the mixer, and the MLP where there is
+    one: "mamba+moe") in one full-width prefill per bucket and one
+    4-slot decode step, with a sync after every block (so the split,
+    not the sum, is the point)."""
     from repro_torch.models.model import init_model
     model = init_model(cfg, seed=0, device=DEVICE)
     split = {}
@@ -1008,7 +1059,8 @@ def prefill_split(torch, cfg):
 
         def post(blk, _a, _o):
             torch.cuda.synchronize()
-            kind = blk.spec.mixer
+            kind = blk.spec.mixer if blk.spec.mlp == "none" else \
+                f"{blk.spec.mixer}+{blk.spec.mlp}"
             by_kind[kind] = by_kind.get(kind, 0.0) + \
                 time.perf_counter() - t0[0]
         handles = []
@@ -1035,8 +1087,8 @@ def prefill_split(torch, cfg):
     split["decode 4 slots"] = timed(lambda: model.decode_step(tok, tok,
                                                               cache))
     for k, v in split.items():
-        log(f"[xlstm] {k}: " + "  ".join(f"{n} {x:.4f}" for n, x in
-                                         v.items()))
+        log(f"{tag} {k}: " + "  ".join(f"{n} {x:.4f}" for n, x in
+                                       v.items()))
     del model
     torch.cuda.empty_cache()
     return split
@@ -1307,21 +1359,10 @@ def autodiff_check(torch):
     return worst
 
 
-def muon_check(torch):
-    """One Muon orthogonalisation of a (24, 2048, 5632) momentum (5 NS
-    steps) on the kernels against the same on their plain versions (the
-    wrappers swapped for the plain functions on the card)."""
-    from repro_torch.kernels import counts, trigrid
-    from repro_torch.optim.muon import orthogonalize_reference
-    gen = torch.Generator(device=DEVICE).manual_seed(11)
-    m = torch.randn(24, 2048, 5632, generator=gen, device=DEVICE)
-    before = counts.launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = orthogonalize_reference(m, steps=5)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    after = counts.launch_counts()
+def plain_symmetric_kernels(torch):
+    """Swap the symmetric kernels' wrappers for their plain versions on
+    the card; returns the function that swaps them back."""
+    from repro_torch.kernels import trigrid
     rank, sym = trigrid.rank_update, trigrid.sym_stream
 
     def rank_plain(body, a, b=None, *, bm, epilogue=None, c0=None):
@@ -1333,6 +1374,28 @@ def muon_check(torch):
         return trigrid._sym_stream_plain(a_tiles, b, b.shape[-2] // bm,
                                          diag_scale, out_dtype)
     trigrid.rank_update, trigrid.sym_stream = rank_plain, sym_plain
+
+    def restore():
+        trigrid.rank_update, trigrid.sym_stream = rank, sym
+    return restore
+
+
+def muon_check(torch):
+    """One Muon orthogonalisation of a (24, 2048, 5632) momentum (5 NS
+    steps) on the kernels against the same on their plain versions (the
+    wrappers swapped for the plain functions on the card)."""
+    from repro_torch.kernels import counts
+    from repro_torch.optim.muon import orthogonalize_reference
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    m = torch.randn(24, 2048, 5632, generator=gen, device=DEVICE)
+    before = counts.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = orthogonalize_reference(m, steps=5)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = counts.launch_counts()
+    restore = plain_symmetric_kernels(torch)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1340,7 +1403,7 @@ def muon_check(torch):
         torch.cuda.synchronize()
         plain_secs = time.perf_counter() - t0
     finally:
-        trigrid.rank_update, trigrid.sym_stream = rank, sym
+        restore()
     diff = (got - want).abs()
     err = float(diff.max())
     ok = bool((diff <= MUON_TOL + MUON_TOL * want.abs()).all()) and \
@@ -1724,9 +1787,10 @@ def _gram_words(path: str):
     return _gram_bits(path).view(torch.bfloat16).float()
 
 
-#: phase 9's depth: the published widths, 4 of the 24 layers (the
-#: embeddings, 2.47 GB of the checkpoint's bytes, are whole)
-CKPT_LAYERS = 4
+#: phase 9's depth: the published widths, 2 of the 24 layers (the
+#: embeddings, 2.47 GB of the checkpoint's bytes, are whole); 4 until
+#: phase 17 needed the time
+CKPT_LAYERS = 2
 
 
 def ckpt_phase(torch):
@@ -2996,6 +3060,7 @@ SLSTM_BWD_OPS_PER_STEP = 45
 SLSTM_BWD_CASES = (
     (8, 256, 1024, "bf16", "cold", "the train path"),
     (8, 256, 1024, "f32", "cold", "f32 gates"),
+    (8, 256, 256, "bf16", "cold", "a (1, 4) mesh rank's channels"),
     (8, 256, 1024, "bf16", "ties", "f == i at t = 0"),
     (8, 256, 1024, "f32", "ties", "f == i at t = 0"),
     (2, 40, 256, "f32", "n1", "n_t = 1 on the first steps"),
@@ -3059,9 +3124,9 @@ def slstm_bwd_cases(torch, cases):
     bit today's launch, its stash within the state tolerance of the plain
     version's; the backward against autograd of the plain version within
     ``SLSTM_GRAD_TOL`` (and, in a tie case, missing it against a
-    stabiliser that gives the tie wholly to f + m); the train path's case
-    and the f32 one timed (back to back, in a CUDA graph, the plain
-    versions) beside their byte bounds."""
+    stabiliser that gives the tie wholly to f + m); the train path's case,
+    the f32 one and a (1, 4) mesh rank's (d = 256) timed (back to back,
+    in a CUDA graph, the plain versions) beside their byte bounds."""
     from repro_torch.kernels import native, slstm
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -3124,7 +3189,7 @@ def slstm_bwd_cases(torch, cases):
                                  "conventions apart")
         row = {"case": name, "main": i == 0, "dtype": dt,
                "max_abs_err": err, "library_ms": None}
-        if i < 2:
+        if i < 3:
             steps, e = b * s * d, pre.element_size()
             f32_gates = [g.float() for g in gates]
 
@@ -3311,6 +3376,201 @@ def xlstm_mesh_phase(torch):
             **seconds}, launches, single["kernel_launches"]
 
 
+# --------------------------------------------------------------------------
+# phase 17: serve jamba-v0.1-52b at full width, one period deep
+# --------------------------------------------------------------------------
+#: one period of jamba's 8-block pattern (7 Mamba, 1 attention; 4 dense,
+#: 4 MoE MLPs): all 32 layers (~103 GB in bf16) do not fit the card
+JAMBA_LAYERS = 8
+#: card vs CPU: max |card - cpu| / max(1, max |cpu|), as the other models
+JAMBA_TOL = 5e-2
+#: NS factor on the kernels vs on their plain versions, relative
+#: Frobenius (phase 6's NS-vs-eigh bound)
+NS_TOL = 1e-3
+#: the serve's warm-up: one Gram update per ladder bucket and a 1-step NS
+#: (rank_update); one embedding and the 1-step NS's seed and 2 products
+#: (sym_stream).  A refresh: ``NS_ITERS`` steps of 1 SYRK and 2 SYMMs,
+#: and the seed.
+WARMUP_LAUNCHES = {"rank_update": 5 + 1, "sym_stream": 1 + 3}
+
+
+def card_vs_cpu(torch, tag, got, want):
+    """max |card - cpu| / max(1, max |cpu|) within ``JAMBA_TOL``."""
+    got, want = got.float().cpu(), want.float()
+    err = float((got - want).abs().max())
+    rel = err / max(1.0, float(want.abs().max()))
+    ok = rel <= JAMBA_TOL and bool(torch.isfinite(got).all())
+    log(f"[jamba] {tag}: max_abs_err {err:.3e} (rel {rel:.2e} <= "
+        f"{JAMBA_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"jamba {tag}: the card disagrees with the CPU")
+    return rel
+
+
+def jamba_ns_check(torch, d=4096):
+    """The NS factor at d = 4096 (the cache's refresh: 30 coupled NS
+    steps) and one embedding with it, on the kernels and on their plain
+    versions, same card inputs: a full-rank Gram of (d, 2d) f32
+    features, eps 1e-3."""
+    from repro_torch import blas
+    from repro_torch.kernels import counts
+    from repro_torch.optim.gram import packed_gram, whitening_from_packed
+    gen = torch.Generator(device=DEVICE).manual_seed(29)
+    x = torch.randn(d, 2 * d, generator=gen, device=DEVICE)
+    pooled = x[:, :64].mean(dim=1)
+    before = counts.launch_counts()
+    g = packed_gram(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = whitening_from_packed(g, d, eps=1e-3, method="ns", iters=NS_ITERS)
+    torch.cuda.synchronize()
+    ns_s = time.perf_counter() - t0
+    emb = blas.symm(w, pooled[:, None])[:, 0]
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in counts.launch_counts().items()}
+    restore = plain_symmetric_kernels(torch)
+    try:
+        gp = packed_gram(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wp = whitening_from_packed(gp, d, eps=1e-3, method="ns",
+                                   iters=NS_ITERS)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        embp = blas.symm(wp, pooled[:, None])[:, 0]
+    finally:
+        restore()
+    rel = float(torch.linalg.norm(w - wp) / torch.linalg.norm(wp))
+    err = float((emb - embp).abs().max())
+    emb_rel = err / max(1.0, float(embp.abs().max()))
+    log(f"[jamba] NS factor d={d} ({NS_ITERS} steps) kernels vs plain: "
+        f"rel {rel:.3e} (<= {NS_TOL:.0e}); embedding {d}^2 x ({d}, 1): "
+        f"max_abs_err {err:.3e} (rel {emb_rel:.2e} <= {TOL_F32:.0e}); "
+        f"host s {ns_s:.4f} (plain {plain_s:.4f}); launches {launched}")
+    assert launched["rank_update"] == 1 + NS_ITERS and \
+        launched["sym_stream"] == 1 + 2 * NS_ITERS + 1, launched
+    if not (rel <= NS_TOL and emb_rel <= TOL_F32
+            and bool(torch.isfinite(w).all())):
+        raise SystemExit("jamba's NS factor / embedding on the kernels "
+                         "disagrees with the plain versions")
+    return {"ns_rel": rel, "embedding_max_abs_err": err, "ns_s": ns_s,
+            "ns_plain_s": plain_s}
+
+
+def jamba_layers(torch, cfg):
+    """One full-width Mamba layer (a prefill of 64 tokens: the
+    sequential scan; of 128: the chunked one; then one decode step from
+    the 128-token state) and one full-width MoE layer at T = 64 (the
+    dropless grouped form), random bf16 weights drawn on the card and
+    copied to the CPU, the same bf16 input on both."""
+    import copy
+
+    from repro_torch.models.common import BlockSpec
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.ssm import Mamba, mamba_state_init
+    dev, cpu = torch.device(DEVICE), torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    hgen = torch.Generator().manual_seed(31)
+    spec = BlockSpec(mixer="mamba")
+    out, secs = {}, {}
+    with torch.no_grad():
+        mg = Mamba(cfg, gen, dev)
+        mc = copy.deepcopy(mg).to(cpu)
+        x = torch.randn(1, 129, cfg.d_model, generator=hgen).to(
+            torch.bfloat16)
+        for s in (64, 128):
+            stg = mamba_state_init(cfg, 1, dev)
+            stc = mamba_state_init(cfg, 1, cpu)
+            yg, _ = mg(spec, x[:, :s].to(dev), None, stg)
+            t0 = time.perf_counter()
+            yc, _ = mc(spec, x[:, :s], None, stc)
+            secs[f"mamba_{s}_cpu_s"] = time.perf_counter() - t0
+            out[f"mamba prefill {s}"] = card_vs_cpu(
+                torch, f"Mamba d {cfg.d_model} prefill {s} "
+                f"({'chunked' if s > 64 else 'sequential'}) y", yg, yc)
+            out[f"mamba prefill {s} ssm"] = card_vs_cpu(
+                torch, f"Mamba prefill {s} ssm state", stg["ssm"],
+                stc["ssm"])
+        yg, _ = mg(spec, x[:, 128:].to(dev), None, stg)
+        yc, _ = mc(spec, x[:, 128:], None, stc)
+        out["mamba decode"] = card_vs_cpu(torch, "Mamba decode step y", yg,
+                                          yc)
+        out["mamba decode ssm"] = card_vs_cpu(
+            torch, "Mamba decode step ssm state", stg["ssm"], stc["ssm"])
+        del mg, mc
+        mo = MoE(cfg, gen, dev)
+        moc = copy.deepcopy(mo).to(cpu)
+        x = torch.randn(1, 64, cfg.d_model, generator=hgen).to(
+            torch.bfloat16)
+        yg = mo(x.to(dev))
+        t0 = time.perf_counter()
+        yc = moc(x)
+        secs["moe_64_cpu_s"] = time.perf_counter() - t0
+        out["moe 64"] = card_vs_cpu(
+            torch, f"MoE d {cfg.d_model}, {cfg.moe.n_experts} experts "
+            f"top-{cfg.moe.top_k}, T = 64 (grouped, dropless)", yg, yc)
+        del mo, moc
+    torch.cuda.empty_cache()
+    log(f"[jamba] layer checks' CPU seconds {json.dumps(secs)}")
+    return {"rel_err": out, **secs}
+
+
+def jamba_phase(torch):
+    """Phase 17: serve jamba-v0.1-52b at full width (d_model 4096, 16
+    experts top-2, vocab 65536) cut to one period (``JAMBA_LAYERS``),
+    random bf16 weights from seed 0, phase 4's traffic with the
+    whitening cache: every request completed, every embedding finite,
+    ``rank_update`` / ``sym_stream`` launched in their closed forms in
+    admits and refreshes, no sLSTM kernel; peak memory under the card's;
+    host seconds by block kind; the NS factor and an embedding at d
+    4096 on the kernels against their plain versions; one Mamba and one
+    MoE layer against the CPU."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              n_layers=JAMBA_LAYERS)
+    seconds = {}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = run_serve(torch, "jamba-v0.1-52b", cfg=cfg)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    seconds["serve_s"] = time.perf_counter() - t0
+    c = out["cache"]
+    want = {"rank_update": WARMUP_LAUNCHES["rank_update"] + c["updates"]
+            + NS_ITERS * c["refreshes"],
+            "sym_stream": WARMUP_LAUNCHES["sym_stream"] + c["factor_hits"]
+            + (1 + 2 * NS_ITERS) * c["refreshes"],
+            "slstm_scan": 0, "slstm_scan_bwd": 0}
+    log(f"[jamba] {out['layers']} layers ({cfg.pattern[0].mixer} x 7, "
+        f"attn x 1; {cfg.moe.n_experts} experts top-{cfg.moe.top_k}), "
+        f"d_model {out['d_model']}, vocab {out['vocab']}; launches "
+        f"{launches}, closed form {want} (updates {c['updates']}, "
+        f"refreshes {c['refreshes']}, factor hits {c['factor_hits']}); "
+        f"peak memory {peak / 2**30:.2f} GiB of {total / 2**30:.2f}")
+    assert (out["layers"], out["d_model"], out["vocab"]) == (8, 4096, 65536)
+    assert (cfg.moe.n_experts, cfg.moe.top_k) == (16, 2)
+    assert c["ns_fallbacks"] == 0, c
+    assert launches == want, (launches, want)
+    assert peak < total, (peak, total)
+    out["peak_memory_bytes"] = peak
+    t1 = time.perf_counter()
+    out["prefill_split"] = prefill_split(torch, cfg, "[jamba]")
+    t2 = time.perf_counter()
+    out["ns_check"] = jamba_ns_check(torch)
+    t3 = time.perf_counter()
+    out["layers_check"] = jamba_layers(torch, cfg)
+    seconds.update(split_s=t2 - t1, ns_check_s=t3 - t2,
+                   layers_check_s=time.perf_counter() - t3)
+    log(f"[jamba] phase seconds {json.dumps(seconds)}")
+    out["seconds"] = seconds
+    return out, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3348,6 +3608,7 @@ def main() -> int:
                               cases)
     xmout, xmlaunches, xslaunches = timed("xlstmmesh", xlstm_mesh_phase,
                                           torch)
+    jout, jlaunches = timed("jamba", jamba_phase, torch)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s; by phase "
         f"{json.dumps(phase_s)}")
@@ -3364,6 +3625,8 @@ def main() -> int:
     log(json.dumps({"elastic": lout}))
     log(json.dumps({"xlstm_train": xtout}))
     log(json.dumps({"xlstm_mesh": xmout}))
+    log(json.dumps({"jamba_serve": {k: v for k, v in jout.items()
+                                    if k not in ("cache",)}}))
 
     kernels = []
     for name, rows in cases.items():
@@ -3384,7 +3647,8 @@ def main() -> int:
                    "train xlstm-350m muon-syrk + adamw": xtlaunches[name],
                    "train xlstm-350m 8 layers muon-syrk (mesh oracle)":
                    xslaunches[name],
-                   "train mesh xlstm-350m muon-syrk": xmlaunches[name]}
+                   "train mesh xlstm-350m muon-syrk": xmlaunches[name],
+                   "jamba-v0.1-52b 8 layers": jlaunches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

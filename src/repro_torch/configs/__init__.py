@@ -1,8 +1,8 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config``.
 
 Port of :mod:`repro.configs` for the archs the port can run so far
-(stablelm-1.6b, xlstm-350m); the other archs wait for their blocks
-(MLA, MoE, Mamba).
+(stablelm-1.6b, xlstm-350m, jamba-v0.1-52b); the other archs wait for
+their blocks (MLA, frontends, norms: ROADMAP A11d, A11e).
 Each module exposes ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests).
 """
@@ -11,9 +11,10 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-ARCHS: List[str] = ["stablelm_1_6b", "xlstm_350m"]
+ARCHS: List[str] = ["stablelm_1_6b", "xlstm_350m", "jamba_v0_1_52b"]
 
-_ALIASES = {"stablelm-1.6b": "stablelm_1_6b", "xlstm-350m": "xlstm_350m"}
+_ALIASES = {"stablelm-1.6b": "stablelm_1_6b", "xlstm-350m": "xlstm_350m",
+            "jamba-v0.1-52b": "jamba_v0_1_52b"}
 
 
 def canonical(arch: str) -> str:

@@ -4,14 +4,16 @@
         --arch stablelm-1.6b --whiten cache
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --arch xlstm-350m --whiten cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch jamba-v0.1-52b --whiten cache      # the smoke config
 
 Requests with variable prompt lengths and a tenant id are packed into
 fixed decode slots; prefill runs right-padded at a bucketed length
 (16·2^k up to s_max) and writes the sequence's KV cache into its slot;
 decode advances every live slot one token per step and refills finished
 slots from the queue (continuous batching).  For a recurrent model
-(xlstm) the slot holds the sequence's recurrent state instead of a KV
-cache; as in the reference, the right-padded prefill feeds the pad
+(xlstm; jamba's Mamba layers) the slot holds the sequence's recurrent
+state instead of a KV cache; as in the reference, the right-padded prefill feeds the pad
 tokens into that state and the first token is read at the bucket's last
 position.  With ``--whiten cache`` each admitted prompt's final-norm
 features update the per-(tenant, arch, layer) packed Gram EMA (the SYRK
@@ -255,10 +257,16 @@ def _synced(dev: torch.device, t0: float) -> float:
     return time.perf_counter() - t0
 
 
-def serve(args, device: DeviceLike = None) -> Dict:
+def serve(args, device: DeviceLike = None, cfg=None) -> Dict:
+    """Serve ``args`` (the CLI's flags) and return the summary.  ``cfg``
+    (Python callers only; the CLI has no such flag) replaces the
+    config ``--arch`` / ``--full`` name, e.g. jamba-v0.1-52b cut to one
+    period (``dataclasses.replace(cfg, n_layers=8)``): its 32 layers do
+    not fit one 80 GB card."""
     dev = resolve_device(device if device is not None else args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke \
-        else get_config(args.arch)
+    if cfg is None:
+        cfg = get_smoke_config(args.arch) if args.smoke \
+            else get_config(args.arch)
     t_build = time.perf_counter()
     model = init_model(cfg, seed=args.seed, device=dev)
     reqs = synthetic_requests(args.requests, cfg.vocab, args.seed,

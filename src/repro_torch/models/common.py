@@ -1,8 +1,9 @@
 """Shared model infrastructure: config schema, norms, RoPE, initialisers.
 
 Port of :mod:`repro.models.common` for the blocks the port serves:
-attention + dense MLP (stablelm) and the xLSTM mixers with no MLP
-(xlstm).  Tensors keep the reference's layouts
+attention + dense MLP (stablelm), the xLSTM mixers with no MLP (xlstm),
+and the Mamba mixer and the routed MoE MLP beside attention and the
+dense MLP (jamba).  Tensors keep the reference's layouts
 ((B, S, d) activations, (B, S, H, D) heads) and dtypes (bf16 weights
 and activations, f32 norm parameters and f32 softmax).
 """
@@ -20,9 +21,17 @@ import torch
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class BlockSpec:
-    mixer: str = "attn"          # attn | mlstm | slstm (mamba waits)
-    mlp: str = "dense"           # dense | none (moe waits)
+    mixer: str = "attn"          # attn | mamba | mlstm | slstm
+    mlp: str = "dense"           # dense | moe | none
     local_window: int = 0        # sliding-window size; 0 = global attention
+
+
+@dataclass(frozen=True)
+class MoECfg:
+    n_experts: int = 0
+    top_k: int = 1
+    n_shared: int = 0
+    d_ff_expert: int = 0
 
 
 @dataclass(frozen=True)
@@ -38,6 +47,7 @@ class ArchConfig:
     pattern: Tuple[BlockSpec, ...] = (BlockSpec(),)
     prefix: Tuple[BlockSpec, ...] = ()      # unscanned lead-in blocks
     attn_kind: str = "gqa"                  # gqa (mla waits)
+    moe: Optional[MoECfg] = None
     norm: str = "rmsnorm"                   # rmsnorm | layernorm
     act: str = "silu"                       # silu | gelu (gated) | gelu_mlp
     rope_theta: float = 10000.0
@@ -48,6 +58,9 @@ class ArchConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False
     frontend: str = "tokens"                # tokens (embeddings | vlm wait)
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
     remat_policy: str = "full"              # full | dots | names
     fsdp_params: bool = False               # weight rows also over 'data'
 

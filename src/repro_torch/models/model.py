@@ -1,6 +1,8 @@
 """Decoder model: blocks -> final norm -> LM head, and the training
 loss (port of :mod:`repro.models.model` for attention + dense-MLP blocks
-and the xLSTM blocks, an mLSTM or sLSTM mixer with no MLP).
+(stablelm), the xLSTM blocks, an mLSTM or sLSTM mixer with no MLP
+(xlstm), and Mamba or attention mixers beside a dense or routed MoE MLP
+(jamba)).
 
     model = init_model(cfg, seed=0)                      # on the GPU
     loss = lm_loss(model, {"tokens": t, "labels": l})    # differentiable
@@ -14,8 +16,8 @@ tests can run both packages on the same weights; :meth:`Model.param_tree`
 gives the parameters in the reference's tree, stacked leaves as lists
 of per-layer Parameters (what the optimizers update).  The KV cache is a
 list with one dict per layer, updated in place: ``{"k", "v"}`` for
-attention, the recurrent state (``models.ssm``) for mLSTM / sLSTM, batch
-on dim 0 in both.
+attention, the recurrent state (``models.ssm``) for Mamba / mLSTM /
+sLSTM, batch on dim 0 in both.
 
 On a (data, model) mesh (``init_model(..., mesh=)``, ``Model.shard_``)
 each rank holds its block of every parameter under
@@ -24,7 +26,9 @@ the MLP Megatron-split over 'model' (``collectives.copy_to_group`` /
 ``row_parallel`` around them), the embedding on its vocab rows (a
 masked gather and an all-reduce) and the unembedding on its vocab
 columns, so that :func:`lm_loss` is vocab-parallel.  That path trains;
-serving a sharded model raises.
+serving a sharded model raises.  Mamba and MoE blocks run on one device:
+on a mesh they wait (ROADMAP A11c), and so does their training (A11b,
+``launch/train.py``).
 """
 from __future__ import annotations
 
@@ -46,13 +50,15 @@ from ..distributed.collectives import (all_reduce, copy_to_group,
 from .attention import GQA, gqa_cache_init
 from .common import (ArchConfig, BlockSpec, apply_norm, dense_init,
                      embed_init, softcap)
-from .moe import MLP
+from .moe import MLP, MoE
 from .sharding import param_specs, shard_leaf
-from .ssm import MLSTM, SLSTM, mlstm_state_init, slstm_state_init
+from .ssm import (MLSTM, SLSTM, Mamba, mamba_state_init, mlstm_state_init,
+                  slstm_state_init)
 
 Cache = List[Dict[str, torch.Tensor]]
 
-MIXERS = {"attn": GQA, "mlstm": MLSTM, "slstm": SLSTM}
+MIXERS = {"attn": GQA, "mamba": Mamba, "mlstm": MLSTM, "slstm": SLSTM}
+MLPS = {"dense": MLP, "moe": MoE}
 #: each mixer's weights that tensor parallelism splits together: the
 #: column-parallel projections and the row-parallel ``wo``
 TP_WEIGHTS = {"attn": ("wq", "wk", "wv", "wo"),
@@ -64,14 +70,35 @@ HEADS = {"attn": {"wq": "n_heads", "wk": "n_kv_heads", "wv": "n_kv_heads",
          "mlstm": {w: "n_heads" for w in TP_WEIGHTS["mlstm"]}}
 
 
+def single_device_blocks(cfg: ArchConfig) -> List[str]:
+    """The block kinds of ``cfg`` that run on one device only: Mamba
+    mixers and MoE MLPs (their tensor parallelism waits)."""
+    specs = cfg.prefix + cfg.pattern
+    return sorted({"mamba" for b in specs if b.mixer == "mamba"}
+                  | {"moe" for b in specs if b.mlp == "moe"})
+
+
+def refuse_on_mesh(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a config whose blocks run on
+    one device only (:func:`single_device_blocks`)."""
+    kinds = single_device_blocks(cfg)
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: {' and '.join(kinds)} blocks on a mesh wait for "
+            "ROADMAP A11c (they run on one device)")
+
+
 def check_head_split(cfg: ArchConfig, specs, model: int) -> None:
-    """Raise ``ValueError`` where ``specs`` (:func:`~.sharding.param_specs`
+    """Raise ``NotImplementedError`` for Mamba or MoE blocks, which run
+    on one device only (:func:`refuse_on_mesh`), and ``ValueError`` where
+    ``specs`` (:func:`~.sharding.param_specs`
     on a 'model' axis of ``model`` ranks) split a headed mixer's weight
     (attention, mLSTM) over a head count that ``model`` does not divide:
     a shard would cut a head, and the port's explicit tensor
     parallelism runs whole heads on a rank (the reference's GSPMD would
     split one).  The sLSTM's channels need no such check: a rank takes
     whole channel quads wherever ``wx`` splits."""
+    refuse_on_mesh(cfg)
     for path, spec in specs.items():
         if path[0] != "periods" or path[-2] != "mixer" \
                 or "model" not in spec:
@@ -136,18 +163,20 @@ class Block(nn.Module):
     def __init__(self, cfg: ArchConfig, spec: BlockSpec,
                  gen: torch.Generator, device: torch.device):
         super().__init__()
-        if spec.mixer not in MIXERS or spec.mlp not in ("dense", "none"):
+        if spec.mixer not in MIXERS or spec.mlp not in (*MLPS, "none"):
             raise NotImplementedError(
                 f"block {spec} is not ported yet (mixers {sorted(MIXERS)},"
-                f" mlp dense | none)")
+                f" mlps {sorted(MLPS)} | none)")
         if spec.mixer == "attn" and cfg.attn_kind != "gqa":
             raise NotImplementedError(f"attn_kind={cfg.attn_kind!r} waits")
+        if spec.mlp == "moe" and not (cfg.moe and cfg.moe.n_experts):
+            raise ValueError(f"{cfg.name}: an moe block needs cfg.moe")
         self.cfg, self.spec = cfg, spec
         self.norm1 = Norm(cfg, cfg.d_model, device)
         self.mixer = MIXERS[spec.mixer](cfg, gen, device)
-        if spec.mlp == "dense":
+        if spec.mlp != "none":
             self.norm2 = Norm(cfg, cfg.d_model, device)
-            self.mlp = MLP(cfg, gen, device)
+            self.mlp = MLPS[spec.mlp](cfg, gen, device)
 
     def forward(self, x, positions, cache):
         cfg = self.cfg
@@ -162,6 +191,8 @@ class Block(nn.Module):
     def init_cache(self, batch: int, s_max: int,
                    device: torch.device) -> Dict[str, torch.Tensor]:
         """This layer's cache: KV for attention, recurrent state else."""
+        if self.spec.mixer == "mamba":
+            return mamba_state_init(self.cfg, batch, device)
         if self.spec.mixer == "mlstm":
             return mlstm_state_init(self.cfg, batch, device)
         if self.spec.mixer == "slstm":
@@ -241,7 +272,7 @@ class Model(nn.Module):
         column shard that would cut a head (:func:`check_head_split`), a
         layer's weights split only in part, or weights split over
         another axis than 'model' (``fsdp_params``) raise, naming the
-        leaf."""
+        leaf; so do Mamba and MoE blocks (:func:`refuse_on_mesh`)."""
         cfg = self.cfg
         specs = param_specs(cfg, self.stacked_shapes(), mesh)
         P = mesh.shape.get("model", 1)
@@ -468,35 +499,43 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ArchConfig,
                     device: DeviceLike = None, mesh=None) -> Model:
     """Build a :class:`Model` holding the weights of
     ``repro.models.model.init_params`` (as numpy arrays, with the
-    stacked ``periods`` leaves' leading n_periods axis); with a
-    ``mesh``, this rank's blocks of them."""
+    stacked ``periods`` leaves' leading n_periods axis, the MoE experts'
+    (n_periods, E, d, f) included); with a ``mesh``, this rank's blocks
+    of them.  A leaf with no Parameter to go to (a nested dict
+    included), a shape that differs, or a Parameter that no leaf fills
+    raises ``ValueError``, naming the path."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     model = Model(cfg, gen, dev)
+    placed = set()
 
-    def put(param: nn.Parameter, arr) -> None:
-        src = torch.from_numpy(np.array(arr, dtype=np.float32))
-        if tuple(src.shape) != tuple(param.shape):
-            raise ValueError(f"shape {tuple(src.shape)} != "
-                             f"{tuple(param.shape)}")
-        param.data.copy_(src.to(param.dtype))
-
-    def put_norm(norm: Norm, tree) -> None:
+    def put(module: nn.Module, tree, path, take) -> None:
         for k, v in tree.items():
-            put(getattr(norm, k), v)
+            where = path + (k,)
+            target = getattr(module, k, None)
+            if isinstance(v, dict) and isinstance(target, nn.Module):
+                put(target, v, where, take)
+                continue
+            if isinstance(v, dict) or not isinstance(target, nn.Parameter):
+                raise ValueError(f"{'/'.join(where)}: the port has no "
+                                 "parameter to place it in")
+            src = torch.from_numpy(np.array(take(v), dtype=np.float32))
+            if tuple(src.shape) != tuple(target.shape):
+                raise ValueError(f"{'/'.join(where)}: shape "
+                                 f"{tuple(src.shape)} != "
+                                 f"{tuple(target.shape)}")
+            target.data.copy_(src.to(target.dtype))
+            placed.add(id(target))
 
-    put(model.embed, np_tree["embed"])
-    put(model.unembed, np_tree["unembed"])
-    put_norm(model.final_norm, np_tree["final_norm"])
+    whole = lambda a: a                         # noqa: E731
+    top = {k: v for k, v in np_tree.items() if k != "periods"}
+    put(model, top, (), whole)
     for li, blk in enumerate(model.blocks):
         p, i = divmod(li, cfg.period)
-        src = np_tree["periods"][f"b{i}"]
-        take = lambda a: np.asarray(a)[p]       # noqa: E731
-        for name in ("norm1", "norm2"):
-            if name in src:
-                put_norm(getattr(blk, name),
-                         {k: take(v) for k, v in src[name].items()})
-        for part in ("mixer", "mlp"):
-            for name, v in src.get(part, {}).items():
-                put(getattr(getattr(blk, part), name), take(v))
+        put(blk, np_tree["periods"][f"b{i}"], ("periods", f"b{i}"),
+            lambda a, p=p: np.asarray(a)[p])
+    missed = [n for n, q in model.named_parameters() if id(q) not in placed]
+    if missed:
+        raise ValueError(f"no leaf for the port's parameters {missed[:4]}"
+                         f"{' ...' if len(missed) > 4 else ''}")
     return model if mesh is None else model.shard_(mesh)

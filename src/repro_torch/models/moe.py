@@ -1,16 +1,45 @@
-"""Dense MLP (port of the gated SwiGLU / GeGLU part of
-:mod:`repro.models.moe`; the routed experts wait).  Tensor-parallel
-(``tp`` set by ``Model.shard_``), wi / wg hold this rank's columns of
-d_ff and wo its rows, and the partial sums are all-reduced in f32."""
+"""The MLP blocks (port of :mod:`repro.models.moe`): the gated dense MLP
+(SwiGLU / GeGLU) and the routed mixture of experts (jamba, deepseek).
+
+Dense MLP: tensor-parallel (``tp`` set by ``Model.shard_``), wi / wg
+hold this rank's columns of d_ff and wo its rows, and the partial sums
+are all-reduced in f32.
+
+MoE (:class:`MoE`, one device; on a mesh it waits, ROADMAP A11c): f32
+router logits, softmax, top-k, the k gates renormalised (their sum
+clipped at 1e-9), then the experts in one of the reference's three
+``impl=`` forms, ``"auto"`` taking ``gather`` for T ≤ 256 tokens and
+``capacity`` above:
+
+  * ``gather``  — dropless.  The reference gathers each token's k
+    expert slices as (T, k, d, f) tensors; at jamba's width and a
+    256-token prefill that is 60 GB a weight.  The port computes the
+    same function without the gather: the (token, slot) pairs sorted by
+    expert (a stable sort, as ``jnp.argsort``), each active expert's
+    three products on its rows (``_grouped_dropless``), no (T, k, d, f)
+    tensor;
+  * ``ragged``  — dropless, the reference's ``lax.ragged_dot`` oracle;
+    the same grouped products as ``gather`` here;
+  * ``capacity`` — each expert takes at most ``_capacity(T·k, E)`` of
+    its sorted rows into its window; the rest of its pairs are dropped
+    (contribute 0) by the reference's window index (``_window_index``,
+    ``_capacity_gather``).
+
+The k expert outputs are combined in their dtype (bf16 for the dropless
+forms, f32 for ``capacity``, as the reference's), then cast to the
+activation dtype.  The capacity path's custom VJP waits for training
+(ROADMAP A11b).  Each pass reads the experts' row counts on the host
+(one device sync a layer) to slice the groups.
+"""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..distributed.collectives import copy_to_group, row_parallel
-from .common import ArchConfig, dense_init
+from .common import ArchConfig, MoECfg, dense_init
 
 
 def act_fn(name: str):
@@ -43,3 +72,154 @@ class MLP(nn.Module):
         # tensor-parallel: partial sums over this rank's f
         return row_parallel(self.act(x @ self.wi) * (x @ self.wg), self.wo,
                             self.tp)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+CAPACITY_FACTOR = 1.5     # slack over the mean tokens / expert
+MIN_CAPACITY = 8
+#: ``impl="auto"`` takes the dropless gather form up to this many tokens
+GATHER_MAX_TOKENS = 256
+
+
+def _capacity(t_k: int, n_experts: int,
+              factor: Optional[float] = None) -> int:
+    if factor is None:
+        factor = CAPACITY_FACTOR          # module global: test-patchable
+    cap = int(t_k * factor / n_experts) + 1
+    return max((cap + 7) // 8 * 8, MIN_CAPACITY)
+
+
+def _route(router: torch.Tensor, xf: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gates (T, k) f32, experts (T, k)): top-k of the softmax of the
+    f32 router logits, renormalised.  ``lax.top_k`` breaks ties toward
+    the lower index and ``torch.topk`` does not promise to."""
+    gates = torch.softmax(xf.float() @ router, dim=-1)        # (T, E)
+    topg, tope = torch.topk(gates, k, dim=-1)
+    topg = topg / torch.clamp(topg.sum(-1, keepdim=True), min=1e-9)
+    return topg, tope
+
+
+def _sort_by_expert(tope: torch.Tensor, n_experts: int):
+    """The (token, slot) pairs grouped by expert: (order, inv,
+    token_idx, group_sizes).  Sorted row r is pair ``order[r]`` (token
+    ``token_idx[r]``); the sort is stable, so that each group keeps the
+    pairs' order, as ``jnp.argsort`` does."""
+    t, k = tope.shape
+    flat_e = tope.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    inv = torch.argsort(order)
+    token_idx = torch.div(torch.arange(t * k, device=tope.device), k,
+                          rounding_mode="floor")[order]
+    return order, inv, token_idx, torch.bincount(flat_e,
+                                                 minlength=n_experts)
+
+
+def _window_index(offsets: torch.Tensor, n: int, e: int,
+                  cap: int) -> torch.Tensor:
+    """Sorted row r lives in expert e_r at slot r − off_e; slots ≥ cap
+    are dropped (capacity overflow) and map to e·cap, past the end."""
+    r = torch.arange(n, device=offsets.device)
+    e_r = torch.searchsorted(offsets, r, right=True) - 1
+    slot = r - offsets[e_r]
+    return torch.where(slot < cap, e_r * cap + slot, e * cap)
+
+
+def _expert_mm(act, blk, wi_e, wg_e, wo_e) -> torch.Tensor:
+    return (act(blk @ wi_e) * (blk @ wg_e)) @ wo_e
+
+
+def _grouped(xs: torch.Tensor, groups, act, wi, wg, wo,
+             out: torch.Tensor) -> torch.Tensor:
+    """Each expert's three products on its rows of ``xs`` (sorted by
+    expert): ``groups`` yields (expert, first row, rows, first output
+    row); output rows no group writes keep their value."""
+    for e, src, n, dst in groups:
+        if n:
+            out[dst:dst + n] = _expert_mm(act, xs[src:src + n], wi[e], wg[e],
+                                          wo[e]).to(out.dtype)
+    return out
+
+
+def _capacity_gather(ys_flat: torch.Tensor, idx: torch.Tensor,
+                     inv: torch.Tensor) -> torch.Tensor:
+    """Unsort ∘ capacity-reconstruct in one gather: a dropped pair's
+    index, e·cap, reads the zero row past the windows."""
+    return ys_flat[idx[inv]]
+
+
+def moe_local(cfg: ArchConfig, p, xf: torch.Tensor,
+              impl: str = "auto") -> torch.Tensor:
+    """xf (T, d) -> (T, d): route, run the experts, combine."""
+    mo: MoECfg = cfg.moe
+    t, d = xf.shape
+    k, e = mo.top_k, mo.n_experts
+    if impl not in ("auto", "gather", "ragged", "capacity"):
+        raise ValueError(f"impl must be auto/gather/ragged/capacity: "
+                         f"{impl!r}")
+    topg, tope = _route(p.router, xf, k)
+    act = act_fn(cfg.act)
+    _, inv, token_idx, group_sizes = _sort_by_expert(tope, e)
+    xs = xf[token_idx]                                      # (T·k, d)
+    sizes = group_sizes.tolist()                            # a host sync
+    offsets = [sum(sizes[:i]) for i in range(e)]
+    if impl in ("gather", "ragged") or (impl == "auto"
+                                        and t <= GATHER_MAX_TOKENS):
+        ys = _grouped(xs, zip(range(e), offsets, sizes, offsets), act,
+                      p.wi, p.wg, p.wo, torch.empty_like(xs))
+        y = ys[inv].reshape(t, k, d)
+    else:                                                   # capacity
+        cap = _capacity(t * k, e)
+        idx = _window_index(torch.tensor(offsets, device=xf.device), t * k,
+                            e, cap)
+        windows = torch.zeros((e * cap + 1, d), dtype=torch.float32,
+                              device=xf.device)
+        _grouped(xs, ((i, o, min(n, cap), i * cap) for i, (o, n) in
+                      enumerate(zip(offsets, sizes))),
+                 act, p.wi, p.wg, p.wo, windows)
+        y = _capacity_gather(windows, idx, inv).reshape(t, k, d)
+    out = torch.einsum("tkd,tk->td", y, topg.to(y.dtype)).to(xf.dtype)
+    if mo.n_shared:
+        out = out + p.shared(xf)
+    return out
+
+
+class MoE(nn.Module):
+    """Routed experts: ``router`` (d, E) f32, ``wi`` / ``wg`` (E, d, f),
+    ``wo`` (E, f, d) bf16, and ``shared`` (an :class:`MLP` of
+    n_shared·f) where the config has shared experts."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        mo: MoECfg = cfg.moe
+        d, f, e = cfg.d_model, mo.d_ff_expert, mo.n_experts
+        self.cfg = cfg
+        self.router = nn.Parameter(
+            dense_init((d, e), gen, device).float())
+        for name, shape in (("wi", (e, d, f)), ("wg", (e, d, f)),
+                            ("wo", (e, f, d))):
+            setattr(self, name, nn.Parameter(
+                dense_init(shape, gen, device)))
+        if mo.n_shared:
+            self.shared = MLP(cfg, gen, device,
+                              d_ff=mo.d_ff_expert * mo.n_shared)
+
+    def forward(self, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+        """x (B, S, d) -> (B, S, d)."""
+        b, s, d = x.shape
+        return moe_local(self.cfg, self, x.reshape(b * s, d),
+                         impl).reshape(b, s, d)
+
+
+def moe_aux_loss(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style): E·Σ_e f_e·P_e."""
+    mo = cfg.moe
+    t = x.shape[0] * x.shape[1]
+    gates = torch.softmax(x.reshape(t, -1).float() @ p.router, dim=-1)
+    _, tope = torch.topk(gates, mo.top_k, dim=-1)
+    frac = torch.bincount(tope.reshape(-1), minlength=mo.n_experts) \
+        / (t * mo.top_k)
+    return mo.n_experts * torch.sum(frac * gates.mean(0))

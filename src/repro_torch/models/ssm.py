@@ -1,14 +1,27 @@
-"""Recurrent mixers of xLSTM: mLSTM (matrix memory) and sLSTM (scalar
-memory).  Port of the xLSTM half of :mod:`repro.models.ssm`; Mamba
-waits.
+"""Recurrent mixers: Mamba (selective SSM) and xLSTM (mLSTM + sLSTM).
+Port of :mod:`repro.models.ssm`.
 
-Both share the attention mixer's calling convention and run eagerly.
-Projections are bf16 (``x @ W``) and become f32 before the recurrence,
-as in the reference (sLSTM: inside ``slstm_scan``, which takes the bf16
-gates).  State layouts (per layer, batch on dim 0, f32):
+All three share the attention mixer's calling convention and run
+eagerly.  Projections are bf16 (``x @ W``) and become f32 before the
+recurrence, as in the reference (sLSTM: inside ``slstm_scan``, which
+takes the bf16 gates).  State layouts (per layer, batch on dim 0):
 
-  mlstm : C (B, H, hd, hd), n (B, H, hd), m (B, H)
-  slstm : c, n, m (B, d)
+  mamba : conv buffer (B, d_conv-1, d_inner) bf16, ssm (B, d_inner,
+          d_state) f32
+  mlstm : C (B, H, hd, hd), n (B, H, hd), m (B, H), f32
+  slstm : c, n, m (B, d), f32
+
+Mamba has no TPU kernel: the reference computes its scan in jnp, and
+the port in plain PyTorch, with the reference's rule: the sequential
+scan (``_selective_scan_seq``) at decode and at short prefills, the
+chunked one (``_selective_scan``: chunks of ``SSM_CHUNK`` tokens, each
+an associative scan in ``lax.associative_scan``'s association order)
+where s % 64 == 0 and s > 64.  jnp promotes bf16 against f32 silently
+and ``torch.matmul`` refuses mixed dtypes, so the mixer promotes where
+the reference does: the depthwise conv is a bf16 sum in index order,
+its bias, the SiLU, the projections and the scan run in f32, and ``y``
+returns to bf16 before the gate.  The Mamba mixer on a mesh waits
+(ROADMAP A11c).
 
 sLSTM: every call, prefill and decode alike, goes through
 ``kernels.slstm.slstm_scan`` — the hand-written kernel on a CUDA tensor,
@@ -43,7 +56,7 @@ all-reduced in f32, as attention's are.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -58,6 +71,139 @@ State = Dict[str, torch.Tensor]
 def _register(module: nn.Module, params: Dict[str, torch.Tensor]) -> None:
     for name, w in params.items():
         setattr(module, name, nn.Parameter(w))
+
+
+# ===========================================================================
+# Mamba (S6)
+# ===========================================================================
+def mamba_params(cfg: ArchConfig, gen: torch.Generator,
+                 device: torch.device) -> Dict[str, torch.Tensor]:
+    """bf16 projections; ``conv_b``, ``dt_bias``, ``a_log`` and
+    ``d_skip`` f32, as the reference keeps them."""
+    d = cfg.d_model
+    di = cfg.mamba_expand * d
+    ds, dc = cfg.mamba_d_state, cfg.mamba_d_conv
+    dt_rank = max(d // 16, 1)
+    f32 = torch.float32
+    a = torch.arange(1, ds + 1, dtype=f32, device=device)
+    return {
+        "in_proj": dense_init((d, 2 * di), gen, device),
+        "conv_w": dense_init((dc, di), gen, device),
+        "conv_b": torch.zeros(di, dtype=f32, device=device),
+        "x_proj": dense_init((di, dt_rank + 2 * ds), gen, device),
+        "dt_proj": dense_init((dt_rank, di), gen, device),
+        "dt_bias": torch.zeros(di, dtype=f32, device=device),
+        "a_log": torch.log(a).expand(di, ds).clone(),
+        "d_skip": torch.ones(di, dtype=f32, device=device),
+        "out_proj": dense_init((di, d), gen, device),
+    }
+
+
+def mamba_state_init(cfg: ArchConfig, batch: int,
+                     device: torch.device) -> State:
+    di = cfg.mamba_expand * cfg.d_model
+    return {"conv": torch.zeros((batch, cfg.mamba_d_conv - 1, di),
+                                dtype=torch.bfloat16, device=device),
+            "ssm": torch.zeros((batch, di, cfg.mamba_d_state),
+                               dtype=torch.float32, device=device)}
+
+
+def _selective_scan_seq(u, dt, A, B, C, D, h0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential scan (decode, and the oracle of the chunked one).
+    u, dt (B, S, di); A (di, ds); B, C (B, S, ds); D (di,); h0
+    (B, di, ds); all f32."""
+    dA = torch.exp(dt[..., None] * A)                       # (B,S,di,ds)
+    dBu = dt[..., None] * B[:, :, None, :] * u[..., None]   # (B,S,di,ds)
+    h, ys = h0, []
+    for t in range(u.shape[1]):
+        h = dA[:, t] * h + dBu[:, t]
+        ys.append(torch.einsum("bds,bs->bd", h, C[:, t]))
+    return torch.stack(ys, dim=1) + u * D, h
+
+
+SSM_CHUNK = 64
+
+
+def _associative_scan(combine, elems: List[torch.Tensor]
+                      ) -> List[torch.Tensor]:
+    """Inclusive scan of ``combine`` along dim 0, in
+    ``lax.associative_scan``'s association order (its odd / even
+    recursion), so that the rounding follows the reference's."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    odd = _associative_scan(combine, combine([e[0:n - 1:2] for e in elems],
+                                             [e[1::2] for e in elems]))
+    even = combine([e[:-1] for e in odd] if n % 2 == 0 else odd,
+                   [e[2::2] for e in elems])
+    out = []
+    for e, ev, od in zip(elems, even, odd):
+        ev = torch.cat([e[:1], ev])
+        pairs = torch.stack([ev[:len(od)], od], dim=1).flatten(0, 1)
+        out.append(torch.cat([pairs, ev[len(od):]]))
+    return out
+
+
+def _linear_combine(x, y):
+    """Compose h ↦ a1·h + b1 then h ↦ a2·h + b2."""
+    (a1, b1), (a2, b2) = x, y
+    return [a1 * a2, b1 * a2 + b2]
+
+
+def _selective_scan(u, dt, A, B, C, D, h0, chunk: int = SSM_CHUNK
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked selective scan: the state carried across chunks of L
+    tokens, each chunk's recurrence an associative scan; the sequential
+    scan unless s % L == 0 and s > L (the reference's rule)."""
+    s = u.shape[1]
+    if s % chunk or s <= chunk:
+        return _selective_scan_seq(u, dt, A, B, C, D, h0)
+    h, ys = h0, []
+    for c0 in range(0, s, chunk):
+        uc, dtc, Bc, Cc = (a[:, c0:c0 + chunk].movedim(1, 0)
+                           for a in (u, dt, B, C))        # (L, B, ...)
+        dA = torch.exp(dtc[..., None] * A)                  # (L,B,di,ds)
+        dBu = dtc[..., None] * Bc[:, :, None, :] * uc[..., None]
+        acc_a, acc_b = _associative_scan(_linear_combine, [dA, dBu])
+        hs = acc_a * h + acc_b
+        ys.append(torch.einsum("lbds,lbs->lbd", hs, Cc))
+        h = hs[-1]
+    return torch.cat(ys).movedim(0, 1) + u * D, h
+
+
+def mamba_mixer(cfg: ArchConfig, p, x: torch.Tensor,
+                state: Optional[State] = None
+                ) -> Tuple[torch.Tensor, Optional[State]]:
+    """Selective SSM (S6) over x (B, S, d) bf16; ``state`` carries the
+    conv buffer and the ssm state across calls (decode)."""
+    b, s, d = x.shape
+    di = cfg.mamba_expand * d
+    ds, dc = cfg.mamba_d_state, cfg.mamba_d_conv
+    dt_rank = max(d // 16, 1)
+    xz = x @ p.in_proj
+    u, z = xz[..., :di], xz[..., di:]
+    # causal depthwise conv, carrying the (dc-1)-token buffer
+    head = state["conv"].to(u.dtype) if state is not None \
+        else u.new_zeros((b, dc - 1, di))
+    upad = torch.cat([head, u], dim=1)
+    new_conv = upad[:, -(dc - 1):]
+    uc = upad[:, :s] * p.conv_w[0]                 # bf16, in index order
+    for i in range(1, dc):
+        uc = uc + upad[:, i:i + s] * p.conv_w[i]
+    uc = torch.nn.functional.silu(uc.float() + p.conv_b)         # f32
+    proj = uc @ p.x_proj.float()
+    dt = torch.nn.functional.softplus(
+        proj[..., :dt_rank] @ p.dt_proj.float() + p.dt_bias)
+    Bm = proj[..., dt_rank:dt_rank + ds]
+    Cm = proj[..., dt_rank + ds:]
+    A = -torch.exp(p.a_log)
+    h0 = state["ssm"] if state is not None \
+        else torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    y, h_last = _selective_scan(uc, dt, A, Bm, Cm, p.d_skip, h0)
+    out = (y.to(x.dtype) * torch.nn.functional.silu(z)) @ p.out_proj
+    return out, (None if state is None else
+                 {"conv": new_conv.to(torch.bfloat16), "ssm": h_last})
 
 
 # ===========================================================================
@@ -285,6 +431,11 @@ class _Recurrent(nn.Module):
         if cache is not None:
             cache.update(new)
         return y, cache
+
+
+class Mamba(_Recurrent):
+    mixer = staticmethod(mamba_mixer)
+    params = staticmethod(mamba_params)
 
 
 class MLSTM(_Recurrent):

@@ -45,7 +45,7 @@ MODULES = [
     "repro_torch.distributed.faults", "repro_torch.launch.recovery",
     "repro_torch.distributed.compression",
     "repro_torch.distributed.elastic", "repro_torch.launch.mesh",
-    "repro_torch.models.sharding",
+    "repro_torch.models.sharding", "repro_torch.configs.jamba_v0_1_52b",
 ]
 
 _PROBE = r"""
@@ -152,3 +152,26 @@ def test_tf32_is_off():
     resolve_device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("devices", [1, 4])
+def test_jamba_training_and_mesh_refuse(devices):
+    """jamba serves on one device; training it (any device count) waits
+    for ROADMAP A11b, and its Mamba / MoE blocks on a mesh for A11c."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.mesh import planning_mesh
+    from repro_torch.launch.train import build_argparser, train
+    from repro_torch.models.model import check_head_split, init_model
+    from repro_torch.models.sharding import param_specs
+    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
+        train(build_argparser().parse_args(
+            ["--arch", "jamba-v0.1-52b", "--device", "cpu", "--steps", "1",
+             "--devices", str(devices)]))
+    cfg = get_smoke_config("jamba-v0.1-52b")
+    model = init_model(cfg, device="cpu")
+    mesh = planning_mesh({"data": 4 // devices, "model": devices})
+    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
+        model.shard_(mesh)
+    specs = param_specs(cfg, model.stacked_shapes(), mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
+        check_head_split(cfg, specs, devices)
