@@ -6,6 +6,12 @@
         --arch xlstm-350m --whiten cache
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch jamba-v0.1-52b --whiten cache      # the smoke config
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --arch gemma3-12b --whiten cache
+
+gemma2-9b, gemma3-12b, granite-20b and pixtral-12b (text tokens, no
+patch embeddings, as the reference's server) serve as the others do;
+musicgen-large takes frames, which the token-only server refuses.
 
 Requests with variable prompt lengths and a tenant id are packed into
 fixed decode slots; prefill runs right-padded at a bucketed length
@@ -70,6 +76,19 @@ def synthetic_requests(n: int, vocab: int, seed: int = 0, lo: int = 8,
         for i in range(n)]
 
 
+def refuse_frames(cfg) -> None:
+    """The server is token-only, as the reference's: raise
+    ``NotImplementedError`` for the "embeddings" frontend (musicgen),
+    whose frames it has no input for."""
+    if cfg.frontend == "embeddings":
+        raise NotImplementedError(
+            f"{cfg.name} takes frames, and the server, as the reference's, "
+            "takes tokens only (the reference's fails with KeyError: "
+            "'embeds'); run frames through Model.prefill(None, s_max, "
+            "embeds=...) and Model.decode_step(None, pos, cache, "
+            "embeds=...)")
+
+
 class Server:
     """Slot-based continuous batching around eager prefill/decode.
 
@@ -84,6 +103,7 @@ class Server:
                  device: DeviceLike = None):
         if whiten not in ("off", "cache", "sync"):
             raise ValueError(f"whiten must be off/cache/sync: {whiten!r}")
+        refuse_frames(cfg)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, server on "
@@ -263,10 +283,11 @@ def serve(args, device: DeviceLike = None, cfg=None) -> Dict:
     config ``--arch`` / ``--full`` name, e.g. jamba-v0.1-52b cut to one
     period (``dataclasses.replace(cfg, n_layers=8)``): its 32 layers do
     not fit one 80 GB card."""
-    dev = resolve_device(device if device is not None else args.device)
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke \
             else get_config(args.arch)
+    refuse_frames(cfg)
+    dev = resolve_device(device if device is not None else args.device)
     t_build = time.perf_counter()
     model = init_model(cfg, seed=args.seed, device=dev)
     reqs = synthetic_requests(args.requests, cfg.vocab, args.seed,

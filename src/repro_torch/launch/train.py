@@ -130,7 +130,8 @@ from ..distributed import (ErrorFeedbackInt8, StepTimer, StragglerMonitor,
 from ..distributed.launch import run_ranks
 from ..kernels import counts
 from ..models.model import (Model, check_head_split, init_model,
-                            preload_remat, single_device_blocks)
+                            preload_remat, refuse_training,
+                            single_device_blocks)
 from ..models.sharding import (batch_specs, global_shape, param_specs,
                                shard_leaf)
 from .steps import (_delta, describe_blas_routing, init_opt_state,
@@ -167,6 +168,7 @@ def _refuse_waiting(args, cfg) -> None:
             f"training {cfg.name} ({' and '.join(kinds)} blocks) waits for "
             "ROADMAP A11b: the capacity MoE's backward and Muon on the "
             "(n_periods, E, d, f) expert stacks; serve it instead")
+    refuse_training(cfg)
     if args.devices == 1:
         return
     data, model = plan_shape(args.devices, max_model=args.max_model)

@@ -1,12 +1,15 @@
 """GQA attention with RoPE and a KV cache (port of the GQA half of
-:mod:`repro.models.attention`; MLA and the streamed SDPA wait).
+:mod:`repro.models.attention`, with its streamed SDPA; MLA waits,
+ROADMAP A11d).
 
 Layouts are the reference's: q (B, Sq, H, D), k/v (B, Sk, Hkv, D), the
 cache (B, S_max, Hkv, D) in bf16.  The softmax runs in f32 as plain
-tensor ops.  Tensor-parallel (``tp`` set by ``Model.shard_``), a rank
+tensor ops: dense (``_sdpa``) where Sq·Sk is small or Sq = 1, streamed
+over KV blocks (``_sdpa_streamed``) where the dense (B, H, Sq, Sk) f32
+logits would be large, as the reference dispatches (``_dispatch_sdpa``).
+Tensor-parallel (``tp`` set by ``Model.shard_``), a rank
 runs its n_heads / |model| heads and n_kv_heads / |model| KV heads, and
-the output projection's partial sums are all-reduced in f32.  The streamed SDPA never triggers on the serving path
-(sq·sk stays far below the reference's ``SDPA_STREAM_MIN``).
+the output projection's partial sums are all-reduced in f32.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..distributed.collectives import copy_to_group, row_parallel
 from .common import ArchConfig, BlockSpec, apply_rope, dense_init, softcap
@@ -47,6 +51,75 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
     return out.reshape(b, sq, h * v.shape[-1]).to(q.dtype)
+
+
+SDPA_KV_BLOCK = 1024
+#: Sq·Sk at and above which a multi-token query streams (the reference's
+#: threshold: below it the dense logits are cheaper)
+SDPA_STREAM_MIN = 4096 * 32768
+
+
+def _sdpa_streamed(q, k, v, q_pos, k_pos, window: int,
+                   k_valid: Optional[torch.Tensor], cap: float, scale: float,
+                   block: int = SDPA_KV_BLOCK) -> torch.Tensor:
+    """Streaming-softmax SDPA over KV blocks of ``block`` keys with a
+    running (max, sum, accumulator), as the reference's
+    scan: only a (B, Hkv, g, Sq, block) tile of logits exists at a time,
+    and with autograd on each block is recomputed in the backward pass
+    (the reference checkpoints its scan body).  The same softcap and
+    masking as :func:`_sdpa`; the softmax differs from it only by the
+    order of its sums."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf = q.reshape(b, sq, hkv, g, d).float() * scale
+    neg = torch.tensor(NEG_INF, device=q.device)
+
+    def body(m, l, acc, kb, vb, kpb, kvb):
+        lg = softcap(torch.einsum("bqhgd,bkhd->bhgqk", qf, kb.float()), cap)
+        msk = q_pos[:, :, None] >= kpb[:, None, :]
+        if window > 0:
+            msk &= (q_pos[:, :, None] - kpb[:, None, :]) < window
+        msk &= kvb[:, None, :]
+        lg = torch.where(msk[:, None, None], lg, neg)
+        m_new = torch.maximum(m, lg.max(dim=-1).values)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(lg - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                                    vb.float())
+        return m_new, l, acc
+
+    m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, v.shape[-1]), device=q.device)
+    if k_valid is None:
+        k_valid = torch.ones((b, sk), dtype=torch.bool, device=q.device)
+    for j in range(0, sk, block):
+        blk = (k[:, j:j + block], v[:, j:j + block], k_pos[:, j:j + block],
+               k_valid[:, j:j + block])
+        if torch.is_grad_enabled():
+            m, l, acc = checkpoint(body, m, l, acc, *blk,
+                                   use_reentrant=False)
+        else:
+            m, l, acc = body(m, l, acc, *blk)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]       # (B,hkv,g,Sq,dv)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h * v.shape[-1])
+    return out.to(q.dtype)
+
+
+def _dispatch_sdpa(q, k, v, q_pos, k_pos, window: int,
+                   k_valid: Optional[torch.Tensor], cap: float,
+                   scale: float) -> torch.Tensor:
+    """The streamed SDPA for a multi-token query with Sq·Sk at least
+    ``SDPA_STREAM_MIN`` and Sk a multiple of ``SDPA_KV_BLOCK``; the
+    dense one else (a decode step, short prompts)."""
+    sq, sk = q.shape[1], k.shape[1]
+    if sq > 1 and sq * sk >= SDPA_STREAM_MIN and sk % SDPA_KV_BLOCK == 0:
+        return _sdpa_streamed(q, k, v, q_pos, k_pos, window, k_valid, cap,
+                              scale, block=SDPA_KV_BLOCK)
+    mask = _attn_mask(q_pos, k_pos, window, k_valid)
+    return _sdpa(q, k, v, mask, cap, scale)
 
 
 class GQA(nn.Module):
@@ -86,8 +159,9 @@ class GQA(nn.Module):
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
         scale = hd ** -0.5
         if cache is None:
-            mask = _attn_mask(positions, positions, spec.local_window)
-            y = _sdpa(q, k, v, mask, cfg.attn_softcap, scale)
+            y = _dispatch_sdpa(q, k, v, positions, positions,
+                               spec.local_window, None, cfg.attn_softcap,
+                               scale)
         else:
             ck, cv = cache["k"], cache["v"]
             s_max = ck.shape[1]
@@ -96,8 +170,9 @@ class GQA(nn.Module):
             cv[rows, positions] = v.to(cv.dtype)
             k_pos = torch.arange(s_max, device=x.device)[None].expand(b, -1)
             valid = k_pos <= positions[:, -1:]
-            mask = _attn_mask(positions, k_pos, spec.local_window, valid)
-            y = _sdpa(q, ck, cv, mask, cfg.attn_softcap, scale)
+            y = _dispatch_sdpa(q, ck, cv, positions, k_pos,
+                               spec.local_window, valid, cfg.attn_softcap,
+                               scale)
         return row_parallel(y, self.wo, self.tp), cache
 
 

@@ -1,9 +1,12 @@
 """Shared model infrastructure: config schema, norms, RoPE, initialisers.
 
 Port of :mod:`repro.models.common` for the blocks the port serves:
-attention + dense MLP (stablelm), the xLSTM mixers with no MLP (xlstm),
-and the Mamba mixer and the routed MoE MLP beside attention and the
-dense MLP (jamba).  Tensors keep the reference's layouts
+attention + dense MLP (stablelm; gemma2 / gemma3 with sliding windows,
+softcaps, post-block norms and scaled embeddings; granite with MQA,
+LayerNorm and the ungated GELU MLP; pixtral's ``vlm`` and musicgen's
+``embeddings`` frontends), the xLSTM mixers with no MLP (xlstm), and the
+Mamba mixer and the routed MoE MLP beside attention and the dense MLP
+(jamba).  Tensors keep the reference's layouts
 ((B, S, d) activations, (B, S, H, D) heads) and dtypes (bf16 weights
 and activations, f32 norm parameters and f32 softmax).
 """
@@ -57,7 +60,8 @@ class ArchConfig:
     post_block_norm: bool = False
     tie_embeddings: bool = False
     embed_scale: bool = False
-    frontend: str = "tokens"                # tokens (embeddings | vlm wait)
+    frontend: str = "tokens"                # tokens | embeddings | vlm
+    n_frontend_tokens: int = 0              # vlm: patch tokens per sample
     mamba_d_state: int = 16
     mamba_d_conv: int = 4
     mamba_expand: int = 2

@@ -1,13 +1,26 @@
-"""Decoder model: blocks -> final norm -> LM head, and the training
-loss (port of :mod:`repro.models.model` for attention + dense-MLP blocks
-(stablelm), the xLSTM blocks, an mLSTM or sLSTM mixer with no MLP
-(xlstm), and Mamba or attention mixers beside a dense or routed MoE MLP
-(jamba)).
+"""Decoder model: frontend -> blocks -> final norm -> LM head, and the
+training loss (port of :mod:`repro.models.model` for attention +
+dense-MLP blocks (stablelm; gemma2 / gemma3 with post-block norms and
+scaled embeddings; granite; pixtral; musicgen), the xLSTM blocks, an
+mLSTM or sLSTM mixer with no MLP (xlstm), and Mamba or attention mixers
+beside a dense or routed MoE MLP (jamba)).
 
     model = init_model(cfg, seed=0)                      # on the GPU
     loss = lm_loss(model, {"tokens": t, "labels": l})    # differentiable
     logits, cache = model.prefill(tokens, s_max)         # (B, 1, V)
     logits, cache = model.decode_step(token, pos, cache) # (B, 1, V)
+
+The frontend is the reference's: token rows of ``embed`` ("tokens");
+precomputed frames instead of tokens ("embeddings", musicgen: no
+``embed``; ``prefill(None, s_max, embeds=(B, S, d))``,
+``decode_step(None, pos, cache, embeds=(B, 1, d))``); or token rows
+with precomputed patch embeddings put before them ("vlm", pixtral:
+``prefill(tokens, s_max, patch_embeds=(B, P, d))`` with P the config's
+``n_frontend_tokens``, positions counting the patches; without
+``patch_embeds`` text alone).  With
+``embed_scale`` the rows are multiplied by sqrt(d_model) rounded to
+their dtype first, as the reference does; with ``tie_embeddings`` the
+head is ``embed.T`` and there is no ``unembed``.
 
 The reference stacks layers into scanned periods; here layer
 ``p·period + i`` is ``blocks[p·period + i]``.  :func:`from_jax_params`
@@ -57,6 +70,7 @@ from .ssm import (MLSTM, SLSTM, Mamba, mamba_state_init, mlstm_state_init,
 
 Cache = List[Dict[str, torch.Tensor]]
 
+FRONTENDS = ("tokens", "embeddings", "vlm")
 MIXERS = {"attn": GQA, "mamba": Mamba, "mlstm": MLSTM, "slstm": SLSTM}
 MLPS = {"dense": MLP, "moe": MoE}
 #: each mixer's weights that tensor parallelism splits together: the
@@ -78,14 +92,33 @@ def single_device_blocks(cfg: ArchConfig) -> List[str]:
                   | {"moe" for b in specs if b.mlp == "moe"})
 
 
+def refuse_training(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a config with a feature that the
+    port serves but does not train yet (the dense families': gemma,
+    granite, pixtral, musicgen): training them, on one card at a cut
+    depth and on a mesh with ``fsdp_params``, waits for ROADMAP A11f."""
+    feats = [what for on, what in (
+        (cfg.frontend != "tokens", f"the {cfg.frontend} frontend"),
+        (cfg.post_block_norm, "post-block norms"),
+        (cfg.embed_scale, "scaled embeddings"),
+        (cfg.tie_embeddings, "tied embeddings"),
+        (cfg.act == "gelu_mlp", "the ungated gelu_mlp")) if on]
+    if feats:
+        raise NotImplementedError(
+            f"training {cfg.name} ({', '.join(feats)}) waits for ROADMAP "
+            "A11f; serve it instead")
+
+
 def refuse_on_mesh(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a config whose blocks run on
-    one device only (:func:`single_device_blocks`)."""
+    one device only (:func:`single_device_blocks`), or that the port
+    does not train yet (:func:`refuse_training`)."""
     kinds = single_device_blocks(cfg)
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: {' and '.join(kinds)} blocks on a mesh wait for "
             "ROADMAP A11c (they run on one device)")
+    refuse_training(cfg)
 
 
 def check_head_split(cfg: ArchConfig, specs, model: int) -> None:
@@ -160,6 +193,11 @@ class Norm(nn.Module):
 
 
 class Block(nn.Module):
+    """norm1 -> mixer [-> postnorm1] -> residual add, then norm2 -> MLP
+    [-> postnorm2] -> residual add (the post-block norms with
+    ``cfg.post_block_norm``, gemma's, each on its branch's output before
+    the add)."""
+
     def __init__(self, cfg: ArchConfig, spec: BlockSpec,
                  gen: torch.Generator, device: torch.device):
         super().__init__()
@@ -168,7 +206,8 @@ class Block(nn.Module):
                 f"block {spec} is not ported yet (mixers {sorted(MIXERS)},"
                 f" mlps {sorted(MLPS)} | none)")
         if spec.mixer == "attn" and cfg.attn_kind != "gqa":
-            raise NotImplementedError(f"attn_kind={cfg.attn_kind!r} waits")
+            raise NotImplementedError(
+                f"attn_kind={cfg.attn_kind!r} waits for ROADMAP A11d")
         if spec.mlp == "moe" and not (cfg.moe and cfg.moe.n_experts):
             raise ValueError(f"{cfg.name}: an moe block needs cfg.moe")
         self.cfg, self.spec = cfg, spec
@@ -177,16 +216,24 @@ class Block(nn.Module):
         if spec.mlp != "none":
             self.norm2 = Norm(cfg, cfg.d_model, device)
             self.mlp = MLPS[spec.mlp](cfg, gen, device)
+        if cfg.post_block_norm:
+            self.postnorm1 = Norm(cfg, cfg.d_model, device)
+            if spec.mlp != "none":
+                self.postnorm2 = Norm(cfg, cfg.d_model, device)
 
     def forward(self, x, positions, cache):
         cfg = self.cfg
         h = apply_norm(cfg, self.norm1, x)
         y, cache = self.mixer(self.spec, h, positions, cache)
+        if cfg.post_block_norm:
+            y = apply_norm(cfg, self.postnorm1, y)
         x = x + y
         if self.spec.mlp == "none":
             return x, cache
-        h = apply_norm(cfg, self.norm2, x)
-        return x + self.mlp(h), cache
+        y = self.mlp(apply_norm(cfg, self.norm2, x))
+        if cfg.post_block_norm:
+            y = apply_norm(cfg, self.postnorm2, y)
+        return x + y, cache
 
     def init_cache(self, batch: int, s_max: int,
                    device: torch.device) -> Dict[str, torch.Tensor]:
@@ -204,11 +251,12 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, gen: torch.Generator,
                  device: torch.device):
         super().__init__()
-        if cfg.frontend != "tokens" or cfg.prefix or cfg.post_block_norm \
-                or cfg.tie_embeddings or cfg.embed_scale:
-            raise NotImplementedError(
-                "only token frontends without prefix blocks, post-block "
-                "norms, tied or scaled embeddings are ported")
+        if cfg.prefix:
+            raise NotImplementedError(f"{cfg.name}: prefix blocks wait for "
+                                      "ROADMAP A11d")
+        if cfg.frontend not in FRONTENDS:
+            raise ValueError(f"frontend {cfg.frontend!r} (have "
+                             f"{FRONTENDS})")
         self.cfg = cfg
         self.device = device
         #: set by :meth:`shard_`: the mesh, each path's spec, and the
@@ -216,10 +264,13 @@ class Model(nn.Module):
         self.mesh = None
         self.specs = None
         self.embed_tp = self.unembed_tp = None
-        self.embed = nn.Parameter(
-            embed_init((cfg.vocab, cfg.d_model), gen, device))
-        self.unembed = nn.Parameter(
-            dense_init((cfg.d_model, cfg.vocab), gen, device))
+        # the reference's leaves: no embed for frames, no unembed when tied
+        self.register_parameter("embed", None if cfg.frontend == "embeddings"
+                                else nn.Parameter(embed_init(
+                                    (cfg.vocab, cfg.d_model), gen, device)))
+        self.register_parameter("unembed", None if cfg.tie_embeddings
+                                else nn.Parameter(dense_init(
+                                    (cfg.d_model, cfg.vocab), gen, device)))
         self.final_norm = Norm(cfg, cfg.d_model, device)
         specs = [cfg.pattern[i % cfg.period] for i in range(cfg.n_layers)]
         self.blocks = nn.ModuleList(Block(cfg, s, gen, device)
@@ -230,11 +281,15 @@ class Model(nn.Module):
         return [blk.init_cache(batch, s_max, self.device)
                 for blk in self.blocks]
 
+    def head(self) -> torch.Tensor:
+        """The (d, V) LM head: ``unembed``, or ``embed.T`` when tied."""
+        return self.embed.T if self.cfg.tie_embeddings else self.unembed
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.unembed_tp is not None:
             raise NotImplementedError("serving a vocab-sharded model waits:"
                                       " the mesh path trains")
-        return softcap(x.float() @ self.unembed.float(),
+        return softcap(x.float() @ self.head().float(),
                        self.cfg.final_softcap)
 
     def param_tree(self) -> Dict[Tuple[str, ...], List[nn.Parameter]]:
@@ -245,7 +300,9 @@ class Model(nn.Module):
         leading n_periods axis where the reference stacks it; any other
         leaf is one Parameter."""
         tree: Dict[Tuple[str, ...], List[nn.Parameter]] = {
-            ("embed",): [self.embed], ("unembed",): [self.unembed]}
+            (name,): [p] for name, p in (("embed", self.embed),
+                                         ("unembed", self.unembed))
+            if p is not None}
         for name, p in self.final_norm.named_parameters():
             tree[("final_norm", name)] = [p]
         for i in range(self.cfg.period):
@@ -312,7 +369,7 @@ class Model(nn.Module):
         self.mesh, self.specs = mesh, specs
         return self
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _rows(self, tokens: torch.Tensor) -> torch.Tensor:
         """Rows of the embedding; vocab-sharded, a masked gather of this
         rank's rows and an all-reduce (one rank holds each row)."""
         if self.embed_tp is None:
@@ -322,6 +379,38 @@ class Model(nn.Module):
         hit = (local >= 0) & (local < rows)
         x = self.embed[torch.clamp(local, 0, rows - 1)] * hit[..., None]
         return reduce_from_group(x.float(), self.embed_tp).to(x.dtype)
+
+    def _embed(self, tokens: Optional[torch.Tensor],
+               embeds: Optional[torch.Tensor] = None,
+               patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The frontend's (B, S, d) input (reference ``_embed_input``):
+        frames cast to bf16, or token rows with the patch embeddings in
+        front of them (vlm), then the embed scale, rounded to the rows'
+        dtype before the product."""
+        cfg = self.cfg
+        if cfg.frontend == "embeddings":
+            if embeds is None or tokens is not None:
+                raise ValueError(f"{cfg.name} takes frames (embeds=), "
+                                 "not tokens")
+            x = embeds.to(torch.bfloat16)
+        else:
+            if embeds is not None:
+                raise ValueError(f"{cfg.name} takes tokens, not frames")
+            if patch_embeds is not None and cfg.frontend != "vlm":
+                raise ValueError(f"{cfg.name}: patch_embeds needs the vlm "
+                                 "frontend")
+            if patch_embeds is not None and \
+                    patch_embeds.shape[1] != cfg.n_frontend_tokens:
+                raise ValueError(f"{cfg.name} takes {cfg.n_frontend_tokens}"
+                                 " patch embeddings a sample, not "
+                                 f"{patch_embeds.shape[1]}")
+            x = self._rows(tokens)
+            if patch_embeds is not None:
+                x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+        if cfg.embed_scale:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                                 device=x.device)
+        return x
 
     def stacked(self, get=lambda p: p.detach()) -> Dict[Tuple[str, ...],
                                                          torch.Tensor]:
@@ -352,11 +441,15 @@ class Model(nn.Module):
         return x
 
     # -- entry points ------------------------------------------------------
-    def forward(self, tokens: torch.Tensor,
+    def forward(self, tokens: Optional[torch.Tensor],
                 positions: Optional[torch.Tensor] = None,
-                cache: Optional[Cache] = None, remat: bool = True
+                cache: Optional[Cache] = None, remat: bool = True, *,
+                embeds: Optional[torch.Tensor] = None,
+                patch_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-        """tokens (B, S) int -> final-norm hidden states (B, S, d).
+        """tokens (B, S) int (or ``embeds`` (B, S, d) frames for the
+        "embeddings" frontend; ``patch_embeds`` (B, P, d) before the
+        tokens for "vlm") -> final-norm hidden states (B, S(+P), d).
 
         Without a cache and with autograd on, each period is
         recomputed in the backward pass (``torch.utils.checkpoint``)
@@ -365,7 +458,7 @@ class Model(nn.Module):
         of its matmuls without batch dims (the projections), "names"
         only the named scan outputs, which the ported blocks do not
         tag (so "full" here)."""
-        x = self._embed(tokens)
+        x = self._embed(tokens, embeds, patch_embeds)
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, -1)
@@ -381,25 +474,32 @@ class Model(nn.Module):
         return apply_norm(self.cfg, self.final_norm, x), cache
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, s_max: int,
-                return_hidden: bool = False):
+    def prefill(self, tokens: Optional[torch.Tensor], s_max: int,
+                return_hidden: bool = False, *,
+                embeds: Optional[torch.Tensor] = None,
+                patch_embeds: Optional[torch.Tensor] = None):
         """Full-sequence forward building a fresh KV cache; logits of the
         last position only (B, 1, V).  ``return_hidden`` also returns
-        the final-norm hidden states (B, S, d)."""
-        b = tokens.shape[0]
+        the final-norm hidden states (B, S, d), the patch positions
+        included.  Frames and patches as :meth:`forward`."""
+        b = (embeds if tokens is None else tokens).shape[0]
         cache = self.init_cache(b, s_max)
-        x, cache = self.forward(tokens, cache=cache, remat=False)
+        x, cache = self.forward(tokens, cache=cache, remat=False,
+                                embeds=embeds, patch_embeds=patch_embeds)
         logits = self._logits(x[:, -1:])
         if return_hidden:
             return logits, cache, x
         return logits, cache
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, pos: torch.Tensor,
-                    cache: Cache) -> Tuple[torch.Tensor, Cache]:
-        """One token per sequence: token (B, 1), pos (B, 1)."""
+    def decode_step(self, token: Optional[torch.Tensor], pos: torch.Tensor,
+                    cache: Cache, *, embeds: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Cache]:
+        """One token per sequence: token (B, 1), or for the "embeddings"
+        frontend ``token=None`` and a (B, 1, d) frame ``embeds``; pos
+        (B, 1)."""
         x, cache = self.forward(token, positions=pos, cache=cache,
-                                remat=False)
+                                remat=False, embeds=embeds)
         return self._logits(x), cache
 
 
@@ -448,8 +548,9 @@ def lm_loss_terms(model: Model, batch: Dict[str, torch.Tensor],
     can divide by the count over every rank's rows.  With a
     vocab-sharded unembed the loss is vocab-parallel, chunk by chunk."""
     cfg = model.cfg
-    x, _ = model(batch["tokens"], positions=batch.get("positions"),
-                 remat=remat)
+    x, _ = model(batch.get("tokens"), positions=batch.get("positions"),
+                 remat=remat, embeds=batch.get("embeds"),
+                 patch_embeds=batch.get("patch_embeds"))
     labels = batch["labels"]
     b, s, _ = x.shape
     nchunks = max(s // chunk, 1)
@@ -462,18 +563,20 @@ def lm_loss_terms(model: Model, batch: Dict[str, torch.Tensor],
     for i in range(nchunks):
         xs, ls = x[:, i * cs:(i + 1) * cs], labels[:, i * cs:(i + 1) * cs]
         if remat and torch.is_grad_enabled():
-            l, n = checkpoint(fn, cfg, model.unembed, xs, ls, *extra,
+            l, n = checkpoint(fn, cfg, model.head(), xs, ls, *extra,
                               use_reentrant=False)
         else:
-            l, n = fn(cfg, model.unembed, xs, ls, *extra)
+            l, n = fn(cfg, model.head(), xs, ls, *extra)
         tot, cnt = tot + l, cnt + n
     return tot, cnt
 
 
 def lm_loss(model: Model, batch: Dict[str, torch.Tensor], chunk: int = 512,
             remat: bool = True) -> torch.Tensor:
-    """Mean next-token cross-entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (-1 ignored), over sequence chunks of ``chunk``
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (or its
+    ``"embeds"`` frames; with its ``"patch_embeds"`` in front) against
+    ``batch["labels"]`` (-1 ignored; one a position of the whole
+    sequence, patches included), over sequence chunks of ``chunk``
     positions, each recomputed in the backward pass when ``remat``
     (positions past the last whole chunk are dropped, as the
     reference's reshape drops them)."""

@@ -1,5 +1,6 @@
-"""The MLP blocks (port of :mod:`repro.models.moe`): the gated dense MLP
-(SwiGLU / GeGLU) and the routed mixture of experts (jamba, deepseek).
+"""The MLP blocks (port of :mod:`repro.models.moe`): the dense MLP
+(SwiGLU / GeGLU, or the ungated ``gelu_mlp``) and the routed mixture of
+experts (jamba, deepseek).
 
 Dense MLP: tensor-parallel (``tp`` set by ``Model.shard_``), wi / wg
 hold this rank's columns of d_ff and wo its rows, and the partial sums
@@ -49,29 +50,34 @@ def act_fn(name: str):
 
 
 class MLP(nn.Module):
-    """Gated MLP ``act(x·Wi) * (x·Wg) · Wo`` (SwiGLU / GeGLU), bf16
-    weights applied as ``x @ W``; the ungated ``gelu_mlp`` waits."""
+    """Gated MLP ``act(x·Wi) * (x·Wg) · Wo`` (SwiGLU / GeGLU), or with
+    ``act="gelu_mlp"`` the ungated ``gelu(x·Wi) · Wo`` (granite,
+    musicgen: no ``wg``); bf16 weights applied as ``x @ W``."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator,
                  device: torch.device, d_ff: Optional[int] = None):
         super().__init__()
-        if cfg.act == "gelu_mlp":
-            raise NotImplementedError("the ungated gelu_mlp waits")
         d, f = cfg.d_model, d_ff or cfg.d_ff
         self.act = act_fn(cfg.act)
         #: the 'model' axis group when wi / wg hold this rank's columns
         #: of f and wo its rows (``Model.shard_``)
         self.tp = None
-        for name, shape in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d))):
+        names = ("wi", "wo") if cfg.act == "gelu_mlp" else ("wi", "wg", "wo")
+        for name in names:
+            shape = (f, d) if name == "wo" else (d, f)
             setattr(self, name, nn.Parameter(
                 dense_init(shape, gen, device)))
+        if cfg.act == "gelu_mlp":
+            self.wg = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp is not None:
             x = copy_to_group(x, self.tp)
+        h = self.act(x @ self.wi)
+        if self.wg is not None:
+            h = h * (x @ self.wg)
         # tensor-parallel: partial sums over this rank's f
-        return row_parallel(self.act(x @ self.wi) * (x @ self.wg), self.wo,
-                            self.tp)
+        return row_parallel(h, self.wo, self.tp)
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,9 @@ MODULES = [
     "repro_torch.distributed.compression",
     "repro_torch.distributed.elastic", "repro_torch.launch.mesh",
     "repro_torch.models.sharding", "repro_torch.configs.jamba_v0_1_52b",
+    "repro_torch.configs.gemma2_9b", "repro_torch.configs.gemma3_12b",
+    "repro_torch.configs.granite_20b", "repro_torch.configs.pixtral_12b",
+    "repro_torch.configs.musicgen_large",
 ]
 
 _PROBE = r"""
@@ -123,6 +126,27 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(build_argparser().parse_args(["--steps", "1", "--devices",
                                             "2"]))
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-12b", "granite-20b",
+                                  "pixtral-12b", "musicgen-large"])
+def test_dense_family_entry_points_raise_without_a_gpu(monkeypatch, arch):
+    """The dense families' entry points want the card as the others do:
+    ``init_model`` and, for the four token families, ``serve()`` raise
+    without one; musicgen's frames are refused by the server first."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import build_argparser, serve
+    from repro_torch.models.model import init_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_model(get_smoke_config(arch))
+    args = build_argparser().parse_args(["--arch", arch])
+    if arch == "musicgen-large":
+        with pytest.raises(NotImplementedError, match="takes frames"):
+            serve(args)
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve(args)
 
 
 def test_mesh_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
