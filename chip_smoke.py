@@ -26,9 +26,10 @@ Phases (any failure exits non-zero):
              long single prefill, every case also in a CUDA graph,
              beside its byte bound and an issue bound read from the
              SASS of its step loop; the symmetric kernels also at
-             jamba's d = 4096 and granite's 6144 (Gram update, NS T², NS
-             seed, NS product, embedding) and at the mesh trainer's ``--track-gram``
-             block, a (2048, 25088) SYRK;
+             jamba's d = 4096, granite's 6144 and deepseek-v3's 7168
+             (Gram update, NS T², NS seed, NS product, embedding) and at
+             the mesh trainer's ``--track-gram`` block, a (2048, 25088)
+             SYRK;
 4. serve   — serves stablelm-1.6b at full width (24 layers, d_model
              2048, vocab 100352; random weights from a seed) with the
              whitening cache on, and asserts that every request
@@ -81,7 +82,11 @@ Phases (any failure exits non-zero):
              (its column shards gathered for the check) against the
              single-device ``orthogonalize_reference`` on the card
              (2e-3).  The mesh path launches none of the three
-             kernels; its launch counts are printed and must read 0;
+             kernels; its launch counts are printed and must read 0.
+             One launch of 12 ranks runs it all (``gloo_rank``): P = 12
+             on every rank, 6 and 4 on its first ranks (the others wait
+             at a barrier), and on its first 4 also phase 11's and 12's
+             gloo cases, which those phases check;
 9. ckpt    — checkpoints and resume: trains stablelm-1.6b at its
              published widths, 2 layers deep, with Muon and
              ``--track-gram`` in a temp dir (its free space printed
@@ -161,7 +166,8 @@ Phases (any failure exits non-zero):
              the reference test's atol of the exact mean, the same on
              every rank, the bytes a rank the byte model's exactly
              (17,571,840 and 3,196,440, against 69,206,016 for the f32
-             ``all_reduce``), ms on rank 0, no kernel launch;
+             ``all_reduce``), ms on rank 0, no kernel launch (run in
+             phase 8's launch);
 13. meshtrain — ``train --devices 4`` (gloo ranks sharing the card,
              the wire host-staged) with ``muon-syrk`` on phase 7's
              traffic, 2 steps, stablelm-1.6b at its published widths
@@ -181,7 +187,9 @@ Phases (any failure exits non-zero):
              backward, reduce, clip, optimizer), words and bytes a rank
              by phase and kind, and each rank's peak memory.  The
              kernels line's ``train mesh`` launches are the mesh ranks'
-             alone;
+             alone.  One launch of 4 ranks runs this and phase 16's
+             training (``mesh_trains``), the trainer's own summary made
+             of each run's ranks;
 14. elastic — ``run_recovery`` with ``--devices 4 --devices-after 2
              --max-model 4`` of ``muon-syrk`` with ``--track-gram`` at
              stablelm-1.6b's published widths and 2 layers, phase 7's
@@ -235,7 +243,8 @@ Phases (any failure exits non-zero):
              and its launches a step the paths' count (``slstm_scan`` 4,
              ``slstm_scan_bwd`` 2, ``rank_update`` 5 and ``sym_stream``
              10 a gathered stack of n1 >= 256); prints each rank's step
-             time, peak memory, and words and bytes by phase and kind;
+             time, peak memory, and words and bytes by phase and kind
+             (its ranks ran in phase 13's launch);
 17. jamba — serves jamba-v0.1-52b at full width (d_model 4096, 16
              experts top-2, vocab 65536; random bf16 weights from seed
              0) cut to one period of its pattern, 8 of its 32 layers (7
@@ -273,7 +282,24 @@ Phases (any failure exits non-zero):
              streamed SDPA against the dense one on the card; the NS
              factor and an embedding at each served d_model (3584, 3840,
              5120, 6144) as phase 17 checks them at 4096.  Phase 3
-             times the symmetric kernels at granite's d = 6144.
+             times the symmetric kernels at granite's d = 6144;
+19. deepseek — serves deepseek-v3-671b (d_model 7168, MLA with q_lora
+             1536 and kv_lora 512, 256 experts top-8 and 1 shared, vocab
+             129280) cut to its 3 dense prefix layers and one MoE layer
+             with the MTP block's weights (4 of 61 layers), and
+             deepseek-v2-236b (5120, 160 experts top-6 and 2 shared,
+             vocab 102400) cut to its dense layer and one MoE layer,
+             random bf16 weights from seed 0, phase 4's traffic with the
+             whitening cache at each d_model, each freed before the next
+             is drawn: every request completed, every embedding finite,
+             the symmetric kernels' launches phase 17's closed forms, no
+             NS fallback, peak memory under the card's, the published
+             widths; host seconds by block kind; the NS factor and an
+             embedding at d 7168 against the plain kernels and the f64
+             iteration; one full-width v3 MLA layer (a prefill of 64
+             into the latent cache, a decode step) against the CPU
+             within 5e-2.  Phase 3 times the symmetric kernels at
+             d = 7168.
 
 The seconds of each phase are printed on the ``[done]`` line.
 The line before the last is a JSON object with one entry per kernel;
@@ -684,6 +710,33 @@ def kernel_phase(torch, card_clock_mhz):
     log(f"[kernels]   in a CUDA graph (device time, no host): ms "
         f"{emb6['device_ms']:.4f}  library {emb6['library_device_ms']:.4f}")
     del t6, x6t, x6s
+    # deepseek-v3's refresh, Gram update and embedding at d = 7168 (56
+    # tiles of 128, 1596 packed; the NS seed's 224 x 224 bm-32 tiles)
+    t7 = randn(7168, 7168) / 7168 ** 0.5
+    rank_case("syrk packed 7168x64 (deepseek-v3 Gram)", "syrk",
+              randn(7168, 64), timed=True)
+    rank_case("syrk full 7168x7168 (deepseek-v3 NS T^2)", "syrk", t7,
+              timed=True)
+    g7 = randn(7168, 7168)
+    g7 = (g7 + g7.T) / 2
+    symm_case("7168 TriTiles bm 32 x I (deepseek-v3 NS seed)",
+              TriTiles.from_tril(g7, 32).tiles.contiguous(),
+              torch.eye(7168, device=dev), 32, dense=g7, timed=True)
+    del g7
+    x7t = pack_tril_tiles(t7, 128).contiguous()
+    x7s = torch.tril(t7) + torch.tril(t7, -1).T
+    symm_case("dense 7168^2 x 7168^2 (deepseek-v3 NS)", x7t,
+              randn(7168, 7168), 128, dense=x7s, timed=True)
+    p7 = randn(7168, 1)
+    symm_case("7168^2 x (7168, 1) unpadded (deepseek-v3 embedding)", x7t,
+              p7, 128, dense=x7s, timed=True)
+    emb7 = cases["sym_stream"][-1]
+    emb7["device_ms"] = graph_ms(torch, lambda: trigrid.sym_stream(
+        x7t, p7, bm=128))
+    emb7["library_device_ms"] = graph_ms(torch, lambda: x7s @ p7)
+    log(f"[kernels]   in a CUDA graph (device time, no host): ms "
+        f"{emb7['device_ms']:.4f}  library {emb7['library_device_ms']:.4f}")
+    del t7, x7t, x7s
     # ragged shapes: rows past a 128-block, 4 B copies, narrow widths
     a160 = randn(160, 160)
     t160 = pack_tril_tiles(a160, 32).contiguous()
@@ -1583,6 +1636,8 @@ MESH_M = 500_000
 #: (P, route name, path, choice kwargs); 3d-limited is planned, not pinned
 MESH_ROUTES = ((4, "1d", {}), (4, "ring", {}), (6, "2d", {"c": 2}),
                (12, "3d", {"c": 2, "p2": 2}), (12, "3d-limited", None))
+#: the ranks of the gloo launch phases 8, 11 and 12 share (the largest P)
+MESH_WORLD = 12
 
 
 def _mesh_choice(path, P, kw):
@@ -1595,18 +1650,19 @@ def _mesh_choice(path, P, kw):
     return AlgoChoice(path, 3, P, c=c, p1=c * (c + 1), p2=kw.get("p2", 1))
 
 
-def _mesh_ms(torch, dist, fn, rank):
+def _mesh_ms(torch, dist, fn, comm):
     """Mean ms a call over a >= 25 ms window of at least 3 calls, CUDA
-    events on rank 0; every rank runs the same number of calls (the
-    collectives pair up), agreed on by an all-reduce of the first call's
-    time outside the counted collectives."""
+    events on rank 0 of ``comm``; every rank of it runs the same number
+    of calls (the collectives pair up), agreed on by an all-reduce over
+    its group of the first call's time outside the counted
+    collectives."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     est = torch.tensor([time.perf_counter() - t0])
-    dist.all_reduce(est, op=dist.ReduceOp.MAX)
+    dist.all_reduce(est, op=dist.ReduceOp.MAX, group=comm.group)
     reps = max(3, math.ceil(0.025 / max(float(est), 1e-6)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1616,7 +1672,7 @@ def _mesh_ms(torch, dist, fn, rank):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps if rank == 0 else None
+    return start.elapsed_time(end) / reps if comm.index == 0 else None
 
 
 def _mesh_predicted(route, op, n1, n2):
@@ -1679,7 +1735,7 @@ def mesh_rank(mesh, cases, muon=False):
                 torch.cuda.synchronize()
                 words = collectives.word_counts()
                 launches = counts.launch_counts()
-                ms = _mesh_ms(torch, dist, call, rank)
+                ms = _mesh_ms(torch, dist, call, mesh.comm("x"))
             for k, v in launches.items():
                 launched[k] = launched.get(k, 0) + v
             row = {"P": P, "route": name, "op": op, "words": words,
@@ -1741,10 +1797,48 @@ def _mesh_muon(torch, mesh, counts, collectives):
     return res
 
 
+def _first_ranks(mesh, P):
+    """Ranks 0..P-1 of ``mesh``'s gloo world as a one-axis mesh "x" of
+    P ranks (no 3d grids: P = 4 and 6 have none), None on the other
+    ranks.  Collective: every rank of the world calls it."""
+    import torch.distributed as dist
+    from repro_torch.distributed.mesh import Comm, Mesh
+    ranks = tuple(range(P))
+    group = dist.new_group(list(ranks), backend=mesh.backend)
+    if mesh.rank >= P:
+        return None
+    staged = mesh.comm("x").staged
+    return Mesh({"x": P}, rank=mesh.rank,
+                groups={"x": Comm("x", P, mesh.rank, ranks, group, staged)},
+                backend=mesh.backend, device=mesh.device)
+
+
+def gloo_rank(mesh, cases):
+    """One rank of the gloo launch that phases 8, 11 (b) and 12 (d)
+    share (one process start for all of them): ``MESH_WORLD`` ranks on
+    this card; the P = 12 mesh cases on every rank, the P = 6 ones on
+    ranks 0-5, then on ranks 0-3 the P = 4 ones with Muon's
+    ``orthogonalize_1d``, phase 11's ABFT case and phase 12's compressed
+    all-reduces; the ranks outside a step wait at a barrier.  Returns
+    this rank's results by step."""
+    import torch.distributed as dist
+    out = {"mesh 12": mesh_rank(mesh, cases[12])}
+    for P in (6, 4):
+        sub = _first_ranks(mesh, P)
+        if sub is not None:
+            out[f"mesh {P}"] = mesh_rank(sub, cases[P], muon=P == 4)
+            if P == 4:
+                out["abft"] = abft_mesh_rank(sub)
+                out["compress"] = compress_rank(sub)
+        dist.barrier()
+    return out
+
+
 def mesh_phase(torch):
-    """Phase 8: P gloo ranks, all on this card, one launch per P."""
+    """Phase 8: the single-device blas calls, then the shared gloo launch
+    (``gloo_rank``); its mesh cases checked and printed here, its ABFT
+    and compression results returned for phases 11 and 12."""
     from repro_torch import blas
-    from repro_torch.core.packing import pack_tril
     from repro_torch.distributed.launch import run_ranks
     card = torch.cuda.get_device_name(0)
     # one single-device blas call of each op at the same shape (kernels)
@@ -1760,17 +1854,21 @@ def mesh_phase(torch):
     torch.cuda.empty_cache()
     log(f"[mesh] single-device blas at ({MESH_N1}, {MESH_N2}), kernels: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in single.items()))
+    cases = {P: [(name, name, kw) for P_, name, kw in MESH_ROUTES
+                 if P_ == P] for P in (4, 6, 12)}
+    log(f"[mesh] gloo, host-staged wire, one launch of {MESH_WORLD} ranks "
+        f"on one {card}: P = 12, then 6 and 4 on its first ranks, with "
+        "phase 11's ABFT and phase 12's compressed all-reduces on 4")
+    t0 = time.perf_counter()
+    every = run_ranks("chip_smoke:gloo_rank", MESH_WORLD, backend="gloo",
+                      device="cuda:0", paths=[ROOT], timeout=700,
+                      kwargs={"cases": cases})
+    wall = time.perf_counter() - t0
+    log(f"[mesh] the shared launch: {wall:.1f} s (process start included)")
     rows, picks, launched, muon = [], {}, {}, None
     for P in (4, 6, 12):
-        cases = [(name, name, kw) for P_, name, kw in MESH_ROUTES
-                 if P_ == P]
-        log(f"[mesh] gloo, host-staged wire, {P} ranks on one {card}")
-        t0 = time.perf_counter()
-        res = run_ranks("chip_smoke:mesh_rank", P, backend="gloo",
-                        device="cuda:0", paths=[ROOT], timeout=500,
-                        kwargs={"cases": cases, "muon": P == 4})
-        log(f"[mesh] P={P}: {len(cases) * 3} cases in "
-            f"{time.perf_counter() - t0:.1f} s (process start included)")
+        res = [r[f"mesh {P}"] for r in every if f"mesh {P}" in r]
+        assert len(res) == P, (P, len(res))
         picks[P] = res[0]["picks"]
         for op, d in picks[P].items():
             log(f"[mesh]   planner's own pick, P={P}: {d}")
@@ -1802,8 +1900,9 @@ def mesh_phase(torch):
                     launched[k] = launched.get(k, 0) + v
     log(f"[mesh] kernel launches on the mesh path (every rank): {launched}")
     assert all(v == 0 for v in launched.values()), launched
+    shared = {k: [r[k] for r in every[:4]] for k in ("abft", "compress")}
     return {"cases": rows, "single_device_ms": single, "picks": picks,
-            "muon_1d": muon}, launched
+            "muon_1d": muon, "launch_s": wall}, launched, shared
 
 
 # --------------------------------------------------------------------------
@@ -2273,10 +2372,10 @@ def abft_mesh_rank(mesh):
     return out
 
 
-def abft_phase(torch):
+def abft_phase(torch, ranks):
     """Phase 11 (a) and (b): the checked calls on the kernels, then the
-    mesh case on 4 gloo ranks sharing the card."""
-    from repro_torch.distributed.launch import run_ranks
+    mesh case's ``ranks``: 4 gloo ranks sharing the card, run in phase
+    8's launch (``gloo_rank``)."""
     rows = abft_local(torch)
     launches = {}
     for op, row in rows.items():
@@ -2304,11 +2403,8 @@ def abft_phase(torch):
         for k, v in row["launches"].items():
             launches[k] = launches.get(k, 0) + v
     card = torch.cuda.get_device_name(0)
-    log(f"[abft] mesh: checked_syrk, 1d, 4 gloo ranks on one {card}")
-    t0 = time.perf_counter()
-    ranks = run_ranks("chip_smoke:abft_mesh_rank", 4, backend="gloo",
-                      device="cuda:0", paths=[ROOT], timeout=300)
-    mesh_s = time.perf_counter() - t0
+    log(f"[abft] mesh: checked_syrk, 1d, 4 gloo ranks on one {card} "
+        "(phase 8's launch)")
     for r, m in enumerate(ranks):
         log(f"[abft] mesh rank {r}: {m}")
         assert not m["clean_detected"] and m["events"] == 1, m
@@ -2317,7 +2413,7 @@ def abft_phase(torch):
         assert m["retry_words"] == {k: 2 * v for k, v in
                                     m["words"].items()}, m
     assert ranks[0]["rel_err"] <= MESH_TOL, ranks[0]["rel_err"]
-    return {"local": rows, "mesh": ranks, "mesh_s": mesh_s}, launches
+    return {"local": rows, "mesh": ranks}, launches
 
 
 #: the depth of the kill -> resume runs (phases 11 (c) and 14) and of
@@ -2647,7 +2743,7 @@ def compress_rank(mesh):
         if rank == 0 and name != "all_reduce":
             row["y"] = host
         del y
-        row["ms"] = _mesh_ms(torch, dist, call, rank)
+        row["ms"] = _mesh_ms(torch, dist, call, comm)
         out[name] = row
     out["launches"] = counts.launch_counts()
     return out
@@ -2680,22 +2776,20 @@ def _np_allreduce(np, xs, block):
     return np.concatenate(parts).reshape(xs[0].shape)
 
 
-def compress_collectives(torch):
+def compress_collectives(torch, ranks):
     """(d) the compressed all-reduces on COMPRESS_RANKS gloo ranks sharing
-    the card, each with its own leaf: rank 0's result bit-equal to the
-    numpy oracle and within the reference test's atol of the exact mean,
-    every rank's the same, the bytes a rank the byte model's exactly."""
+    the card (``ranks``: run in phase 8's launch, ``gloo_rank``), each
+    with its own leaf: rank 0's result bit-equal to the numpy oracle and
+    within the reference test's atol of the exact mean, every rank's the
+    same, the bytes a rank the byte model's exactly."""
     import numpy as np
 
     from repro_torch.distributed.compression import wire_bytes_per_device
-    from repro_torch.distributed.launch import run_ranks
     P = COMPRESS_RANKS
+    assert len(ranks) == P, len(ranks)
     card = torch.cuda.get_device_name(0)
-    log(f"[compress wire] gloo, host-staged, {P} ranks on one {card}")
-    t0 = time.perf_counter()
-    ranks = run_ranks("chip_smoke:compress_rank", P, backend="gloo",
-                      device="cuda:0", paths=[ROOT], timeout=300)
-    wall = time.perf_counter() - t0
+    log(f"[compress wire] gloo, host-staged, {P} ranks on one {card} "
+        "(phase 8's launch)")
     n = COMPRESS_LEAF[1] * COMPRESS_LEAF[2]
     want_bytes = {
         "dense": wire_bytes_per_device(n, P, compressed=True,
@@ -2749,16 +2843,16 @@ def compress_collectives(torch):
     for r in ranks:
         for k, v in r["launches"].items():
             launched[k] = launched.get(k, 0) + v
-    log(f"[compress wire] {wall:.1f} s with process start; kernel "
-        f"launches on every rank {launched}")
+    log(f"[compress wire] kernel launches on every rank {launched}")
     assert all(v == 0 for v in launched.values()), launched
-    return dict(rows, wall_s=wall, ranks=P)
+    return dict(rows, ranks=P)
 
 
-def compress_phase(torch, train_out):
+def compress_phase(torch, train_out, wire_ranks):
     """Phase 12: (a) compressed Muon at full width, (b) the quantizer
     card vs host, (c) a resume with the EF state, (d) the compressed
-    all-reduces on gloo ranks sharing the card."""
+    all-reduces on gloo ranks sharing the card (``wire_ranks``, from
+    phase 8's launch)."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -2771,7 +2865,7 @@ def compress_phase(torch, train_out):
     t2 = time.perf_counter()
     resume = compress_resume(torch)
     t3 = time.perf_counter()
-    wire = compress_collectives(torch)
+    wire = compress_collectives(torch, wire_ranks)
     t4 = time.perf_counter()
     seconds = {"train_s": t1 - t0, "quantizer_s": t2 - t1,
                "resume_s": t3 - t2, "wire_s": t4 - t3}
@@ -2839,16 +2933,80 @@ def _ns_closed_form(cfg, data, P, steps=5):
     return total, paths
 
 
-def run_mesh_train(torch, devices, max_model, layers, arch="stablelm-1.6b"):
-    """``train --devices N`` (gloo ranks sharing this card) on phase 7's
-    traffic with ``muon-syrk`` at ``layers`` layers."""
-    from repro_torch.launch.train import build_argparser, train
-    argv = _train_argv("muon-syrk", MESHTRAIN_STEPS, layers, arch) + [
-        "--device", DEVICE, "--devices", str(devices),
-        "--max-model", str(max_model)]
+def _mesh_train_args(devices, max_model, layers, arch):
+    """The flags of ``train --devices N`` (gloo ranks sharing this card)
+    on phase 7's traffic with ``muon-syrk`` at ``layers`` layers."""
+    from repro_torch.launch.train import build_argparser
+    return build_argparser().parse_args(
+        _train_argv("muon-syrk", MESHTRAIN_STEPS, layers, arch) + [
+            "--device", DEVICE, "--devices", str(devices),
+            "--max-model", str(max_model)])
+
+
+def mesh_trains_rank(mesh_x, flags_list):
+    """One rank of the launch that phases 13 and 16 share (one process
+    start for both): ``launch.train.train_rank``, what ``train --devices
+    N`` runs on each rank, for each flag set in turn, with this rank's
+    plain sLSTM scans guarded."""
+    import gc
+
+    import torch
+    from repro_torch.launch.train import train_rank
+    guard_plain_scans()
+    out = []
+    for flags in flags_list:
+        out.append(train_rank(mesh_x, flags))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_trains(torch):
+    """Phase 13's stablelm run on (data 2, model 2) and phase 16's xlstm
+    run on (data 1, model 4), in one launch of 4 gloo ranks
+    (``mesh_trains_rank``): {arch: (its args, the flags launched, every
+    rank's result)}, and the launch's seconds."""
+    import gc
+
+    from repro_torch.distributed.launch import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {"stablelm-1.6b": _mesh_train_args(4, 2, RESUME_LAYERS,
+                                              "stablelm-1.6b"),
+            "xlstm-350m": _mesh_train_args(
+                XLSTM_MESH_DEVICES, XLSTM_MESH_MAX_MODEL, XLSTM_MESH_LAYERS,
+                "xlstm-350m")}
+    flags = [dict(vars(a)) for a in runs.values()]
     t0 = time.perf_counter()
-    out = train(build_argparser().parse_args(argv))
-    out["wall_s"] = time.perf_counter() - t0
+    every = run_ranks("chip_smoke:mesh_trains_rank", 4, backend="gloo",
+                      device=DEVICE, paths=[ROOT], timeout=3000,
+                      kwargs={"flags_list": flags})
+    wall = time.perf_counter() - t0
+    log(f"[meshtrain] one launch of 4 gloo ranks for phases 13 and 16: "
+        f"{wall:.1f} s (process start included)")
+    return {arch: (args, flags[i], [r[i] for r in every])
+            for i, (arch, args) in enumerate(runs.items())}, wall
+
+
+def run_mesh_train(torch, run, wall):
+    """``train(args)`` of a ``mesh_trains`` run: the launcher's own
+    summary of the ranks' results, ``wall`` the shared launch's
+    seconds."""
+    from repro_torch.launch import train as ttrain
+    args, flags, ranks = run
+    real = ttrain.run_ranks
+
+    def launched(target, world, **kw):
+        # what train() would launch is what was launched
+        assert target == "repro_torch.launch.train:train_rank", target
+        assert world == len(ranks) and kw["kwargs"]["flags"] == flags
+        return ranks
+    ttrain.run_ranks = launched
+    try:
+        out = ttrain.train(args)
+    finally:
+        ttrain.run_ranks = real
+    out["wall_s"] = wall
     return out
 
 
@@ -2919,8 +3077,8 @@ def meshtrain_check(tag, out, want, cfg, data, P):
     for r in ranks:
         for k, v in r["kernel_launches"].items():
             launches[k] = launches.get(k, 0) + v
-    log(f"{tag} wall {out['wall_s']:.1f} s (rank processes' start, init "
-        "and build included)")
+    log(f"{tag} wall {out['wall_s']:.1f} s (the launch phases 13 and 16 "
+        "share: rank processes' start, init and build included)")
     return {"mesh": out["mesh"], "losses": losses, "want": want,
             "paths": paths, "ns_words": predicted,
             "launches_a_rank": want_launches,
@@ -2946,23 +3104,22 @@ def meshtrain_phase(torch, single):
     ``RESUME_LAYERS`` layers, on (data 2, model 2), held to the
     uninterrupted single-device run at that depth (phase 11's).  Its
     (data 1, model 4) run is phase 14's phase 1: the same path at that
-    depth, with the Grams and a checkpoint."""
+    depth, with the Grams and a checkpoint.  The launch also runs phase
+    16's xlstm mesh training (``mesh_trains``), returned for it."""
     import dataclasses
-    import gc
 
     from repro_torch.configs import get_config
-    gc.collect()
-    torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config("stablelm-1.6b"),
                               n_layers=RESUME_LAYERS)
     t0 = time.perf_counter()
-    b = run_mesh_train(torch, 4, 2, layers=RESUME_LAYERS)
+    runs, wall = mesh_trains(torch)
+    b = run_mesh_train(torch, runs["stablelm-1.6b"], wall)
     rb, launches = meshtrain_check("[meshtrain b]", b,
                                    single["losses"][:MESHTRAIN_STEPS],
                                    cfg, 2, 2)
-    seconds = {"b_s": time.perf_counter() - t0}
+    seconds = {"b_s": time.perf_counter() - t0, "launch_s": wall}
     log(f"[meshtrain] phase seconds {json.dumps(seconds)}")
-    return {"b": rb, **seconds}, launches
+    return {"b": rb, **seconds}, launches, runs["xlstm-350m"]
 
 
 # --------------------------------------------------------------------------
@@ -3360,23 +3517,16 @@ XLSTM_MESH_LAYERS = 8
 XLSTM_MESH_DEVICES = XLSTM_MESH_MAX_MODEL = 4
 
 
-def guarded_train_rank(mesh_x, flags):
-    """``launch.train.train_rank`` (what ``train --devices N`` runs on
-    each rank) with this rank's plain sLSTM scans guarded."""
-    from repro_torch.launch.train import train_rank
-    guard_plain_scans()
-    return train_rank(mesh_x, flags)
-
-
-def xlstm_mesh_phase(torch):
+def xlstm_mesh_phase(torch, run, wall):
     """Phase 16: ``train --devices 4 --max-model 4 --optimizer
     muon-syrk`` of xlstm-350m at its published widths (d_model 1024, 4
     heads, vocab 50304) cut to ``XLSTM_MESH_LAYERS`` layers, phase 7's
     traffic, on (data 1, model 4): one head and 256 sLSTM channels a
-    rank, the ranks' ``train_rank`` with the plain scans guarded.  Held
-    to the uninterrupted single-device run at that depth (run here,
-    guarded too), the launches a rank from the paths
-    (``meshtrain_check``)."""
+    rank, the ranks' ``train_rank`` with the plain scans guarded (``run``:
+    its flags and ranks' results from phase 13's launch, ``wall`` that
+    launch's seconds).  Held to the uninterrupted single-device run at
+    that depth (run here, guarded too), the launches a rank from the
+    paths (``meshtrain_check``)."""
     import dataclasses
     import gc
 
@@ -3388,14 +3538,7 @@ def xlstm_mesh_phase(torch):
     cfg = dataclasses.replace(get_config("xlstm-350m"),
                               n_layers=XLSTM_MESH_LAYERS)
     plain, bwd_plain = slstm._slstm_scan_plain, slstm._slstm_scan_bwd_plain
-    real_run_ranks = ttrain.run_ranks
-
-    def guarded(target, world, **kw):
-        assert target == "repro_torch.launch.train:train_rank", target
-        return real_run_ranks("chip_smoke:guarded_train_rank", world,
-                              paths=[ROOT], **kw)
     guard_plain_scans()
-    ttrain.run_ranks = guarded
     try:
         t0 = time.perf_counter()
         single = ttrain.train(ttrain.build_argparser().parse_args(
@@ -3410,10 +3553,8 @@ def xlstm_mesh_phase(torch):
                              "[xlstm-mesh single]",
                              slstm=(2 * n * MESHTRAIN_STEPS,
                                     n * MESHTRAIN_STEPS))
-        out = run_mesh_train(torch, XLSTM_MESH_DEVICES, XLSTM_MESH_MAX_MODEL,
-                             XLSTM_MESH_LAYERS, arch="xlstm-350m")
+        out = run_mesh_train(torch, run, wall)
     finally:
-        ttrain.run_ranks = real_run_ranks
         slstm._slstm_scan_plain, slstm._slstm_scan_bwd_plain = \
             plain, bwd_plain
     res, launches = meshtrain_check("[xlstm-mesh]", out, single["losses"],
@@ -3910,6 +4051,148 @@ def dense_phase(torch):
     return rows, launches
 
 
+# --------------------------------------------------------------------------
+# phase 19: serve deepseek-v3-671b and deepseek-v2-236b at full width
+# --------------------------------------------------------------------------
+#: each at its published widths, cut in depth to its dense prefix and one
+#: MoE period: v3 its 3 dense layers, 1 MoE layer (256 experts) and the
+#: MTP block's weights (15.69 B parameters, 31.4 GB in bf16); v2 its
+#: dense layer and 1 MoE layer (160 experts; 5.36 B, 10.7 GB).  All 61 /
+#: 60 layers do not fit 80 GB, nor would a second v3 MoE layer's 22.5 GB
+#: beside its 15 GB f32 draw at init
+DEEPSEEK_LAYERS = {"deepseek-v3-671b": 4, "deepseek-v2-236b": 2}
+#: the published (d_model, vocab, experts, top-k, shared experts)
+DEEPSEEK_WIDTHS = {"deepseek-v3-671b": (7168, 129280, 256, 8, 1),
+                   "deepseek-v2-236b": (5120, 102400, 160, 6, 2)}
+#: the MLA layer card vs CPU: a prefill of this many tokens into the
+#: latent cache, then a decode step from it
+MLA_CHECK_TOKENS = 64
+
+
+def deepseek_serve(torch, arch):
+    """One deepseek config served as phase 4 serves stablelm, with the
+    whitening cache at its d_model: every request completed, embeddings
+    finite, the kernels' launches the closed form, no NS fallback, peak
+    memory under the card's, the published widths; then host seconds
+    by block kind (``prefill_split``)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=DEEPSEEK_LAYERS[arch])
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = run_serve(torch, arch, cfg=cfg)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    c = out["cache"]
+    want = serve_closed_form(c)
+    steps = out["decode_steps"]
+    mo = cfg.moe
+    log(f"[deepseek] {arch}: {out['layers']} layers ({len(cfg.prefix)} "
+        f"dense, {cfg.n_periods} MoE{', the MTP block' if cfg.mtp else ''}"
+        f"), d_model {out['d_model']}, vocab {out['vocab']}, "
+        f"{mo.n_experts} experts top-{mo.top_k}, {mo.n_shared} shared; "
+        f"launches {launches}, closed form {want} (updates "
+        f"{c['updates']}, refreshes {c['refreshes']}, factor hits "
+        f"{c['factor_hits']}); decode {1e3 * out['decode_s'] / steps:.1f} "
+        f"ms a step; peak memory {peak / 2**30:.2f} GiB of "
+        f"{total / 2**30:.2f}")
+    assert (out["layers"], out["d_model"], out["vocab"], mo.n_experts,
+            mo.top_k, mo.n_shared) == (DEEPSEEK_LAYERS[arch],) + \
+        DEEPSEEK_WIDTHS[arch], out
+    assert c["ns_fallbacks"] == 0, c
+    assert launches == want, (launches, want)
+    assert peak < total, (peak, total)
+    keep = ("layers", "d_model", "vocab", "completed", "tokens_per_s",
+            "mean_ttft_s", "p50_ttft_s", "p99_ttft_s", "serve_s",
+            "startup_s", "prefill_s", "embed_s", "decode_s", "decode_steps",
+            "refresh_s")
+    row = {k: out[k] for k in keep}
+    row.update(peak_memory_bytes=peak, serve_wall_s=time.perf_counter() - t0,
+               ms_per_decode_step=1e3 * out["decode_s"] / steps,
+               refreshes=c["refreshes"])
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["prefill_split"] = prefill_split(torch, cfg, f"[deepseek {arch}]")
+    row["seconds"] = time.perf_counter() - t0
+    return row, launches
+
+
+def mla_layer_check(torch):
+    """One full-width deepseek-v3 prefix layer (MLA: 128 heads, q_lora
+    1536, kv_lora 512, rope 64; the dense MLP of 18432), random bf16
+    weights drawn on the card and copied to the CPU, the same bf16 input
+    on both: a prefill of ``MLA_CHECK_TOKENS`` tokens into a latent cache
+    twice as long, then a decode step from it (the mask reading only the
+    filled rows); the outputs and the cache's ``ckv`` / ``kr`` rows
+    within ``JAMBA_TOL``.  No MoE layer is copied to the host: one v3
+    expert stack is 7.5 GB, and the MoE code is the one phase 17 holds."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Block
+    dev, cpu = torch.device(DEVICE), torch.device("cpu")
+    cfg = get_config("deepseek-v3-671b")
+    gen = torch.Generator(device=dev).manual_seed(34)
+    hgen = torch.Generator().manual_seed(34)
+    s, out = MLA_CHECK_TOKENS, {}
+    with torch.no_grad():
+        blk = Block(cfg, cfg.prefix[0], gen, dev)
+        blk_c = copy.deepcopy(blk).to(cpu)
+        x = torch.randn(1, s + 1, cfg.d_model, generator=hgen).to(
+            torch.bfloat16)
+        pos = torch.arange(s + 1)[None]
+        cg, cc = blk.init_cache(1, 2 * s, dev), blk_c.init_cache(1, 2 * s,
+                                                                  cpu)
+        tag = f"deepseek-v3 MLA layer, d {cfg.d_model}"
+        yg, _ = blk(x[:, :s].to(dev), pos[:, :s].to(dev), cg)
+        t0 = time.perf_counter()
+        yc, _ = blk_c(x[:, :s], pos[:, :s], cc)
+        cpu_s = time.perf_counter() - t0
+        out["prefill"] = card_vs_cpu(torch, f"{tag} prefill {s}", yg, yc,
+                                     "deepseek")
+        for k in ("ckv", "kr"):
+            out[k] = card_vs_cpu(torch, f"{tag} cached {k}", cg[k], cc[k],
+                                 "deepseek")
+        yg, _ = blk(x[:, s:].to(dev), pos[:, s:].to(dev), cg)
+        yc, _ = blk_c(x[:, s:], pos[:, s:], cc)
+        out["decode"] = card_vs_cpu(torch, f"{tag} decode step at {s}", yg,
+                                    yc, "deepseek")
+        del blk, blk_c, cg, cc
+    torch.cuda.empty_cache()
+    log(f"[deepseek] MLA layer check's CPU prefill {cpu_s:.2f} s")
+    return {"rel_err": out, "cpu_prefill_s": cpu_s}
+
+
+def deepseek_phase(torch):
+    """Phase 19: deepseek-v3-671b and deepseek-v2-236b served at full
+    width (``DEEPSEEK_LAYERS``) with the whitening cache, each freed
+    before the next is drawn; the NS factor and an embedding at v3's d
+    7168 against the plain kernels and the f64 iteration (v2's 5120 is
+    phase 18's); one full-width MLA layer card vs CPU."""
+    import gc
+    rows, launches, seconds = {}, {}, {}
+    for arch in DEEPSEEK_LAYERS:
+        rows[arch], launches[arch] = deepseek_serve(torch, arch)
+        seconds[f"{arch}_s"] = rows[arch]["seconds"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows["ns_check"] = ns_check(torch, 7168, "deepseek")
+    t1 = time.perf_counter()
+    rows["mla_check"] = mla_layer_check(torch)
+    seconds.update(ns_check_s=t1 - t0,
+                   mla_check_s=time.perf_counter() - t1)
+    log(f"[deepseek] phase seconds {json.dumps(seconds)}")
+    rows["seconds"] = seconds
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3934,21 +4217,24 @@ def main() -> int:
     xout, xlaunches = timed("xlstm", xlstm_phase, torch)
     timed("check", check_phase, torch)
     tout, tlaunches = timed("train", train_phase, torch, cases)
-    mout, mlaunches = timed("mesh", mesh_phase, torch)
+    mout, mlaunches, gloo = timed("mesh", mesh_phase, torch)
     cout, claunches = timed("ckpt", ckpt_phase, torch)
     wout, wlaunches = timed("warm", warm_phase, torch)
-    aout, alaunches = timed("faults", abft_phase, torch)
+    aout, alaunches = timed("faults", abft_phase, torch, gloo["abft"])
     single = timed("single", single_resume_depth, torch)
     rout, rlaunches = timed("recovery", recovery_phase, torch, single)
-    pout, plaunches = timed("compress", compress_phase, torch, tout)
-    eout, elaunches = timed("meshtrain", meshtrain_phase, torch, single)
+    pout, plaunches = timed("compress", compress_phase, torch, tout,
+                            gloo["compress"])
+    eout, elaunches, xrun = timed("meshtrain", meshtrain_phase, torch,
+                                  single)
     lout, llaunches = timed("elastic", elastic_phase, torch, single)
     xtout, xtlaunches = timed("xlstmtrain", xlstm_train_phase, torch,
                               cases)
     xmout, xmlaunches, xslaunches = timed("xlstmmesh", xlstm_mesh_phase,
-                                          torch)
+                                          torch, xrun, eout["launch_s"])
     jout, jlaunches = timed("jamba", jamba_phase, torch)
     dout, dlaunches = timed("dense", dense_phase, torch)
+    sout, slaunches = timed("deepseek", deepseek_phase, torch)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s; by phase "
         f"{json.dumps(phase_s)}")
@@ -3968,6 +4254,7 @@ def main() -> int:
     log(json.dumps({"jamba_serve": {k: v for k, v in jout.items()
                                     if k not in ("cache",)}}))
     log(json.dumps({"dense": dout}))
+    log(json.dumps({"deepseek": sout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -3993,7 +4280,9 @@ def main() -> int:
                    **{f"{arch} {n} layers": dlaunches[arch][name]
                       for arch, n in DENSE_LAYERS.items()},
                    "musicgen-large 48 layers, frames (no whitening)":
-                   dlaunches["musicgen-large"][name]}
+                   dlaunches["musicgen-large"][name],
+                   **{f"{arch} {n} layers": slaunches[arch][name]
+                      for arch, n in DEEPSEEK_LAYERS.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

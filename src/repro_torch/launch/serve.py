@@ -8,10 +8,17 @@
         --arch jamba-v0.1-52b --whiten cache      # the smoke config
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --arch gemma3-12b --whiten cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch deepseek-v3-671b --whiten cache    # the smoke config
 
 gemma2-9b, gemma3-12b, granite-20b and pixtral-12b (text tokens, no
 patch embeddings, as the reference's server) serve as the others do;
 musicgen-large takes frames, which the token-only server refuses.
+deepseek-v2-236b and deepseek-v3-671b (MLA's latent cache, the prefix
+blocks first in the cache list; v3's MTP block is never run) do not fit
+one card whole: serve them at full width cut in depth through
+``serve(args, cfg=dataclasses.replace(get_config(arch), n_layers=n))``
+(v3 4 layers: its 3 dense ones and one MoE layer; v2 2).
 
 Requests with variable prompt lengths and a tenant id are packed into
 fixed decode slots; prefill runs right-padded at a bucketed length
@@ -282,7 +289,8 @@ def serve(args, device: DeviceLike = None, cfg=None) -> Dict:
     (Python callers only; the CLI has no such flag) replaces the
     config ``--arch`` / ``--full`` name, e.g. jamba-v0.1-52b cut to one
     period (``dataclasses.replace(cfg, n_layers=8)``): its 32 layers do
-    not fit one 80 GB card."""
+    not fit one 80 GB card; so for deepseek, cut to its dense prefix and
+    one MoE layer."""
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke \
             else get_config(args.arch)

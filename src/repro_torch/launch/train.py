@@ -102,8 +102,8 @@ A model axis that does not divide a headed mixer's head count raises
 Waiting, each raising a clear error that names its ROADMAP item:
 ``--ckpt-dir`` on a mesh with state that is each rank's own (the 8-bit
 AdamW moments; the EF residuals of ``--compress-grads`` over a data
-axis: A8b); any config with Mamba or MoE blocks (jamba: A11b; the port
-serves it).
+axis: A8b); any config with Mamba or MoE blocks, MLA, prefix blocks or
+the MTP block (jamba, deepseek: A11b; the port serves them).
 """
 from __future__ import annotations
 
@@ -131,7 +131,7 @@ from ..distributed.launch import run_ranks
 from ..kernels import counts
 from ..models.model import (Model, check_head_split, init_model,
                             preload_remat, refuse_training,
-                            single_device_blocks)
+                            single_device_parts)
 from ..models.sharding import (batch_specs, global_shape, param_specs,
                                shard_leaf)
 from .steps import (_delta, describe_blas_routing, init_opt_state,
@@ -162,11 +162,11 @@ def _refuse_waiting(args, cfg) -> None:
     starts)."""
     if args.devices < 1:
         raise ValueError(f"--devices {args.devices}")
-    kinds = single_device_blocks(cfg)
-    if kinds:
+    parts = single_device_parts(cfg)
+    if parts:
         raise NotImplementedError(
-            f"training {cfg.name} ({' and '.join(kinds)} blocks) waits for "
-            "ROADMAP A11b: the capacity MoE's backward and Muon on the "
+            f"training {cfg.name} ({', '.join(parts)}) waits for ROADMAP "
+            "A11b: the capacity MoE's backward and Muon on the "
             "(n_periods, E, d, f) expert stacks; serve it instead")
     refuse_training(cfg)
     if args.devices == 1:

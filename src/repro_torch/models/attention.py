@@ -1,6 +1,6 @@
-"""GQA attention with RoPE and a KV cache (port of the GQA half of
-:mod:`repro.models.attention`, with its streamed SDPA; MLA waits,
-ROADMAP A11d).
+"""Attention mixers with RoPE and a KV cache (port of
+:mod:`repro.models.attention`): GQA with the dense and the streamed SDPA,
+and DeepSeek's multi-head latent attention (:class:`MLA`).
 
 Layouts are the reference's: q (B, Sq, H, D), k/v (B, Sk, Hkv, D), the
 cache (B, S_max, Hkv, D) in bf16.  The softmax runs in f32 as plain
@@ -10,6 +10,12 @@ logits would be large, as the reference dispatches (``_dispatch_sdpa``).
 Tensor-parallel (``tp`` set by ``Model.shard_``), a rank
 runs its n_heads / |model| heads and n_kv_heads / |model| KV heads, and
 the output projection's partial sums are all-reduced in f32.
+
+MLA caches one latent row a token, ``{"ckv": (B, S_max, kv_lora),
+"kr": (B, S_max, rope_head_dim)}`` in bf16, and up-projects the whole
+cached latent to per-head K and V on every call, with the reference's
+dense f32 softmax (it never streams); it runs on one device (on a mesh
+it waits, ROADMAP A11c).
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.collectives import copy_to_group, row_parallel
-from .common import ArchConfig, BlockSpec, apply_rope, dense_init, softcap
+from .common import (ArchConfig, BlockSpec, MLACfg, apply_rope, dense_init,
+                     softcap)
 
 NEG_INF = -2.0e38
 
@@ -182,3 +189,89 @@ def gqa_cache_init(cfg: ArchConfig, batch: int, s_max: int,
     shape = (batch, s_max, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention (DeepSeek-V2 / V3): queries through a
+    low-rank ``w_dq`` · ``w_uq`` (``q_lora`` set) or one ``wq``; keys and
+    values from a ``kv_lora``-wide latent ``x @ w_dkv``, up-projected per
+    head by ``w_uk`` / ``w_uv``; RoPE only on the ``rope_head_dim``
+    query dims and on one key ``x @ w_kr`` that every head shares.
+    Weights bf16, applied as ``x @ W`` like the reference."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        m: MLACfg = cfg.mla
+        if m is None:
+            raise ValueError(f"{cfg.name}: attn_kind='mla' needs cfg.mla")
+        d, h, qk = cfg.d_model, cfg.n_heads, m.qk_nope_dim
+        self.cfg = cfg
+        shapes = [("w_dkv", (d, m.kv_lora)), ("w_kr", (d, m.rope_head_dim)),
+                  ("w_uk", (m.kv_lora, h * qk)),
+                  ("w_uv", (m.kv_lora, h * m.v_head_dim)),
+                  ("wo", (h * m.v_head_dim, d))]
+        if m.q_lora:
+            shapes += [("w_dq", (d, m.q_lora)),
+                       ("w_uq", (m.q_lora, h * (qk + m.rope_head_dim)))]
+        else:
+            shapes += [("wq", (d, h * (qk + m.rope_head_dim)))]
+        for name, shape in shapes:
+            setattr(self, name, nn.Parameter(
+                dense_init(shape, gen, device)))
+
+    def forward(self, spec: BlockSpec, x: torch.Tensor,
+                positions: torch.Tensor,
+                cache: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+        """With a cache, the latent and the rope key are written into it
+        in place at ``positions`` and attention reads every cached row
+        up to ``positions[:, -1]``; the same dict is returned."""
+        cfg, m = self.cfg, self.cfg.mla
+        b, s, _ = x.shape
+        h, qk, rd, vd = (cfg.n_heads, m.qk_nope_dim, m.rope_head_dim,
+                         m.v_head_dim)
+        if m.q_lora:
+            q = (x @ self.w_dq) @ self.w_uq
+        else:
+            q = x @ self.wq
+        q = q.reshape(b, s, h, qk + rd)
+        q_nope = q[..., :qk]
+        q_rope = apply_rope(q[..., qk:], positions, cfg.rope_theta)
+        ckv = x @ self.w_dkv                               # (B, S, kv_lora)
+        kr = apply_rope((x @ self.w_kr)[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]           # (B, S, rd)
+        if cache is not None:
+            rows = torch.arange(b, device=x.device)[:, None]
+            cache["ckv"][rows, positions] = ckv.to(cache["ckv"].dtype)
+            cache["kr"][rows, positions] = kr.to(cache["kr"].dtype)
+            ckv, kr = cache["ckv"], cache["kr"]
+            k_pos = torch.arange(ckv.shape[1], device=x.device)[None] \
+                .expand(b, -1)
+            mask = _attn_mask(positions, k_pos, spec.local_window,
+                              k_pos <= positions[:, -1:])
+        else:
+            mask = _attn_mask(positions, positions, spec.local_window)
+        sk = ckv.shape[1]
+        # the whole latent up-projected to per-head K / V
+        k_nope = (ckv @ self.w_uk).reshape(b, sk, h, qk)
+        v = (ckv @ self.w_uv).reshape(b, sk, h, vd)
+        logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(),
+                               k_nope.float())
+                  + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                                 kr.float())) * (qk + rd) ** -0.5
+        logits = torch.where(mask[:, None], logits,
+                             torch.tensor(NEG_INF, device=x.device))
+        w = torch.softmax(logits, dim=-1)
+        y = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+        return y.reshape(b, s, h * vd).to(x.dtype) @ self.wo, cache
+
+
+def mla_cache_init(cfg: ArchConfig, batch: int, s_max: int,
+                   device: torch.device,
+                   dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, s_max, m.kv_lora), dtype=dtype,
+                               device=device),
+            "kr": torch.zeros((batch, s_max, m.rope_head_dim), dtype=dtype,
+                              device=device)}

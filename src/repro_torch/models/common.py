@@ -6,7 +6,9 @@ softcaps, post-block norms and scaled embeddings; granite with MQA,
 LayerNorm and the ungated GELU MLP; pixtral's ``vlm`` and musicgen's
 ``embeddings`` frontends), the xLSTM mixers with no MLP (xlstm), and the
 Mamba mixer and the routed MoE MLP beside attention and the dense MLP
-(jamba).  Tensors keep the reference's layouts
+(jamba), and multi-head latent attention (MLA) with unscanned prefix
+blocks, shared experts and the multi-token-prediction block (deepseek).
+Tensors keep the reference's layouts
 ((B, S, d) activations, (B, S, H, D) heads) and dtypes (bf16 weights
 and activations, f32 norm parameters and f32 softmax).
 """
@@ -38,6 +40,15 @@ class MoECfg:
 
 
 @dataclass(frozen=True)
+class MLACfg:
+    kv_lora: int = 512
+    q_lora: int = 0              # 0 = no query compression
+    rope_head_dim: int = 64
+    v_head_dim: int = 128
+    qk_nope_dim: int = 128
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     n_layers: int
@@ -49,7 +60,8 @@ class ArchConfig:
     head_dim: int = 0                       # 0 -> d_model // n_heads
     pattern: Tuple[BlockSpec, ...] = (BlockSpec(),)
     prefix: Tuple[BlockSpec, ...] = ()      # unscanned lead-in blocks
-    attn_kind: str = "gqa"                  # gqa (mla waits)
+    attn_kind: str = "gqa"                  # gqa | mla
+    mla: Optional[MLACfg] = None
     moe: Optional[MoECfg] = None
     norm: str = "rmsnorm"                   # rmsnorm | layernorm
     act: str = "silu"                       # silu | gelu (gated) | gelu_mlp
@@ -62,6 +74,7 @@ class ArchConfig:
     embed_scale: bool = False
     frontend: str = "tokens"                # tokens | embeddings | vlm
     n_frontend_tokens: int = 0              # vlm: patch tokens per sample
+    mtp: bool = False                       # deepseek-v3 multi-token predict
     mamba_d_state: int = 16
     mamba_d_conv: int = 4
     mamba_expand: int = 2
@@ -75,6 +88,14 @@ class ArchConfig:
     @property
     def period(self) -> int:
         return len(self.pattern)
+
+    @property
+    def n_periods(self) -> int:
+        """The scanned periods: the layers after the prefix, over the
+        pattern's length."""
+        scanned = self.n_layers - len(self.prefix)
+        assert scanned % self.period == 0, (self.n_layers, self.period)
+        return scanned // self.period
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +171,9 @@ def dense_init(shape, gen: torch.Generator, device: torch.device,
     std = 1.0 / math.sqrt(shape[in_axis])
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * std).to(torch.bfloat16)
+    # scaled in place: the product's bits, one f32 transient fewer (a
+    # deepseek-v3 expert stack's f32 draw is 15 GB)
+    return w.mul_(std).to(torch.bfloat16)
 
 
 def embed_init(shape, gen: torch.Generator,

@@ -2,8 +2,10 @@
 training loss (port of :mod:`repro.models.model` for attention +
 dense-MLP blocks (stablelm; gemma2 / gemma3 with post-block norms and
 scaled embeddings; granite; pixtral; musicgen), the xLSTM blocks, an
-mLSTM or sLSTM mixer with no MLP (xlstm), and Mamba or attention mixers
-beside a dense or routed MoE MLP (jamba)).
+mLSTM or sLSTM mixer with no MLP (xlstm), Mamba or attention mixers
+beside a dense or routed MoE MLP (jamba), and multi-head latent
+attention with unscanned prefix blocks and the multi-token-prediction
+block (deepseek)).
 
     model = init_model(cfg, seed=0)                      # on the GPU
     loss = lm_loss(model, {"tokens": t, "labels": l})    # differentiable
@@ -22,14 +24,20 @@ with precomputed patch embeddings put before them ("vlm", pixtral:
 their dtype first, as the reference does; with ``tie_embeddings`` the
 head is ``embed.T`` and there is no ``unembed``.
 
-The reference stacks layers into scanned periods; here layer
-``p·period + i`` is ``blocks[p·period + i]``.  :func:`from_jax_params`
+The reference runs ``cfg.prefix``'s blocks unscanned, then stacks the
+other layers into scanned periods; here ``blocks`` holds the prefix's
+blocks first, then layer ``p·period + i`` of the periods as
+``blocks[len(prefix) + p·period + i]``.  With ``cfg.mtp`` the model also
+holds ``mtp``, one dense attention block, and ``mtp_norm``: the loss's
+t+2 term reads them (weight 0.3); serving never runs them.
+:func:`from_jax_params`
 loads the reference's ``init_params`` tree (as numpy arrays), so the
 tests can run both packages on the same weights; :meth:`Model.param_tree`
 gives the parameters in the reference's tree, stacked leaves as lists
 of per-layer Parameters (what the optimizers update).  The KV cache is a
-list with one dict per layer, updated in place: ``{"k", "v"}`` for
-attention, the recurrent state (``models.ssm``) for Mamba / mLSTM /
+list with one dict per layer, the prefix's first, updated in place:
+``{"k", "v"}`` for GQA, the latent ``{"ckv", "kr"}`` for MLA, the
+recurrent state (``models.ssm``) for Mamba / mLSTM /
 sLSTM, batch on dim 0 in both.
 
 On a (data, model) mesh (``init_model(..., mesh=)``, ``Model.shard_``)
@@ -39,9 +47,9 @@ the MLP Megatron-split over 'model' (``collectives.copy_to_group`` /
 ``row_parallel`` around them), the embedding on its vocab rows (a
 masked gather and an all-reduce) and the unembedding on its vocab
 columns, so that :func:`lm_loss` is vocab-parallel.  That path trains;
-serving a sharded model raises.  Mamba and MoE blocks run on one device:
-on a mesh they wait (ROADMAP A11c), and so does their training (A11b,
-``launch/train.py``).
+serving a sharded model raises.  Mamba and MoE blocks, MLA, prefix
+blocks and the MTP block run on one device: on a mesh they wait (ROADMAP
+A11c), and so does their training (A11b, ``launch/train.py``).
 """
 from __future__ import annotations
 
@@ -60,7 +68,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import DeviceLike, resolve_device
 from ..distributed.collectives import (all_reduce, copy_to_group,
                                        reduce_from_group)
-from .attention import GQA, gqa_cache_init
+from .attention import GQA, MLA, gqa_cache_init, mla_cache_init
 from .common import (ArchConfig, BlockSpec, apply_norm, dense_init,
                      embed_init, softcap)
 from .moe import MLP, MoE
@@ -72,6 +80,9 @@ Cache = List[Dict[str, torch.Tensor]]
 
 FRONTENDS = ("tokens", "embeddings", "vlm")
 MIXERS = {"attn": GQA, "mamba": Mamba, "mlstm": MLSTM, "slstm": SLSTM}
+ATTN_KINDS = {"gqa": GQA, "mla": MLA}
+#: the block the MTP head runs (the reference's ``init_params``)
+MTP_SPEC = BlockSpec(mixer="attn", mlp="dense")
 MLPS = {"dense": MLP, "moe": MoE}
 #: each mixer's weights that tensor parallelism splits together: the
 #: column-parallel projections and the row-parallel ``wo``
@@ -84,12 +95,17 @@ HEADS = {"attn": {"wq": "n_heads", "wk": "n_kv_heads", "wv": "n_kv_heads",
          "mlstm": {w: "n_heads" for w in TP_WEIGHTS["mlstm"]}}
 
 
-def single_device_blocks(cfg: ArchConfig) -> List[str]:
-    """The block kinds of ``cfg`` that run on one device only: Mamba
-    mixers and MoE MLPs (their tensor parallelism waits)."""
+def single_device_parts(cfg: ArchConfig) -> List[str]:
+    """The parts of ``cfg`` that run on one device only (their tensor
+    parallelism waits): Mamba mixers, MoE MLPs, MLA, prefix blocks and
+    the MTP block."""
     specs = cfg.prefix + cfg.pattern
-    return sorted({"mamba" for b in specs if b.mixer == "mamba"}
-                  | {"moe" for b in specs if b.mlp == "moe"})
+    kinds = sorted({"mamba" for b in specs if b.mixer == "mamba"}
+                   | {"moe" for b in specs if b.mlp == "moe"})
+    return [f"{k} blocks" for k in kinds] + [what for on, what in (
+        (cfg.attn_kind == "mla", "MLA attention"),
+        (bool(cfg.prefix), "prefix blocks"),
+        (cfg.mtp, "the MTP block")) if on]
 
 
 def refuse_training(cfg: ArchConfig) -> None:
@@ -110,20 +126,20 @@ def refuse_training(cfg: ArchConfig) -> None:
 
 
 def refuse_on_mesh(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config whose blocks run on
-    one device only (:func:`single_device_blocks`), or that the port
+    """Raise ``NotImplementedError`` for a config with parts that run on
+    one device only (:func:`single_device_parts`), or that the port
     does not train yet (:func:`refuse_training`)."""
-    kinds = single_device_blocks(cfg)
-    if kinds:
+    parts = single_device_parts(cfg)
+    if parts:
         raise NotImplementedError(
-            f"{cfg.name}: {' and '.join(kinds)} blocks on a mesh wait for "
-            "ROADMAP A11c (they run on one device)")
+            f"{cfg.name}: {', '.join(parts)} on a mesh wait for ROADMAP "
+            "A11c (they run on one device)")
     refuse_training(cfg)
 
 
 def check_head_split(cfg: ArchConfig, specs, model: int) -> None:
-    """Raise ``NotImplementedError`` for Mamba or MoE blocks, which run
-    on one device only (:func:`refuse_on_mesh`), and ``ValueError`` where
+    """Raise ``NotImplementedError`` for parts that run on one device
+    only (:func:`refuse_on_mesh`), and ``ValueError`` where
     ``specs`` (:func:`~.sharding.param_specs`
     on a 'model' axis of ``model`` ranks) split a headed mixer's weight
     (attention, mLSTM) over a head count that ``model`` does not divide:
@@ -205,14 +221,16 @@ class Block(nn.Module):
             raise NotImplementedError(
                 f"block {spec} is not ported yet (mixers {sorted(MIXERS)},"
                 f" mlps {sorted(MLPS)} | none)")
-        if spec.mixer == "attn" and cfg.attn_kind != "gqa":
-            raise NotImplementedError(
-                f"attn_kind={cfg.attn_kind!r} waits for ROADMAP A11d")
+        if spec.mixer == "attn" and cfg.attn_kind not in ATTN_KINDS:
+            raise ValueError(f"attn_kind {cfg.attn_kind!r} (have "
+                             f"{sorted(ATTN_KINDS)})")
         if spec.mlp == "moe" and not (cfg.moe and cfg.moe.n_experts):
             raise ValueError(f"{cfg.name}: an moe block needs cfg.moe")
         self.cfg, self.spec = cfg, spec
         self.norm1 = Norm(cfg, cfg.d_model, device)
-        self.mixer = MIXERS[spec.mixer](cfg, gen, device)
+        mixer = ATTN_KINDS[cfg.attn_kind] if spec.mixer == "attn" else \
+            MIXERS[spec.mixer]
+        self.mixer = mixer(cfg, gen, device)
         if spec.mlp != "none":
             self.norm2 = Norm(cfg, cfg.d_model, device)
             self.mlp = MLPS[spec.mlp](cfg, gen, device)
@@ -237,7 +255,10 @@ class Block(nn.Module):
 
     def init_cache(self, batch: int, s_max: int,
                    device: torch.device) -> Dict[str, torch.Tensor]:
-        """This layer's cache: KV for attention, recurrent state else."""
+        """This layer's cache: KV for GQA, the latent for MLA, the
+        recurrent state else."""
+        if self.spec.mixer == "attn" and self.cfg.attn_kind == "mla":
+            return mla_cache_init(self.cfg, batch, s_max, device)
         if self.spec.mixer == "mamba":
             return mamba_state_init(self.cfg, batch, device)
         if self.spec.mixer == "mlstm":
@@ -251,9 +272,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, gen: torch.Generator,
                  device: torch.device):
         super().__init__()
-        if cfg.prefix:
-            raise NotImplementedError(f"{cfg.name}: prefix blocks wait for "
-                                      "ROADMAP A11d")
         if cfg.frontend not in FRONTENDS:
             raise ValueError(f"frontend {cfg.frontend!r} (have "
                              f"{FRONTENDS})")
@@ -272,9 +290,12 @@ class Model(nn.Module):
                                 else nn.Parameter(dense_init(
                                     (cfg.d_model, cfg.vocab), gen, device)))
         self.final_norm = Norm(cfg, cfg.d_model, device)
-        specs = [cfg.pattern[i % cfg.period] for i in range(cfg.n_layers)]
+        specs = tuple(cfg.prefix) + tuple(cfg.pattern) * cfg.n_periods
         self.blocks = nn.ModuleList(Block(cfg, s, gen, device)
                                     for s in specs)
+        if cfg.mtp:
+            self.mtp = Block(cfg, MTP_SPEC, gen, device)
+            self.mtp_norm = Norm(cfg, cfg.d_model, device)
 
     # -- helpers -----------------------------------------------------------
     def init_cache(self, batch: int, s_max: int) -> Cache:
@@ -298,18 +319,27 @@ class Model(nn.Module):
         flattens a dict): a ``("periods", "b<i>", ...)`` leaf lists the
         Parameter of every period (layer p·period + i), stacked on a
         leading n_periods axis where the reference stacks it; any other
-        leaf is one Parameter."""
+        leaf (``("prefix", "b<i>", ...)``, ``mtp``, ...) is one
+        Parameter."""
+        cfg = self.cfg
         tree: Dict[Tuple[str, ...], List[nn.Parameter]] = {
             (name,): [p] for name, p in (("embed", self.embed),
                                          ("unembed", self.unembed))
             if p is not None}
-        for name, p in self.final_norm.named_parameters():
-            tree[("final_norm", name)] = [p]
-        for i in range(self.cfg.period):
-            for name, _ in self.blocks[i].named_parameters():
+        whole = [(("final_norm",), self.final_norm)] + [
+            (("prefix", f"b{i}"), self.blocks[i])
+            for i in range(len(cfg.prefix))]
+        if cfg.mtp:
+            whole += [(("mtp",), self.mtp), (("mtp_norm",), self.mtp_norm)]
+        for base, module in whole:
+            for name, p in module.named_parameters():
+                tree[base + tuple(name.split("."))] = [p]
+        first = len(cfg.prefix)
+        for i in range(cfg.period):
+            for name, _ in self.blocks[first + i].named_parameters():
                 tree[("periods", f"b{i}") + tuple(name.split("."))] = [
                     self.blocks[li].get_parameter(name)
-                    for li in range(i, self.cfg.n_layers, self.cfg.period)]
+                    for li in range(first + i, cfg.n_layers, cfg.period)]
         return dict(sorted(tree.items()))
 
     def stacked_shapes(self) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
@@ -435,8 +465,8 @@ class Model(nn.Module):
 
     def _period(self, p: int, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
-        period = self.cfg.period
-        for blk in self.blocks[p * period:(p + 1) * period]:
+        period, first = self.cfg.period, len(self.cfg.prefix)
+        for blk in self.blocks[first + p * period:first + (p + 1) * period]:
             x, _ = blk(x, positions, None)
         return x
 
@@ -451,7 +481,8 @@ class Model(nn.Module):
         "embeddings" frontend; ``patch_embeds`` (B, P, d) before the
         tokens for "vlm") -> final-norm hidden states (B, S(+P), d).
 
-        Without a cache and with autograd on, each period is
+        The prefix blocks run first, as the reference's unscanned
+        lead-in.  Without a cache and with autograd on, each period is
         recomputed in the backward pass (``torch.utils.checkpoint``)
         under ``cfg.remat_policy``, as the reference's scan body is:
         "full" keeps only the period's input, "dots" also the outputs
@@ -464,7 +495,9 @@ class Model(nn.Module):
             positions = torch.arange(s, device=x.device)[None].expand(b, -1)
         if cache is None and remat and torch.is_grad_enabled():
             ctx = _remat_context(self.cfg)
-            for p in range(self.cfg.n_layers // self.cfg.period):
+            for blk in self.blocks[:len(self.cfg.prefix)]:
+                x, _ = blk(x, positions, None)
+            for p in range(self.cfg.n_periods):
                 x = checkpoint(self._period, p, x, positions,
                                use_reentrant=False, context_fn=ctx)
         else:
@@ -540,18 +573,12 @@ def _xent_chunk_tp(cfg: ArchConfig, w: torch.Tensor, x: torch.Tensor,
     return torch.sum((lse - ll) * valid), torch.sum(valid).float()
 
 
-def lm_loss_terms(model: Model, batch: Dict[str, torch.Tensor],
-                  chunk: int = 512, remat: bool = True
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum of the token losses, count of valid tokens) of ``batch``:
-    :func:`lm_loss` before its division, so that a data-parallel step
-    can divide by the count over every rank's rows.  With a
-    vocab-sharded unembed the loss is vocab-parallel, chunk by chunk."""
+def _xent_terms(model: Model, x: torch.Tensor, labels: torch.Tensor,
+                chunk: int, remat: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the token losses, count of valid tokens) of hidden ``x``
+    (B, S, d) against ``labels`` through the head, chunk by chunk."""
     cfg = model.cfg
-    x, _ = model(batch.get("tokens"), positions=batch.get("positions"),
-                 remat=remat, embeds=batch.get("embeds"),
-                 patch_embeds=batch.get("patch_embeds"))
-    labels = batch["labels"]
     b, s, _ = x.shape
     nchunks = max(s // chunk, 1)
     cs = s // nchunks
@@ -571,6 +598,52 @@ def lm_loss_terms(model: Model, batch: Dict[str, torch.Tensor],
     return tot, cnt
 
 
+#: the weight of the MTP block's t+2 cross-entropy (the reference's)
+MTP_WEIGHT = 0.3
+
+
+def _loss_parts(model: Model, batch: Dict[str, torch.Tensor], chunk: int,
+                remat: bool):
+    """The next-token terms (sum, count) and, with ``cfg.mtp``, the t+2
+    terms: the MTP block on the final-normed hidden the head reads, at
+    the batch's positions, then ``mtp_norm``, against ``labels[:, 1:]``
+    padded with -1 (else None)."""
+    cfg = model.cfg
+    x, _ = model(batch.get("tokens"), positions=batch.get("positions"),
+                 remat=remat, embeds=batch.get("embeds"),
+                 patch_embeds=batch.get("patch_embeds"))
+    labels = batch["labels"]
+    terms = _xent_terms(model, x, labels, chunk, remat)
+    if not cfg.mtp:
+        return terms, None
+    b, s, _ = x.shape
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(s, device=x.device)[None].expand(b, -1)
+    h, _ = model.mtp(x, pos, None)
+    h = apply_norm(cfg, model.mtp_norm, h)
+    lab2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)],
+                     dim=1)
+    return terms, _xent_terms(model, h, lab2, chunk, remat)
+
+
+def lm_loss_terms(model: Model, batch: Dict[str, torch.Tensor],
+                  chunk: int = 512, remat: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the token losses, count of valid tokens) of ``batch``:
+    :func:`lm_loss` before its division, so that a data-parallel step
+    can divide by the count over every rank's rows.  With a
+    vocab-sharded unembed the loss is vocab-parallel, chunk by chunk.
+    With ``cfg.mtp`` the t+2 term's weighted mean is added to the sum at
+    the count's scale (one device: the MTP block does not run on a
+    mesh)."""
+    (tot, cnt), mtp = _loss_parts(model, batch, chunk, remat)
+    if mtp is not None:
+        tot = tot + MTP_WEIGHT * mtp[0] / torch.clamp(mtp[1], min=1.0) \
+            * torch.clamp(cnt, min=1.0)
+    return tot, cnt
+
+
 def lm_loss(model: Model, batch: Dict[str, torch.Tensor], chunk: int = 512,
             remat: bool = True) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` (or its
@@ -579,9 +652,13 @@ def lm_loss(model: Model, batch: Dict[str, torch.Tensor], chunk: int = 512,
     sequence, patches included), over sequence chunks of ``chunk``
     positions, each recomputed in the backward pass when ``remat``
     (positions past the last whole chunk are dropped, as the
-    reference's reshape drops them)."""
-    tot, cnt = lm_loss_terms(model, batch, chunk, remat)
-    return tot / torch.clamp(cnt, min=1.0)
+    reference's reshape drops them); with ``cfg.mtp`` plus
+    ``MTP_WEIGHT`` times the MTP block's mean t+2 cross-entropy."""
+    (tot, cnt), mtp = _loss_parts(model, batch, chunk, remat)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    if mtp is not None:
+        loss = loss + MTP_WEIGHT * mtp[0] / torch.clamp(mtp[1], min=1.0)
+    return loss
 
 
 def init_model(cfg: ArchConfig, seed: int = 0,
@@ -603,7 +680,8 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ArchConfig,
     """Build a :class:`Model` holding the weights of
     ``repro.models.model.init_params`` (as numpy arrays, with the
     stacked ``periods`` leaves' leading n_periods axis, the MoE experts'
-    (n_periods, E, d, f) included); with a ``mesh``, this rank's blocks
+    (n_periods, E, d, f) included, the unstacked ``prefix`` blocks and
+    the ``mtp`` / ``mtp_norm`` leaves); with a ``mesh``, this rank's blocks
     of them.  A leaf with no Parameter to go to (a nested dict
     included), a shape that differs, or a Parameter that no leaf fills
     raises ``ValueError``, naming the path."""
@@ -631,9 +709,17 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ArchConfig,
             placed.add(id(target))
 
     whole = lambda a: a                         # noqa: E731
-    top = {k: v for k, v in np_tree.items() if k != "periods"}
+    top = {k: v for k, v in np_tree.items() if k not in ("periods",
+                                                          "prefix")}
     put(model, top, (), whole)
-    for li, blk in enumerate(model.blocks):
+    first = len(cfg.prefix)
+    for name, sub in np_tree.get("prefix", {}).items():
+        i = int(name[1:]) if name[:1] == "b" and name[1:].isdigit() else -1
+        if not 0 <= i < first:
+            raise ValueError(f"prefix/{name}: the port has no parameter to "
+                             f"place it in ({first} prefix blocks)")
+        put(model.blocks[i], sub, ("prefix", name), whole)
+    for li, blk in enumerate(model.blocks[first:]):
         p, i = divmod(li, cfg.period)
         put(blk, np_tree["periods"][f"b{i}"], ("periods", f"b{i}"),
             lambda a, p=p: np.asarray(a)[p])

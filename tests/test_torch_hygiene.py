@@ -49,6 +49,8 @@ MODULES = [
     "repro_torch.configs.gemma2_9b", "repro_torch.configs.gemma3_12b",
     "repro_torch.configs.granite_20b", "repro_torch.configs.pixtral_12b",
     "repro_torch.configs.musicgen_large",
+    "repro_torch.configs.deepseek_v2_236b",
+    "repro_torch.configs.deepseek_v3_671b",
 ]
 
 _PROBE = r"""
@@ -147,6 +149,20 @@ def test_dense_family_entry_points_raise_without_a_gpu(monkeypatch, arch):
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve(args)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_deepseek_entry_points_raise_without_a_gpu(monkeypatch, arch):
+    """``init_model`` and ``serve()`` of the deepseek configs want the
+    card as the others do."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import build_argparser, serve
+    from repro_torch.models.model import init_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_model(get_smoke_config(arch))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve(build_argparser().parse_args(["--arch", arch]))
 
 
 def test_mesh_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
