@@ -299,7 +299,28 @@ Phases (any failure exits non-zero):
              iteration; one full-width v3 MLA layer (a prefill of 64
              into the latent cache, a decode step) against the CPU
              within 5e-2.  Phase 3 times the symmetric kernels at
-             d = 7168.
+             d = 7168;
+20. shapes — the shape cells (``configs/shapes.py``) run for real at
+             full width through the port's own steps, the batch cut by
+             ``input_specs``' scale: stablelm-1.6b prefill_32k (one
+             sequence of 32767 tokens into an s_max 32768 cache: the
+             streamed SDPA at length), decode_32k (that cache copied
+             into 4 rows, one step at position 32767, the mean of 3) and
+             train_4k (the trainer, 1 x 4096 tokens, 2 AdamW steps);
+             xlstm-350m prefill_32k (32768 tokens: the chunkwise mLSTM,
+             ``slstm_scan`` on (1, 32768, 1024) bf16 quads, 6 launches,
+             no plain scan) and long_500k (decode steps from that
+             prefill's state).  Each row prints its measured seconds
+             (host clock around synced work), peak memory, its step's
+             op count on the meta device (``analysis/op_cost.py``: flops
+             by dtype, eager bytes; counted by two child processes
+             started after phase 1, while the card runs the other
+             phases) and the H100 roofline's terms, and asserts that the
+             measured fraction, bound / measured, is at most 1.  Also:
+             the streamed SDPA against the dense one on layer 0's real q
+             / k / v at 32768 keys (``SDPA_TOL``), and that sLSTM
+             layer's gates through ``slstm_scan`` against its plain
+             version on the card, both timed.
 
 The seconds of each phase are printed on the ``[done]`` line.
 The line before the last is a JSON object with one entry per kernel;
@@ -417,7 +438,9 @@ def build() -> float:
 def cuda_ms(torch, fn, window_ms: float = 25.0, warmup: int = 3) -> float:
     """Mean device ms per call over a window of at least ``window_ms``
     (at least 10 calls), so that a short kernel is timed over enough
-    launches for the clocks to settle."""
+    launches for the clocks to settle.  A call that fills the window
+    alone (a plain version's Python loop over S) is timed over 2 calls
+    after one warm-up."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
 
@@ -431,6 +454,8 @@ def cuda_ms(torch, fn, window_ms: float = 25.0, warmup: int = 3) -> float:
         return start.elapsed_time(end) / reps
 
     fn()                                  # first call: lazy set-up
+    if timed(1) >= window_ms:
+        return timed(2)
     est = timed(warmup)
     return timed(max(10, int(window_ms / max(est, 1e-3)) + 1))
 
@@ -3444,11 +3469,18 @@ def slstm_bwd_cases(torch, cases):
     torch.cuda.empty_cache()
 
 
+#: the plain scans before ``guard_plain_scans`` wrapped them (phase 20
+#: times the plain version on the card beside the kernel)
+UNGUARDED = {}
+
+
 def guard_plain_scans() -> None:
     """Make the plain sLSTM scans (forward and backward) of this process
     raise when a CUDA tensor reaches them (the wrappers never fall back:
     this shows it on the path)."""
     from repro_torch.kernels import slstm
+    UNGUARDED.setdefault("scan", slstm._slstm_scan_plain)
+    UNGUARDED.setdefault("bwd", slstm._slstm_scan_bwd_plain)
 
     def guard(fn):
         def on_host_only(*args, **kw):
@@ -4193,6 +4225,347 @@ def deepseek_phase(torch):
     return rows, launches
 
 
+# --------------------------------------------------------------------------
+# phase 20: the shape cells at full width on the card
+# --------------------------------------------------------------------------
+#: (row, arch, cell, scale): each cell through the port's own steps at
+#: its config's published widths and depth, the batch cut by
+#: ``input_specs``' scale
+SHAPE_ROWS = (("stablelm-1.6b prefill_32k", "stablelm_1_6b", "prefill_32k", 32),
+              ("stablelm-1.6b decode_32k", "stablelm_1_6b", "decode_32k", 32),
+              ("xlstm-350m prefill_32k", "xlstm_350m", "prefill_32k", 32),
+              ("xlstm-350m long_500k", "xlstm_350m", "long_500k", 1),
+              ("stablelm-1.6b train_4k", "stablelm_1_6b", "train_4k", 256))
+#: stablelm's prefill is one token short of its cell, so that the
+#: decode_32k step at position 32767 writes into the same s_max 32768
+#: cache (copied into the decode cell's 4 rows)
+SHAPE_PREFILL_TOKENS = 32767
+SHAPE_S_MAX = 32768
+#: timed decode steps after one warm-up
+SHAPE_DECODE_REPS = 3
+#: the dry run's default loss chunk (``launch/dryrun.py``), which the
+#: train_4k row's trainer takes so that the card runs the counted step
+SHAPE_LOSS_CHUNK = 512
+
+
+def count_shape_row(name: str) -> dict:
+    """op_cost of a phase-20 row's step at its scale on the meta device
+    (no card: ``launch/dryrun.py``'s ``count_cell``; stablelm's prefill
+    at ``SHAPE_PREFILL_TOKENS``), with its H100 roofline."""
+    import torch
+    from repro_torch.analysis.op_cost import OpCounter
+    from repro_torch.analysis.roofline import build_roofline
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import Model
+    [(_, arch, cell, scale)] = [r for r in SHAPE_ROWS if r[0] == name]
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    if name == "stablelm-1.6b prefill_32k":
+        meta = torch.device("meta")
+        model = Model(cfg, torch.Generator(), meta)
+        tokens = torch.empty((1, SHAPE_PREFILL_TOKENS), dtype=torch.int32,
+                             device=meta)
+        with OpCounter() as c:
+            make_prefill_step(model, SHAPE_S_MAX)(tokens)
+        cost = c.cost
+    else:
+        cost = dryrun.count_cell(cfg, cell, scale=scale,
+                                 loss_chunk=SHAPE_LOSS_CHUNK)[0]
+    roof = build_roofline(cost, 1)
+    return {"row": name, "count_s": time.perf_counter() - t0,
+            **cost.summary(), "compute_s": roof.compute_s,
+            "memory_s": roof.memory_s, "collective_s": roof.collective_s,
+            "dominant": roof.dominant, "bound_s": roof.bound_s,
+            "top_bytes": cost.top_ops(6)}
+
+
+def count_shape_rows(out: str, names) -> None:
+    """The child process's work: ``count_shape_row`` of each row, one
+    JSON line each, into ``out``."""
+    with open(out, "w") as f:
+        for name in names:
+            f.write(json.dumps(count_shape_row(name)) + "\n")
+
+
+def start_shape_counts(tmp: str):
+    """Count phase 20's rows on the meta device in two child processes
+    (the xlstm prefill's 256 mLSTM chunks × 18 layers alone, the rest in
+    the other), at a lower priority, while the card runs the earlier
+    phases: [(process, output path)]."""
+    groups = ([SHAPE_ROWS[2][0]], [r[0] for r in SHAPE_ROWS
+                                   if r[0] != SHAPE_ROWS[2][0]])
+    procs = []
+    for i, names in enumerate(groups):
+        out = os.path.join(tmp, f"shape_counts_{i}.jsonl")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--count-shapes",
+             out, *names], preexec_fn=lambda: os.nice(10)), out))
+    return procs
+
+
+def read_shape_counts(procs, timeout: float = 600.0) -> dict:
+    counts = {}
+    for proc, out in procs:
+        try:
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if rc != 0:
+            raise SystemExit(f"[shapes] counting child exited {rc}")
+        for line in open(out):
+            rec = json.loads(line)
+            counts[rec["row"]] = rec
+    return counts
+
+
+def _synced_s(torch, fn):
+    """(host seconds of ``fn()`` between two syncs, its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _shape_row(torch, name, seconds, clock, count, peak=None) -> dict:
+    """A row's record: the measured seconds beside its count and the
+    H100 roofline; the measured fraction bound / measured must be ≤ 1
+    (a bound faster than the card's time means a wrong count)."""
+    peak = torch.cuda.max_memory_allocated() if peak is None else peak
+    frac = count["bound_s"] / seconds
+    row = {"row": name, "measured_s": seconds, "clock": clock,
+           "peak_bytes": peak, "flops_by_dtype": count["flops_by_dtype"],
+           "dot_flops_by_dtype": count["dot_flops_by_dtype"],
+           "eager_bytes": count["eager_bytes"],
+           "compute_s": count["compute_s"], "memory_s": count["memory_s"],
+           "collective_s": count["collective_s"],
+           "dominant": count["dominant"], "bound_s": count["bound_s"],
+           "measured_fraction": frac, "ops": count["ops"],
+           "count_s": count["count_s"]}
+    log(f"[shapes] {name}: measured {seconds:.4f} s ({clock}), peak "
+        f"{peak / 2**30:.2f} GiB; op_cost flops by dtype "
+        + json.dumps({k: f"{v:.4e}" for k, v in
+                      count["flops_by_dtype"].items()})
+        + f", eager bytes {count['eager_bytes']:.4e} ({count['ops']} ops; "
+        f"most bytes {[k for k, _ in count['top_bytes']]}); H100 roofline "
+        f"compute {count['compute_s']:.4f} s, memory "
+        f"{count['memory_s']:.4f} s, collective {count['collective_s']:.1f}"
+        f" s, dominant {count['dominant']}; measured fraction "
+        f"{frac:.4f} (<= 1)")
+    assert frac <= 1.0, (name, frac)
+    return row
+
+
+def _stablelm_sdpa_check(torch, model, cfg, tokens, cache):
+    """The streamed SDPA at length against the dense one: layer 0's real
+    q of the prompt's last 1024 positions (recomputed from the
+    embedding, upcast to f32) over its cached bf16 k / v at 32768 keys,
+    the dense mask (1024 × 32768, the f32 logits ~4.3 GB)."""
+    from repro_torch.models.attention import (_attn_mask, _sdpa,
+                                              _sdpa_streamed)
+    from repro_torch.models.common import apply_norm, apply_rope
+    blk, nq = model.blocks[0], 1024
+    q_pos = torch.arange(SHAPE_PREFILL_TOKENS - nq, SHAPE_PREFILL_TOKENS,
+                         device=DEVICE)[None]
+    k_pos = torch.arange(SHAPE_S_MAX, device=DEVICE)[None]
+    valid = k_pos <= SHAPE_PREFILL_TOKENS - 1
+    with torch.no_grad():
+        h = apply_norm(cfg, blk.norm1, model._embed(tokens[:, -nq:]))
+        q = (h @ blk.mixer.wq).reshape(1, nq, cfg.n_heads, cfg.hd)
+        # the bf16 q upcast: both return q's dtype, and an f32 output
+        # shows their difference rather than a bf16 rounding of it
+        q = apply_rope(q, q_pos, cfg.rope_theta, cfg.rope_fraction).float()
+        k, v = cache[0]["k"], cache[0]["v"]
+        scale = cfg.hd ** -0.5
+        t0 = time.perf_counter()
+        got = _sdpa_streamed(q, k, v, q_pos, k_pos, 0, valid, 0.0, scale)
+        mask = _attn_mask(q_pos, k_pos, 0, valid)
+        want = _sdpa(q, k, v, mask, 0.0, scale)
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / max(1.0, float(want.float().abs().max()))
+        secs = time.perf_counter() - t0
+    log(f"[shapes] _sdpa_streamed vs _sdpa at length: layer 0's q of "
+        f"positions {SHAPE_PREFILL_TOKENS - nq}..{SHAPE_PREFILL_TOKENS - 1}"
+        f" over {SHAPE_S_MAX} keys (1024-key blocks), {cfg.n_heads} heads "
+        f"of {cfg.hd}: max_abs_err {err:.3e} (rel {rel:.2e} <= "
+        f"{SDPA_TOL:.0e}); {secs:.2f} s")
+    assert rel <= SDPA_TOL and bool(torch.isfinite(got).all()), rel
+    return {"max_abs_err": err, "rel_err": rel}
+
+
+def shapes_stablelm(torch, counts) -> tuple:
+    """stablelm-1.6b at full width: the prefill_32k row (one sequence of
+    ``SHAPE_PREFILL_TOKENS`` into an s_max 32768 cache, the streamed
+    SDPA), the streamed-vs-dense check, the decode_32k row (the cache
+    copied into 4 rows, one step at position 32767), then the train_4k
+    row through the trainer (1 × 4096 tokens, 2 AdamW steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.counts import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.launch.train import build_argparser, train
+    from repro_torch.models.model import init_model
+    cfg = get_config("stablelm_1_6b")
+    rows, launches = {}, {}
+    model = init_model(cfg, seed=0)
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    tokens = torch.randint(0, cfg.vocab, (1, SHAPE_PREFILL_TOKENS),
+                           generator=gen, device=DEVICE, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    name = SHAPE_ROWS[0][0]
+    secs, (logits, cache) = _synced_s(
+        torch, lambda: make_prefill_step(model, SHAPE_S_MAX)(tokens))
+    launches[name] = launch_counts()
+    assert tuple(logits.shape) == (1, 1, cfg.vocab) and \
+        bool(torch.isfinite(logits).all())
+    rows[name] = _shape_row(torch, name, secs, "host clock, synced",
+                            counts[name])
+    rows["sdpa_check"] = _stablelm_sdpa_check(torch, model, cfg, tokens,
+                                              cache)
+    name = SHAPE_ROWS[1][0]
+    b = 4
+    cache = [{k: v.expand(b, *v.shape[1:]).contiguous() for k, v in
+              c.items()} for c in cache]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_decode_step(model)
+    token = torch.randint(0, cfg.vocab, (b, 1), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    pos = torch.full((b, 1), SHAPE_S_MAX - 1, dtype=torch.int32,
+                     device=DEVICE)
+    reset_launch_counts()
+    nxt, logits, cache = step(token, pos, cache)             # warm-up
+    secs, _ = _synced_s(torch, lambda: [step(token, pos, cache)
+                                        for _ in range(SHAPE_DECODE_REPS)])
+    launches[name] = launch_counts()
+    assert tuple(nxt.shape) == (b, 1) and bool(torch.isfinite(logits).all())
+    rows[name] = _shape_row(torch, name, secs / SHAPE_DECODE_REPS,
+                            f"host clock, synced, mean of "
+                            f"{SHAPE_DECODE_REPS} steps", counts[name])
+    del model, cache, logits, step
+    torch.cuda.empty_cache()
+    name = SHAPE_ROWS[4][0]
+    out = train(build_argparser().parse_args([
+        "--arch", "stablelm-1.6b", "--full", "--device", DEVICE,
+        "--optimizer", "adamw", "--steps", "2", "--global-batch", "1",
+        "--seq-len", "4096", "--loss-chunk", str(SHAPE_LOSS_CHUNK),
+        "--seed", "0", "--log-every", "1"]))
+    launches[name] = out["kernel_launches"]
+    log(f"[shapes] {name}: losses {out['losses']}, step s {out['step_s']}")
+    assert len(out["losses"]) == 2 and all(map(math.isfinite,
+                                               out["losses"]))
+    rows[name] = _shape_row(torch, name, out["step_s"][1],
+                            "host clock, synced, step 1 (after warm-up)",
+                            counts[name], peak=out["peak_memory_bytes"])
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def shapes_xlstm(torch, counts, cases) -> tuple:
+    """xlstm-350m at full width: the prefill_32k row (one sequence of
+    32768 tokens: the chunkwise mLSTM, ``slstm_scan`` on (1, 32768,
+    1024) bf16 quads, 6 launches, no plain scan), that sLSTM layer's
+    gates through the kernel against the plain version (timed, a row of
+    the kernels line), then the long_500k row: decode steps from that
+    prefill's state."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels import slstm
+    from repro_torch.kernels.counts import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import ssm
+    from repro_torch.models.model import init_model
+    cfg = get_config("xlstm_350m")
+    n_slstm = sum(b.mixer == "slstm" for b in cfg.pattern) * cfg.n_periods
+    rows, launches, seen = {}, {}, []
+    model = init_model(cfg, seed=0)
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    s = SHAPES["prefill_32k"].seq_len
+    tokens = torch.randint(0, cfg.vocab, (1, s), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    scan = ssm.slstm_scan
+
+    def first_gates(*args, **kw):       # the first sLSTM layer's inputs
+        if not seen:
+            seen.append(args)
+        return scan(*args, **kw)
+    ssm.slstm_scan = first_gates
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    name = SHAPE_ROWS[2][0]
+    try:
+        secs, (logits, cache) = _synced_s(
+            torch, lambda: make_prefill_step(model, s)(tokens))
+    finally:
+        ssm.slstm_scan = scan
+    launches[name] = launch_counts()
+    assert launches[name]["slstm_scan"] == n_slstm, launches[name]
+    assert bool(torch.isfinite(logits).all())
+    rows[name] = _shape_row(torch, name, secs, "host clock, synced",
+                            counts[name])
+    gates, st = seen[0][:4], seen[0][4:]
+    assert slstm._quad_base(gates) is not None and \
+        gates[0].dtype == torch.bfloat16 and \
+        tuple(gates[0].shape) == (1, s, cfg.d_model)
+    plain = UNGUARDED.get("scan", slstm._slstm_scan_plain)
+    got = slstm.slstm_scan(*gates, *st)
+    f32 = slstm._upcast(gates)
+    plain_s, want = _synced_s(torch, lambda: plain(*f32, *st))
+    label = f"slstm_scan (1, {s}, {cfg.d_model}) bf16 quad prefill_32k"
+    err = slstm_close(torch, label + " y", got[0], want[0], SLSTM_Y_TOL)
+    err_s = max(slstm_close(torch, f"{label} {k}1", g, w, SLSTM_STATE_TOL)
+                for k, g, w in zip("cnm", got[1:], want[1:]))
+    del want, f32
+    flops, nbytes = slstm.scan_cost(1, s, cfg.d_model, 2)
+    bound, by = bound_ms(nbytes, flops, tensor=False)
+    row = {"case": f"(1, {s}, {cfg.d_model}) bf16 quad prefill_32k",
+           "main": False, "dtype": "bf16", "layout": "quad",
+           "max_abs_err": err, "max_abs_err_state": err_s,
+           "bound_ms": bound, "bound_by": by, "ffma_bound_ms": bound,
+           "library_ms": None,
+           "ms": cuda_ms(torch, lambda: slstm.slstm_scan(*gates, *st)),
+           "plain_ms": plain_s * 1e3}
+    log(f"[shapes]   ms {row['ms']:.4f}  plain {row['plain_ms']:.1f} (one "
+        f"call)  library none  bound {bound:.4f} ({by})")
+    cases["slstm_scan"].append(row)
+    name = SHAPE_ROWS[3][0]
+    torch.cuda.reset_peak_memory_stats()
+    step = make_decode_step(model)
+    token = torch.randint(0, cfg.vocab, (1, 1), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    pos = torch.full((1, 1), SHAPES["long_500k"].seq_len - 1,
+                     dtype=torch.int32, device=DEVICE)
+    reset_launch_counts()
+    step(token, pos, cache)                                  # warm-up
+    secs, outs = _synced_s(torch, lambda: [step(token, pos, cache)
+                                           for _ in range(SHAPE_DECODE_REPS)])
+    launches[name] = launch_counts()
+    assert launches[name]["slstm_scan"] == n_slstm * (SHAPE_DECODE_REPS + 1)
+    assert all(bool(torch.isfinite(o[1]).all()) for o in outs)
+    rows[name] = _shape_row(torch, name, secs / SHAPE_DECODE_REPS,
+                            f"host clock, synced, mean of "
+                            f"{SHAPE_DECODE_REPS} steps", counts[name])
+    del model, cache, gates, st, got
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def shapes_phase(torch, procs, cases):
+    """Phase 20: the shape cells run for real at full width, each beside
+    its op count on meta (counted by the child processes started with
+    the smoke) and the H100 roofline."""
+    counts = read_shape_counts(procs)
+    rows, launches = shapes_stablelm(torch, counts)
+    xrows, xlaunches = shapes_xlstm(torch, counts, cases)
+    rows.update(xrows)
+    launches.update(xlaunches)
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4211,6 +4584,24 @@ def main() -> int:
             phase_s[name] = round(time.perf_counter() - t0, 1)
 
     card, clock = timed("probe", probe, torch)
+    import shutil
+    import tempfile
+    count_dir = tempfile.mkdtemp(prefix="chip_smoke_counts_")
+    counters = start_shape_counts(count_dir)
+    try:
+        return run_phases(torch, timed, phase_s, t_start, card, clock,
+                          counters)
+    finally:
+        for proc, _ in counters:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(count_dir, ignore_errors=True)
+
+
+def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
+    """Phases 2-20 and the closing lines (``main`` starts phase 20's
+    counting children first and stops them last)."""
     build_s = timed("build", build)
     cases = timed("kernels", kernel_phase, torch, clock)
     _, launches = timed("serve", serve_phase, torch)
@@ -4235,6 +4626,7 @@ def main() -> int:
     jout, jlaunches = timed("jamba", jamba_phase, torch)
     dout, dlaunches = timed("dense", dense_phase, torch)
     sout, slaunches = timed("deepseek", deepseek_phase, torch)
+    hout, hlaunches = timed("shapes", shapes_phase, torch, counters, cases)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s; by phase "
         f"{json.dumps(phase_s)}")
@@ -4255,6 +4647,7 @@ def main() -> int:
                                     if k not in ("cache",)}}))
     log(json.dumps({"dense": dout}))
     log(json.dumps({"deepseek": sout}))
+    log(json.dumps({"shapes": hout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -4282,7 +4675,9 @@ def main() -> int:
                    "musicgen-large 48 layers, frames (no whitening)":
                    dlaunches["musicgen-large"][name],
                    **{f"{arch} {n} layers": slaunches[arch][name]
-                      for arch, n in DEEPSEEK_LAYERS.items()}}
+                      for arch, n in DEEPSEEK_LAYERS.items()},
+                   **{f"shapes {row}": hlaunches[row][name]
+                      for row in hlaunches}}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -4303,4 +4698,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--count-shapes"]:    # phase 20's counting child
+        count_shape_rows(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
     sys.exit(main())

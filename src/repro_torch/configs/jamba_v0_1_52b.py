@@ -3,7 +3,8 @@ MoE 16 experts top-2 — Mamba + attention at 1:7 interleave
 [arXiv:2403.19887].
 
 Period of 8: attention at index 3, Mamba elsewhere; MoE MLP every other
-layer (odd indices), dense MLP otherwise.
+layer (odd indices), dense MLP otherwise.  Sub-quadratic overall (4
+attention layers of 32): eligible for long_500k.
 
 The 32 layers (≈ 51.6 B parameters, ≈ 103 GB in bf16) do not fit one
 80 GB card: the port serves it at full width and one period
@@ -24,7 +25,7 @@ CONFIG = ArchConfig(
     d_ff=14336, vocab=65536,
     pattern=(_MD, _MM, _MD, _AM, _MD, _MM, _MD, _MM),
     moe=MoECfg(n_experts=16, top_k=2, n_shared=0, d_ff_expert=14336),
-    act="silu", norm="rmsnorm",
+    act="silu", norm="rmsnorm", subquadratic=True,
     mamba_d_state=16, mamba_d_conv=4, mamba_expand=2,
     fsdp_params=True,
 )
@@ -35,5 +36,5 @@ SMOKE = ArchConfig(
     d_ff=128, vocab=256,
     pattern=(_MD, _MM, _MD, _AM, _MD, _MM, _MD, _MM),
     moe=MoECfg(n_experts=4, top_k=2, n_shared=0, d_ff_expert=128),
-    act="silu", norm="rmsnorm",
+    act="silu", norm="rmsnorm", subquadratic=True,
 )

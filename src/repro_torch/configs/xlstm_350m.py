@@ -4,6 +4,7 @@ carry the capacity; no MLP is attached).
 
 Pattern period 4 = three mLSTM + one sLSTM block (the paper's 7:1-ish
 mix approximated at 3:1 for a 24-layer stack, as in the reference).
+Sub-quadratic: eligible for long_500k.
 """
 from repro_torch.models.common import ArchConfig, BlockSpec
 
@@ -16,7 +17,7 @@ CONFIG = ArchConfig(
     n_layers=24, d_model=1024, n_heads=4, n_kv_heads=4,
     d_ff=0, vocab=50304,
     pattern=(_M, _M, _M, _S),
-    norm="layernorm",
+    norm="layernorm", subquadratic=True,
 )
 
 SMOKE = ArchConfig(
@@ -24,5 +25,5 @@ SMOKE = ArchConfig(
     n_layers=4, d_model=64, n_heads=2, n_kv_heads=2,
     d_ff=0, vocab=256,
     pattern=(_M, _M, _M, _S),
-    norm="layernorm",
+    norm="layernorm", subquadratic=True,
 )

@@ -25,7 +25,11 @@ the plain versions here (``torch.maximum``, never ``torch.clamp``).
 
 ``slstm_scan.launches`` and ``slstm_scan_bwd.launches`` count wrapper
 calls that launched the kernel, incremented only there
-(``kernels.counts`` reads and resets them).
+(``kernels.counts`` reads and resets them).  Each launch also adds its
+flops and bytes (:func:`scan_cost`) to the active op counters
+(``analysis.op_cost``).  On the meta device (the dry run) both wrappers
+are shape functions: outputs shaped by the kernel's contract and the
+kernel's cost recorded, never the plain version's loop over S.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..analysis import op_cost
 from . import native
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -125,11 +130,15 @@ def _quad_base(gates: Sequence[torch.Tensor]) -> Optional[int]:
     st = z.stride()
     if st[2] != 4 or st[0] % 4 or st[1] % 4:
         return None
-    p, e = z.data_ptr(), z.element_size()
+    e = z.element_size()
+
+    def ptr(g):                 # a meta tensor's address is its offset
+        return g.storage_offset() * e if g.is_meta else g.data_ptr()
+    p = ptr(z)
     if p % (4 * e):
         return None
     for k in (1, 2, 3):
-        if gates[k].stride() != st or gates[k].data_ptr() != p + k * e:
+        if gates[k].stride() != st or ptr(gates[k]) != p + k * e:
             return None
     return p
 
@@ -225,6 +234,54 @@ def _call(fn, args, dev: torch.device, what: str) -> None:
     native.check(rc, what)
 
 
+#: f32 operations per (b, t, channel) step of the recurrence and of its
+#: backward (adds, subtractions, maxima, compares, multiplies and
+#: divisions, an FMA counting 2, each transcendental once: the counts
+#: ``chip_smoke.py`` bounds the kernels by); of each step's, 4 are
+#: transcendentals (exp × 2, tanh, sigmoid)
+SLSTM_OPS_PER_STEP = 20
+SLSTM_BWD_OPS_PER_STEP = 45
+SLSTM_TRANSCENDENTALS = 4
+
+
+def scan_cost(b: int, s: int, d: int, gate_bytes: int, stash: bool = False,
+              backward: bool = False) -> Tuple[float, float]:
+    """(f32 flops, HBM bytes) of one launch: the forward reads the 4
+    gates and the (B, d) state and writes y and the final state (and
+    with ``stash`` the 3 f32 states of every step); the backward reads
+    the 4 gates, the stash, y's gradient and the state, and writes the 4
+    gates' gradients and the state's."""
+    steps = b * s * d
+    state = 6 * b * d * 4
+    if backward:
+        return (float(SLSTM_BWD_OPS_PER_STEP * steps),
+                float(steps * (8 * gate_bytes + 4 * 4) + state))
+    return (float(SLSTM_OPS_PER_STEP * steps),
+            float(steps * (4 * gate_bytes + 4 + (12 if stash else 0))
+                  + state))
+
+
+def _record(name: str, b: int, s: int, d: int, gate_bytes: int,
+            stash: bool = False, backward: bool = False) -> None:
+    """Add one launch's cost to the active op counters
+    (``analysis.op_cost``)."""
+    flops, nbytes = scan_cost(b, s, d, gate_bytes, stash, backward)
+    op_cost.add_kernel_cost(name, {"float32": flops}, nbytes,
+                            transcendentals=SLSTM_TRANSCENDENTALS * b * s * d)
+
+
+def _meta_scan(z: torch.Tensor, b: int, s: int, d: int, stash: bool):
+    """``slstm_scan`` on the meta device: outputs shaped by the kernel's
+    contract and the kernel's cost recorded.  A shape function, not a
+    fallback: a meta tensor carries no data, and the plain version (a
+    Python loop over S) never runs here."""
+    f32 = torch.float32
+    out = z.new_empty((3, b, d), dtype=f32)
+    res = (z.new_empty((b, s, d), dtype=f32), *out.unbind(0))
+    _record("slstm_scan", b, s, d, z.element_size(), stash)
+    return res + ((z.new_empty((3, b, s, d), dtype=f32),) if stash else ())
+
+
 def _kernel_device(x: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU one
     (run the plain version); raises for any other device."""
@@ -252,12 +309,15 @@ def slstm_scan(z: torch.Tensor, ig: torch.Tensor, fg: torch.Tensor,
     if stash and _quad_base(gates) is None:
         raise ValueError("slstm_scan(stash=True) takes the quad views of "
                          "one (B, S, d, 4) tensor")
+    if z.is_meta:
+        return _meta_scan(z, b, s, d, stash)
     if not _kernel_device(z):
         return _slstm_scan_plain(*_upcast(gates), *state, stash=stash)
     if b == 0 or d == 0:
         raise ValueError(f"slstm_scan needs B, d > 0, got {(b, s, d)}")
     out = _launch(_FUNCS, gates, state, b, s, d, stash=stash)
     native.count_launch(slstm_scan)
+    _record("slstm_scan", b, s, d, z.element_size(), stash)
     return out
 
 
@@ -292,6 +352,11 @@ def slstm_scan_bwd(pre: torch.Tensor, stash: torch.Tensor,
             raise TypeError(f"{name} must be float32 on {pre.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if pre.is_meta:             # a shape function, as ``_meta_scan``
+        _record("slstm_scan_bwd", b, s, d, pre.element_size(),
+                backward=True)
+        dstate = c0.new_empty((3, b, d))
+        return (torch.empty_like(pre), *dstate.unbind(0))
     if not _kernel_device(pre):
         return _slstm_scan_bwd_plain(pre, stash, c0, n0, m0, gy, gc1, gn1,
                                      gm1)
@@ -311,6 +376,7 @@ def slstm_scan_bwd(pre: torch.Tensor, stash: torch.Tensor,
     _call(_FUNCS["repro_slstm_scan_bwd"], args, pre.device,
           f"slstm_scan_bwd[{b}x{s}x{d}]")
     native.count_launch(slstm_scan_bwd)
+    _record("slstm_scan_bwd", b, s, d, pre.element_size(), backward=True)
     return (dpre, *dstate.unbind(0))
 
 

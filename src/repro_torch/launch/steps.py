@@ -252,18 +252,26 @@ def init_opt_state(model: Model, optimizer, compressor=None):
 def make_prefill_step(model: Model, s_max: int,
                       return_hidden: bool = False) -> Callable:
     """``prefill_step(tokens)`` -> (logits, cache[, hidden]); hidden are
-    the final-norm activations (B, S, d), padded positions included."""
-    def prefill_step(tokens: torch.Tensor):
+    the final-norm activations (B, S, d), padded positions included.
+    ``embeds=`` (frames, with ``tokens`` None) and ``patch_embeds=`` go
+    to :meth:`~repro_torch.models.model.Model.prefill`, as the
+    reference's batch keys do."""
+    def prefill_step(tokens: Optional[torch.Tensor], *,
+                     embeds: Optional[torch.Tensor] = None,
+                     patch_embeds: Optional[torch.Tensor] = None):
         return model.prefill(tokens, s_max=s_max,
-                             return_hidden=return_hidden)
+                             return_hidden=return_hidden, embeds=embeds,
+                             patch_embeds=patch_embeds)
     return prefill_step
 
 
 def make_decode_step(model: Model) -> Callable:
     """``decode_step(token, pos, cache)`` -> (next_token (B, 1) int32,
-    logits, cache), greedy."""
-    def serve_step(token: torch.Tensor, pos: torch.Tensor, cache):
-        logits, cache = model.decode_step(token, pos, cache)
+    logits, cache), greedy; for the "embeddings" frontend ``token=None``
+    and ``embeds=`` a (B, 1, d) frame."""
+    def serve_step(token: Optional[torch.Tensor], pos: torch.Tensor, cache,
+                   *, embeds: Optional[torch.Tensor] = None):
+        logits, cache = model.decode_step(token, pos, cache, embeds=embeds)
         next_token = torch.argmax(logits[:, -1], dim=-1)[:, None] \
             .to(torch.int32)
         return next_token, logits, cache

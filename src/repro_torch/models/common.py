@@ -14,6 +14,7 @@ and activations, f32 norm parameters and f32 softmax).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -78,6 +79,7 @@ class ArchConfig:
     mamba_d_state: int = 16
     mamba_d_conv: int = 4
     mamba_expand: int = 2
+    subquadratic: bool = False              # eligible for long_500k
     remat_policy: str = "full"              # full | dots | names
     fsdp_params: bool = False               # weight rows also over 'data'
 
@@ -96,6 +98,33 @@ class ArchConfig:
         scanned = self.n_layers - len(self.prefix)
         assert scanned % self.period == 0, (self.n_layers, self.period)
         return scanned // self.period
+
+    def param_count(self) -> int:
+        """Parameters of the model, counted on a :class:`Model` built on
+        the meta device (for the 6ND model-flops accounting)."""
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        """Active parameters a token (MoE: only top-k + shared experts),
+        the reference's formula: the inactive routed experts of the MoE
+        layers in ``pattern`` × ``n_periods`` (a prefix's or the MTP
+        block's are not subtracted), 3·d·f each."""
+        total = self.param_count()
+        if not self.moe or not self.moe.n_experts:
+            return total
+        n_moe_layers = sum(1 for b in self.pattern if b.mlp == "moe") \
+            * self.n_periods
+        per_expert = 3 * self.d_model * self.moe.d_ff_expert
+        inactive = (self.moe.n_experts - self.moe.top_k) * per_expert \
+            * n_moe_layers
+        return total - inactive
+
+
+@functools.lru_cache(maxsize=None)
+def _param_count(cfg: ArchConfig) -> int:
+    from .model import Model  # lazy; counts from real shapes
+    model = Model(cfg, torch.Generator(), torch.device("meta"))
+    return sum(p.numel() for p in model.parameters())
 
 
 # ---------------------------------------------------------------------------

@@ -255,17 +255,34 @@ class Block(nn.Module):
 
     def init_cache(self, batch: int, s_max: int,
                    device: torch.device) -> Dict[str, torch.Tensor]:
-        """This layer's cache: KV for GQA, the latent for MLA, the
-        recurrent state else."""
-        if self.spec.mixer == "attn" and self.cfg.attn_kind == "mla":
-            return mla_cache_init(self.cfg, batch, s_max, device)
-        if self.spec.mixer == "mamba":
-            return mamba_state_init(self.cfg, batch, device)
-        if self.spec.mixer == "mlstm":
-            return mlstm_state_init(self.cfg, batch, device)
-        if self.spec.mixer == "slstm":
-            return slstm_state_init(self.cfg, batch, device)
-        return gqa_cache_init(self.cfg, batch, s_max, device)
+        return block_cache_init(self.cfg, self.spec, batch, s_max, device)
+
+
+def block_cache_init(cfg: ArchConfig, spec: BlockSpec, batch: int,
+                     s_max: int, device: DeviceLike
+                     ) -> Dict[str, torch.Tensor]:
+    """One layer's cache: KV for GQA, the latent for MLA, the recurrent
+    state else."""
+    if spec.mixer == "attn" and cfg.attn_kind == "mla":
+        return mla_cache_init(cfg, batch, s_max, device)
+    if spec.mixer == "mamba":
+        return mamba_state_init(cfg, batch, device)
+    if spec.mixer == "mlstm":
+        return mlstm_state_init(cfg, batch, device)
+    if spec.mixer == "slstm":
+        return slstm_state_init(cfg, batch, device)
+    return gqa_cache_init(cfg, batch, s_max, device)
+
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int,
+               device: DeviceLike) -> Cache:
+    """The cache of a ``cfg`` model with no model behind it (the
+    reference's ``init_cache(cfg, b, s)``): one dict a layer, the
+    prefix's first, in the port's per-block list.  ``device="meta"``
+    gives shapes and dtypes with no memory (``configs.shapes``)."""
+    specs = tuple(cfg.prefix) + tuple(cfg.pattern) * cfg.n_periods
+    return [block_cache_init(cfg, spec, batch, s_max, device)
+            for spec in specs]
 
 
 class Model(nn.Module):
@@ -299,8 +316,7 @@ class Model(nn.Module):
 
     # -- helpers -----------------------------------------------------------
     def init_cache(self, batch: int, s_max: int) -> Cache:
-        return [blk.init_cache(batch, s_max, self.device)
-                for blk in self.blocks]
+        return init_cache(self.cfg, batch, s_max, self.device)
 
     def head(self) -> torch.Tensor:
         """The (d, V) LM head: ``unembed``, or ``embed.T`` when tied."""

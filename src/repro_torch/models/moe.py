@@ -26,6 +26,10 @@ clipped at 1e-9), then the experts in one of the reference's three
     (contribute 0) by the reference's window index (``_window_index``,
     ``_capacity_gather``).
 
+On the meta device (the dry run, ``launch/dryrun.py``) the routing has
+no values: the groups are the sizes the reference's compiled program
+multiplies (:func:`_meta_group_sizes`), with no host sync.
+
 The k expert outputs are combined in their dtype (bf16 for the dropless
 forms, f32 for ``capacity``, as the reference's), then cast to the
 activation dtype.  The capacity path's custom VJP waits for training
@@ -119,8 +123,9 @@ def _sort_by_expert(tope: torch.Tensor, n_experts: int):
     inv = torch.argsort(order)
     token_idx = torch.div(torch.arange(t * k, device=tope.device), k,
                           rounding_mode="floor")[order]
-    return order, inv, token_idx, torch.bincount(flat_e,
-                                                 minlength=n_experts)
+    counts = flat_e.new_empty((n_experts,)) if flat_e.is_meta else \
+        torch.bincount(flat_e, minlength=n_experts)
+    return order, inv, token_idx, counts
 
 
 def _window_index(offsets: torch.Tensor, n: int, e: int,
@@ -156,6 +161,20 @@ def _capacity_gather(ys_flat: torch.Tensor, idx: torch.Tensor,
     return ys_flat[idx[inv]]
 
 
+def _meta_group_sizes(xs: torch.Tensor, t_k: int, e: int, cap: int,
+                      dropless: bool):
+    """(sizes, xs) on the meta device, where the routing has no values
+    to count: a shape function, not a fallback.  The sizes are the
+    groups the reference's compiled program multiplies: the capacity
+    form every window full at ``cap`` rows (``xs`` then the (E·cap, d)
+    windows), the dropless forms T·k rows in all, split evenly (their
+    products' flops do not depend on the split)."""
+    if not dropless:
+        return [cap] * e, xs.new_empty((e * cap, xs.shape[1]))
+    q, r = divmod(t_k, e)
+    return [q + (i < r) for i in range(e)], xs
+
+
 def moe_local(cfg: ArchConfig, p, xf: torch.Tensor,
               impl: str = "auto") -> torch.Tensor:
     """xf (T, d) -> (T, d): route, run the experts, combine."""
@@ -169,15 +188,19 @@ def moe_local(cfg: ArchConfig, p, xf: torch.Tensor,
     act = act_fn(cfg.act)
     _, inv, token_idx, group_sizes = _sort_by_expert(tope, e)
     xs = xf[token_idx]                                      # (T·k, d)
-    sizes = group_sizes.tolist()                            # a host sync
+    dropless = impl in ("gather", "ragged") or (impl == "auto"
+                                                and t <= GATHER_MAX_TOKENS)
+    cap = _capacity(t * k, e)
+    if xf.is_meta:
+        sizes, xs = _meta_group_sizes(xs, t * k, e, cap, dropless)
+    else:
+        sizes = group_sizes.tolist()                        # a host sync
     offsets = [sum(sizes[:i]) for i in range(e)]
-    if impl in ("gather", "ragged") or (impl == "auto"
-                                        and t <= GATHER_MAX_TOKENS):
+    if dropless:
         ys = _grouped(xs, zip(range(e), offsets, sizes, offsets), act,
                       p.wi, p.wg, p.wo, torch.empty_like(xs))
         y = ys[inv].reshape(t, k, d)
     else:                                                   # capacity
-        cap = _capacity(t * k, e)
         idx = _window_index(torch.tensor(offsets, device=xf.device), t * k,
                             e, cap)
         windows = torch.zeros((e * cap + 1, d), dtype=torch.float32,

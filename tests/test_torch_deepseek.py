@@ -127,13 +127,11 @@ def _jitted(jcfg, once=False):
 @pytest.mark.parametrize("which", ["smoke", "full"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_matches_reference(arch, which):
-    """Field by field (``subquadratic`` is not carried: ROADMAP A12a)."""
+    """Field by field."""
     get_t, get_j = (get_smoke_config, j_smoke) if which == "smoke" else \
         (get_config, j_full)
     cfg, jcfg = get_t(arch), get_j(arch)
-    want = dataclasses.asdict(jcfg)
-    want.pop("subquadratic")
-    assert dataclasses.asdict(cfg) == want
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert cfg.n_periods == jcfg.n_periods
     if which == "full":
         assert (cfg.n_layers, cfg.d_model, cfg.vocab, cfg.moe.n_experts,

@@ -1,0 +1,349 @@
+"""The port's dry run (``repro_torch.launch.dryrun``), its op counter
+(``analysis.op_cost``, the counterpart of the reference's ``hlo_cost``)
+and the H100 roofline (``analysis.roofline``), held to the reference on
+the CPU.  Every model runs on the meta device: no weight is drawn.
+
+* The dot flops of a smoke stablelm's prefill, decode and train step
+  equal their closed form exactly.  The train step's is 4× the forward
+  (forward, the per-period recomputation, two products a product
+  backward) less one product a period: non-reentrant
+  ``torch.utils.checkpoint`` stops recomputing once the last saved
+  tensor is back, and a period's last product (the MLP's ``wo``, its
+  output only added to the residual) saves nothing.
+* Their total flops are within ``HLO_TOL`` of the reference's
+  ``analyze_hlo`` of the same jitted step on the CPU: the products are
+  the same; the elementwise work differs by lowering (XLA's fused
+  converts and its rsqrt / variance forms against the port's eager ops,
+  the remat early stop above), 0.7–1.5 % of the total at the smoke
+  width.
+* ``Roofline``'s arithmetic is the reference's under the reference's
+  constants, and its compute term sums each dtype's flops over that
+  dtype's H100 peak.
+* ``dryrun_cell``: the status of all 10 configs × 4 cells; records at
+  full width (stablelm, one cell of jamba and of deepseek-v3) and for
+  the smoke configs, ``model_flops_total`` the reference's formula with
+  the reference's own ``active_param_count``; the sLSTM's meta branch
+  never runs the plain scan; the MoE's meta group sizes.
+"""
+import dataclasses
+import json
+import math
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.analysis import roofline as jroof
+from repro.analysis.hlo_cost import analyze_hlo
+from repro.configs import ARCHS as J_ARCHS
+from repro.configs import get_config as j_config
+from repro.configs import get_smoke_config as j_smoke
+from repro.configs import shapes as jshapes
+from repro.launch import steps as jsteps
+from repro.models.model import init_cache as j_init_cache
+from repro.models.model import init_params
+from repro_torch.analysis import roofline
+from repro_torch.analysis.op_cost import OpCounter
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import slstm
+from repro_torch.launch import dryrun, steps
+from repro_torch.models import moe, ssm
+from repro_torch.models.model import Model, init_cache
+
+META = torch.device("meta")
+CELLS = list(jshapes.SHAPES)
+#: |port total flops / reference HLO flops − 1| at the smoke width
+HLO_TOL = 0.03
+B, S, S_MAX, CHUNK = 2, 64, 128, 32
+#: the keys of the reference's record (src/repro/launch/dryrun.py:138)
+REF_KEYS = {
+    "arch", "shape", "multi_pod", "chips", "optimizer", "status", "lower_s",
+    "compile_s", "flops_per_device", "raw_cost_analysis_flops",
+    "raw_cost_analysis_bytes", "model_flops_total", "model_vs_hlo_flops",
+    "unknown_trip_whiles", "hbm_bytes_per_device",
+    "collective_operand_bytes", "collective_wire_bytes",
+    "collective_counts", "collective_by_kind", "compute_s", "memory_s",
+    "collective_s", "dominant", "roofline_fraction", "memory_analysis"}
+#: train_4k of every config the port's trainer refuses, by the item it
+#: names; long_500k of every config that is not sub-quadratic
+WAITING = {"jamba_v0_1_52b": "A11b", "deepseek_v2_236b": "A11b",
+           "deepseek_v3_671b": "A11b", "gemma2_9b": "A11f",
+           "gemma3_12b": "A11f", "granite_20b": "A11f",
+           "pixtral_12b": "A11f", "musicgen_large": "A11f"}
+
+
+def _meta(shape, dtype=torch.int32):
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def _forward_dots(cfg, tokens, qk, head_rows):
+    """(bf16, f32) dot flops of one forward of a dense GQA model:
+    ``tokens`` rows through the projections and the MLP, ``qk`` = Σ
+    Sq·Sk over the batch, ``head_rows`` through the f32 head."""
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    proj = 2 * tokens * d * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    mlp = 3 * 2 * tokens * d * f
+    attn = 2 * 2 * cfg.n_heads * hd * qk
+    return (cfg.n_layers * (proj + mlp),
+            cfg.n_layers * attn + 2 * head_rows * d * cfg.vocab)
+
+
+def _port_step(kind, cfg):
+    """The port's step of ``kind`` on meta under the counter."""
+    model = Model(cfg, torch.Generator(), META)
+    with OpCounter() as c:
+        if kind == "prefill":
+            steps.make_prefill_step(model, S_MAX)(_meta((B, S)))
+        elif kind == "decode":
+            steps.make_decode_step(model)(_meta((B, 1)), _meta((B, 1)),
+                                          init_cache(cfg, B, S_MAX, META))
+        else:
+            opt = steps.make_optimizer(cfg, "adamw")
+            state = steps.init_opt_state(model, opt)
+            steps.make_train_step(model, opt, loss_chunk=CHUNK)(
+                state, {"tokens": _meta((B, S)), "labels": _meta((B, S))})
+    return c.cost
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_dot_flops_equal_the_closed_form(kind):
+    cfg = get_smoke_config("stablelm_1_6b")
+    cost = _port_step(kind, cfg)
+    if kind == "prefill":       # queries over the whole s_max cache
+        bf16, f32 = _forward_dots(cfg, B * S, B * S * S_MAX, B)
+    elif kind == "decode":
+        bf16, f32 = _forward_dots(cfg, B, B * S_MAX, B)
+    else:
+        bf16, f32 = _forward_dots(cfg, B * S, B * S * S, B * S)
+        not_recomputed = cfg.n_periods * 2 * B * S * cfg.d_ff * cfg.d_model
+        bf16, f32 = 4 * bf16 - not_recomputed, 4 * f32
+    assert cost.dot_flops_by_dtype == {"bfloat16": bf16, "float32": f32}
+    assert cost.dot_flops == bf16 + f32
+    assert sum(cost.flops_by_dtype.values()) == cost.total_flops
+
+
+def _ref_hlo_flops(kind, jcfg) -> float:
+    params = jax.eval_shape(lambda: init_params(jcfg, jax.random.key(0)))
+    tok = jax.ShapeDtypeStruct((B, S), jnp.int32)
+    if kind == "prefill":
+        fn, args = jsteps.make_prefill_step(jcfg, S_MAX), (params,
+                                                          {"tokens": tok})
+    elif kind == "decode":
+        one = jax.ShapeDtypeStruct((B, 1), jnp.int32)
+        fn, args = jsteps.make_decode_step(jcfg), (
+            params, one, one,
+            jax.eval_shape(lambda: j_init_cache(jcfg, B, S_MAX)))
+    else:
+        opt = jsteps.make_optimizer(jcfg, "adamw")
+        fn = jsteps.make_train_step(jcfg, opt, loss_chunk=CHUNK)
+        args = (params, jax.eval_shape(opt.init, params),
+                {"tokens": tok, "labels": tok})
+    return analyze_hlo(jax.jit(fn).lower(*args).compile().as_text()) \
+        .total_flops
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_total_flops_near_the_reference_hlo_count(kind):
+    got = _port_step(kind, get_smoke_config("stablelm_1_6b")).total_flops
+    want = _ref_hlo_flops(kind, j_smoke("stablelm_1_6b"))
+    assert abs(got / want - 1) <= HLO_TOL, (got, want)
+
+
+@pytest.mark.parametrize("flops,nbytes,coll", [
+    (3.0e15, 1.0e12, 0.0), (1.0e12, 4.0e12, 0.0), (1.0e12, 1.0e9, 5.0e11),
+    (0.0, 0.0, 0.0)])
+def test_roofline_is_the_reference_s_arithmetic(monkeypatch, flops, nbytes,
+                                                coll):
+    """Under the reference's TPU v5e constants, every property equals
+    the reference's on the same inputs (all flops bf16); under the H100
+    constants each term scales by the ratio of the rates."""
+    want = jroof.Roofline(flops=flops, hbm_bytes=nbytes,
+                          collective_bytes=coll, wire_bytes=coll, chips=1)
+    got = roofline.Roofline(flops=flops, hbm_bytes=nbytes,
+                            collective_bytes=coll, wire_bytes=coll, chips=1,
+                            flops_by_dtype={"bfloat16": flops})
+    assert got.compute_s * roofline.PEAK_BF16_FLOPS == \
+        pytest.approx(want.compute_s * jroof.PEAK_FLOPS)
+    assert got.memory_s * roofline.HBM_BW == \
+        pytest.approx(want.memory_s * jroof.HBM_BW)
+    assert got.collective_s * roofline.LINK_BW == \
+        pytest.approx(want.collective_s * jroof.ICI_BW)
+    monkeypatch.setitem(roofline.PEAK_FLOPS, "bfloat16", jroof.PEAK_FLOPS)
+    monkeypatch.setattr(roofline, "HBM_BW", jroof.HBM_BW)
+    monkeypatch.setattr(roofline, "LINK_BW", jroof.ICI_BW)
+    for name in ("compute_s", "memory_s", "collective_s", "dominant",
+                 "bound_s"):
+        assert getattr(got, name) == getattr(want, name), name
+    assert got.roofline_fraction() == want.roofline_fraction()
+
+
+def test_roofline_compute_term_sums_each_dtype_over_its_peak():
+    r = roofline.Roofline(flops=3e12, hbm_bytes=0.0, collective_bytes=0.0,
+                          wire_bytes=0.0, chips=1,
+                          flops_by_dtype={"bfloat16": 1e12, "float32": 1.5e12,
+                                          "bool": 0.5e12})
+    assert r.compute_s == pytest.approx(
+        1e12 / 989.4e12 + 2e12 / 66.9e12)
+    assert r.dominant == "compute" and r.roofline_fraction() == 1.0
+    cost = _port_step("decode", get_smoke_config("stablelm_1_6b"))
+    built = roofline.build_roofline(cost, 1)
+    assert built.flops == cost.total_flops
+    assert built.hbm_bytes == cost.bytes_accessed
+    assert built.collective_s == 0 and built.unknown_trip_whiles == 0
+
+
+@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("arch", J_ARCHS)
+def test_cell_status(arch, cell):
+    """ok, the reference's skip, or waiting on the item the trainer's
+    refusal names; a record with a status is returned uncounted."""
+    cfg = get_config(arch)
+    if not jshapes.cell_applicable(j_config(arch), cell):
+        want = dryrun.SKIPPED
+    elif cell == "train_4k" and arch in WAITING:
+        want = f"waiting ({WAITING[arch]})"
+    else:
+        want = None
+    assert dryrun.cell_status(cfg, cell) == want
+    if want is not None:
+        assert dryrun.dryrun_cell(arch, cell, verbose=False) == {
+            "arch": arch, "shape": cell, "multi_pod": False, "status": want}
+
+
+def _check_record(rec, cfg, jcfg, cell, batch):
+    kind = jshapes.SHAPES[cell].kind
+    assert REF_KEYS <= set(rec) and rec["status"] == "ok"
+    assert rec["chips"] == 1 and rec["batch"] == batch
+    n = jcfg.active_param_count()
+    seq = jshapes.SHAPES[cell].seq_len
+    want = {"train": 6.0 * n * batch * seq, "prefill": 2.0 * n * batch * seq,
+            "decode": 2.0 * n * batch}[kind]
+    assert rec["model_flops_total"] == want
+    roof = roofline.Roofline(
+        flops=rec["flops_per_device"], hbm_bytes=rec["hbm_bytes_per_device"],
+        collective_bytes=0.0, wire_bytes=0.0, chips=1,
+        flops_by_dtype=rec["flops_by_dtype"])
+    assert (rec["compute_s"], rec["memory_s"], rec["collective_s"],
+            rec["dominant"], rec["roofline_fraction"]) == (
+        roof.compute_s, roof.memory_s, 0.0, roof.dominant,
+        roof.roofline_fraction())
+    assert rec["model_vs_hlo_flops"] == want / rec["flops_per_device"]
+    assert sum(rec["flops_by_dtype"].values()) == \
+        pytest.approx(rec["flops_per_device"], rel=1e-12)
+    params = sum(p.numel() * p.element_size() for p in
+                 Model(cfg, torch.Generator(), META).parameters())
+    inputs = sum(math.prod(v.shape) * v.dtype.itemsize
+                 for v in jax.tree.leaves(
+                     jshapes.input_specs(jcfg, cell, rec["scale"])))
+    extra = 2 * 4 * cfg.param_count() if kind == "train" else 0
+    assert rec["memory_analysis"]["argument_bytes"] == params + inputs \
+        + extra
+    assert rec["compile_s"] is None and rec["raw_cost_analysis_flops"] \
+        is None and rec["memory_analysis"]["temp_bytes"] is None
+    json.dumps(rec)
+
+
+@pytest.mark.parametrize("arch,cell,scale", [
+    ("stablelm_1_6b", "train_4k", 1), ("stablelm_1_6b", "prefill_32k", 1),
+    ("stablelm_1_6b", "decode_32k", 1), ("jamba_v0_1_52b", "decode_32k", 1),
+    ("deepseek_v3_671b", "decode_32k", 32)])
+def test_records_at_full_width(arch, cell, scale):
+    rec = dryrun.dryrun_cell(arch, cell, verbose=False, scale=scale)
+    batch = max(jshapes.SHAPES[cell].global_batch // scale, 1)
+    _check_record(rec, get_config(arch), j_config(arch), cell, batch)
+    assert rec["kernels"] == {}
+
+
+@pytest.mark.parametrize("arch", [a for a in J_ARCHS if a != "stablelm_1_6b"])
+def test_records_of_the_smoke_configs(arch):
+    """The decode cells (long_500k where it applies) of each smoke
+    config; xlstm's sLSTM layers on the kernel's meta branch."""
+    cfg, jcfg = get_smoke_config(arch), j_smoke(arch)
+    for cell in ("decode_32k", "long_500k"):
+        rec = dryrun.dryrun_cell(arch, cell, cfg=cfg, verbose=False,
+                                 scale=8)
+        if not cfg.subquadratic and cell == "long_500k":
+            assert rec["status"] == dryrun.SKIPPED
+            continue
+        batch = max(jshapes.SHAPES[cell].global_batch // 8, 1)
+        _check_record(rec, cfg, jcfg, cell, batch)
+        n_slstm = sum(b.mixer == "slstm" for b in cfg.pattern) \
+            * cfg.n_periods
+        assert rec["kernels"] == ({"slstm_scan": n_slstm} if n_slstm
+                                  else {})
+
+
+def _no_plain(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the plain scan ran on meta")
+    monkeypatch.setattr(slstm, "_slstm_scan_plain", boom)
+    monkeypatch.setattr(slstm, "_slstm_scan_bwd_plain", boom)
+    monkeypatch.setattr(ssm, "_slstm_scan_plain", boom)
+
+
+def test_slstm_meta_branch_never_runs_the_plain_scan(monkeypatch):
+    """An xlstm smoke prefill (chunkwise mLSTM, S = 256) and train step
+    on meta: every sLSTM on ``slstm_scan``'s meta branch (stash and
+    backward in training, the forward twice under the remat), its cost
+    the kernel's."""
+    _no_plain(monkeypatch)
+    cfg = get_smoke_config("xlstm_350m")
+    n = sum(b.mixer == "slstm" for b in cfg.pattern) * cfg.n_periods
+    model = Model(cfg, torch.Generator(), META)
+    with OpCounter() as c:
+        steps.make_prefill_step(model, 256)(_meta((B, 256)))
+    assert c.cost.kernels == {"slstm_scan": n}
+    assert c.cost.by_op["slstm_scan"][1] == \
+        n * slstm.SLSTM_OPS_PER_STEP * B * 256 * cfg.d_model
+    opt = steps.make_optimizer(cfg, "adamw")
+    with OpCounter() as c:
+        steps.make_train_step(model, opt, loss_chunk=CHUNK)(
+            steps.init_opt_state(model, opt),
+            {"tokens": _meta((B, 256)), "labels": _meta((B, 256))})
+    assert c.cost.kernels == {"slstm_scan": 2 * n, "slstm_scan_bwd": n}
+    y, c1, n1, m1, st = slstm.slstm_scan(
+        *_meta((B, 8, 16, 4), torch.bfloat16).unbind(-1),
+        *(_meta((B, 16), torch.float32) for _ in range(3)), stash=True)
+    assert [tuple(t.shape) for t in (y, c1, st)] == [(B, 8, 16), (B, 16),
+                                                     (3, B, 8, 16)]
+    assert y.dtype == st.dtype == torch.float32
+
+
+@pytest.mark.parametrize("tokens", [64, 512])
+def test_moe_meta_group_sizes_are_the_reference_program_s(tokens):
+    """Dropless (T ≤ 256): T·k rows through the experts in all; capacity
+    (T > 256): every window full at ``_capacity(T·k, E)`` rows; beside
+    them the f32 router and the k outputs' weighted sum (a product in
+    the experts' output dtype: bf16 dropless, f32 capacity)."""
+    cfg = get_smoke_config("jamba_v0_1_52b")
+    mo, d = cfg.moe, cfg.d_model
+    layer = moe.MoE(cfg, torch.Generator(), META)
+    with OpCounter() as c:
+        out = layer(_meta((1, tokens, d), torch.bfloat16))
+    assert tuple(out.shape) == (1, tokens, d)
+    dropless = tokens <= moe.GATHER_MAX_TOKENS
+    rows = tokens * mo.top_k if dropless else \
+        mo.n_experts * moe._capacity(tokens * mo.top_k, mo.n_experts)
+    router = 2 * tokens * d * mo.n_experts
+    combine = 2 * tokens * mo.top_k * d     # in the experts' output dtype
+    experts = 3 * 2 * rows * d * mo.d_ff_expert
+    assert c.cost.dot_flops_by_dtype == (
+        {"float32": router, "bfloat16": experts + combine} if dropless
+        else {"float32": router + combine, "bfloat16": experts})
+
+
+def test_main_writes_records_and_refuses_meshes(tmp_path, capsys):
+    out = tmp_path / "d.jsonl"
+    assert dryrun.main(["--arch", "stablelm_1_6b", "--shape", "long_500k",
+                        "--out", str(out)]) == 0
+    assert json.loads(out.read_text())["status"] == dryrun.SKIPPED
+    for flags in (["--devices", "2"], ["--multi-pod"], ["--both-meshes"]):
+        with pytest.raises(NotImplementedError) as e:
+            dryrun.main(["--arch", "stablelm_1_6b"] + flags)
+        if flags[0] == "--devices":
+            assert "A12c" in str(e.value)
+    cfg = dataclasses.replace(get_smoke_config("stablelm_1_6b"))
+    assert dryrun.dryrun_cell("x", "decode_32k", cfg=cfg,
+                              verbose=True)["status"] == "ok"
+    assert "roofline: compute=" in capsys.readouterr().out

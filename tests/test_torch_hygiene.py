@@ -4,7 +4,7 @@ JAX package, nor networkx, nor ml_dtypes (the card's machine has neither
 of the last two; the port's triangle partitions match diagonals with
 their own Hopcroft–Karp, and its checkpoints write bf16 words without
 ml_dtypes), and the entry points refuse to run on the host unless
-asked."""
+asked.  The dry run, which counts on the meta device, touches no card."""
 import os
 import subprocess
 import sys
@@ -50,7 +50,9 @@ MODULES = [
     "repro_torch.configs.granite_20b", "repro_torch.configs.pixtral_12b",
     "repro_torch.configs.musicgen_large",
     "repro_torch.configs.deepseek_v2_236b",
-    "repro_torch.configs.deepseek_v3_671b",
+    "repro_torch.configs.deepseek_v3_671b", "repro_torch.configs.shapes",
+    "repro_torch.analysis", "repro_torch.analysis.op_cost",
+    "repro_torch.analysis.roofline", "repro_torch.launch.dryrun",
 ]
 
 _PROBE = r"""
@@ -184,6 +186,35 @@ def test_mesh_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
         assert make_mesh(device="cpu").device == torch.device("cpu")
     finally:
         dist.destroy_process_group()
+
+
+_DRYRUN_PROBE = r"""
+import sys, torch
+def refuse():
+    raise AssertionError("the dry run touched CUDA")
+torch.cuda._lazy_init = refuse
+from repro_torch.launch.dryrun import main
+for arch, shape in (("xlstm_350m", "long_500k"),
+                    ("stablelm_1_6b", "decode_32k")):
+    assert main(["--arch", arch, "--shape", shape, "--out", sys.argv[1]]) == 0
+assert not torch.cuda.is_initialized()
+print("DRYRUN-DEVICE-FREE")
+"""
+
+
+def test_dryrun_runs_with_cuda_hidden_and_touches_no_card(tmp_path):
+    """The dry run is device-free by design (meta tensors), not a host
+    fallback: with CUDA hidden and CUDA's initialisation made to raise,
+    full-width cells count and write their records."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", _DRYRUN_PROBE,
+                          str(tmp_path / "d.jsonl")], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "DRYRUN-DEVICE-FREE" in out.stdout
+    recs = (tmp_path / "d.jsonl").read_text().splitlines()
+    assert len(recs) == 2 and all('"status": "ok"' in r for r in recs)
 
 
 def test_tf32_is_off():

@@ -18,6 +18,8 @@ Oracles, on the same numpy inputs from a seed:
   is held to MIXER_ATOL (a few bf16 ulps at the output's scale) and the
   f32 state to 2e-3.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -132,7 +134,17 @@ def test_slstm_scan_rejects_bad_operands():
     with pytest.raises(ValueError):
         tslstm.slstm_scan(z, z, z, z, torch.zeros(8, 2).T, st, st)
     with pytest.raises(RuntimeError):               # no kernel, no fallback
-        tslstm.slstm_scan(*(x.to("meta") for x in (z, z, z, z, st, st, st)))
+        tslstm._kernel_device(types.SimpleNamespace(device=torch.device("xpu")))
+    # meta (the dry run): a shape function, never the plain version
+    plain = tslstm._slstm_scan_plain
+    tslstm._slstm_scan_plain = None
+    try:
+        out = tslstm.slstm_scan(*(x.to("meta") for x in (z, z, z, z, st, st,
+                                                         st)))
+    finally:
+        tslstm._slstm_scan_plain = plain
+    assert [(o.device.type, tuple(o.shape)) for o in out] == \
+        [("meta", (1, 4, 8))] + [("meta", (1, 8))] * 3
 
 
 @pytest.mark.parametrize("b,s,d", [(16, 4096, 1024), (2, 32768, 1024),

@@ -32,6 +32,7 @@ Oracles, on the same numpy inputs from a seed:
   axis that would cut a head (``--devices 4 --max-model 4`` at 2 heads).
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -185,10 +186,19 @@ def test_scan_bwd_checks_its_operands():
         tslstm.slstm_scan_bwd(pre, st[:, :, :3], c0, n0, m0, gy)
     with pytest.raises(TypeError):
         tslstm.slstm_scan_bwd(pre, st, c0, n0, m0, gy.double())
-    with pytest.raises(RuntimeError):
-        tslstm.slstm_scan_bwd(pre.to("meta"), st.to("meta"),
-                              c0.to("meta"), n0.to("meta"), m0.to("meta"),
-                              gy.to("meta"))
+    with pytest.raises(RuntimeError):               # no kernel, no fallback
+        tslstm._kernel_device(types.SimpleNamespace(device=torch.device("xpu")))
+    # meta (the dry run): a shape function, never the plain version
+    plain = tslstm._slstm_scan_bwd_plain
+    tslstm._slstm_scan_bwd_plain = None
+    try:
+        out = tslstm.slstm_scan_bwd(pre.to("meta"), st.to("meta"),
+                                    c0.to("meta"), n0.to("meta"),
+                                    m0.to("meta"), gy.to("meta"))
+    finally:
+        tslstm._slstm_scan_bwd_plain = plain
+    assert [(o.device.type, tuple(o.shape)) for o in out] == \
+        [("meta", tuple(pre.shape))] + [("meta", tuple(c0.shape))] * 3
     with pytest.raises(ValueError):           # the stash needs the quads
         tslstm.slstm_scan(*(g.contiguous() for g in pre.unbind(-1)),
                           c0, n0, m0, stash=True)
