@@ -187,9 +187,9 @@ Phases (any failure exits non-zero):
              backward, reduce, clip, optimizer), words and bytes a rank
              by phase and kind, and each rank's peak memory.  The
              kernels line's ``train mesh`` launches are the mesh ranks'
-             alone.  One launch of 4 ranks runs this and phase 16's
-             training (``mesh_trains``), the trainer's own summary made
-             of each run's ranks;
+             alone.  One launch of 4 ranks runs this, phase 16's and
+             phase 21's mesh training (``mesh_trains``), the trainer's
+             own summary made of each run's ranks;
 14. elastic — ``run_recovery`` with ``--devices 4 --devices-after 2
              --max-model 4`` of ``muon-syrk`` with ``--track-gram`` at
              stablelm-1.6b's published widths and 2 layers, phase 7's
@@ -320,7 +320,33 @@ Phases (any failure exits non-zero):
              the streamed SDPA against the dense one on layer 0's real q
              / k / v at 32768 keys (``SDPA_TOL``), and that sLSTM
              layer's gates through ``slstm_scan`` against its plain
-             version on the card, both timed.
+             version on the card, both timed;
+21. densetrain — trains the dense families at their published widths:
+             first one Muon NS (5 steps) at each Gram width they add
+             (3584, 3840, 5120, 6144 at the embeddings' vocab and the
+             MLP's d_ff, 4096 at pixtral's attention) on the kernels
+             against the same iteration in f64 (``NS_TOL``; the first
+             Gram ``TOL_F32``), and ``rank_update`` / ``sym_stream`` at
+             the gemma3 and pixtral embeddings' and granite's MLP stack's
+             NS shapes against their plain versions, timed beside one
+             PyTorch call and the bound; then gemma2-9b (2 layers: one
+             local / global pair), gemma3-12b (6: one 5 + 1 period),
+             granite-20b (6) and pixtral-12b (4) through ``train`` and
+             musicgen-large (all 48) on frames through ``make_train_step``,
+             random bf16 weights from seed 0, 2 x 256 tokens, a warm-up
+             and 2 timed steps, ``muon-syrk`` on gemma3 and granite and
+             AdamW on the others: finite losses, the launches the closed
+             form of the leaf shapes (5 ``rank_update`` and 10
+             ``sym_stream`` a matrix leaf of short side >= 256 a step),
+             every NS SYRK / SYMM with n1 >= 256 on the kernels, s a
+             step and its split, tokens/s, peak memory under the
+             card's; gemma2's first loss against the same weights on the
+             CPU (``MUON_TOL`` + ``MUON_TOL``·|cpu|); and gemma2-9b at 2
+             layers on (data 2, model 2) with ``fsdp_params``, AdamW, 2
+             steps, run in phase 13's launch: every rank's losses
+             identical, step 0 within 1e-4 of the one-card run's, each
+             rank's all-gather and reduce-scatter words a step in the
+             loss + backward the closed form of its blocks.
 
 The seconds of each phase are printed on the ``[done]`` line.
 The line before the last is a JSON object with one entry per kernel;
@@ -2987,8 +3013,9 @@ def mesh_trains_rank(mesh_x, flags_list):
 
 
 def mesh_trains(torch):
-    """Phase 13's stablelm run on (data 2, model 2) and phase 16's xlstm
-    run on (data 1, model 4), in one launch of 4 gloo ranks
+    """Phase 13's stablelm run on (data 2, model 2), phase 16's xlstm
+    run on (data 1, model 4) and phase 21's gemma2 run on (data 2,
+    model 2) with ``fsdp_params``, in one launch of 4 gloo ranks
     (``mesh_trains_rank``): {arch: (its args, the flags launched, every
     rank's result)}, and the launch's seconds."""
     import gc
@@ -2996,18 +3023,20 @@ def mesh_trains(torch):
     from repro_torch.distributed.launch import run_ranks
     gc.collect()
     torch.cuda.empty_cache()
-    runs = {"stablelm-1.6b": _mesh_train_args(4, 2, RESUME_LAYERS,
-                                              "stablelm-1.6b"),
-            "xlstm-350m": _mesh_train_args(
+    make = {"stablelm-1.6b": lambda: _mesh_train_args(
+                4, 2, RESUME_LAYERS, "stablelm-1.6b"),
+            "xlstm-350m": lambda: _mesh_train_args(
                 XLSTM_MESH_DEVICES, XLSTM_MESH_MAX_MODEL, XLSTM_MESH_LAYERS,
-                "xlstm-350m")}
+                "xlstm-350m"),
+            DENSEMESH_ARCH: _densemesh_args}
+    runs = {arch: args() for arch, args in make.items()}
     flags = [dict(vars(a)) for a in runs.values()]
     t0 = time.perf_counter()
     every = run_ranks("chip_smoke:mesh_trains_rank", 4, backend="gloo",
                       device=DEVICE, paths=[ROOT], timeout=3000,
                       kwargs={"flags_list": flags})
     wall = time.perf_counter() - t0
-    log(f"[meshtrain] one launch of 4 gloo ranks for phases 13 and 16: "
+    log(f"[meshtrain] one launch of 4 gloo ranks for {', '.join(runs)}: "
         f"{wall:.1f} s (process start included)")
     return {arch: (args, flags[i], [r[i] for r in every])
             for i, (arch, args) in enumerate(runs.items())}, wall
@@ -3130,7 +3159,8 @@ def meshtrain_phase(torch, single):
     uninterrupted single-device run at that depth (phase 11's).  Its
     (data 1, model 4) run is phase 14's phase 1: the same path at that
     depth, with the Grams and a checkpoint.  The launch also runs phase
-    16's xlstm mesh training (``mesh_trains``), returned for it."""
+    16's xlstm and phase 21's gemma2 mesh training (``mesh_trains``),
+    returned for them."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3144,7 +3174,8 @@ def meshtrain_phase(torch, single):
                                    cfg, 2, 2)
     seconds = {"b_s": time.perf_counter() - t0, "launch_s": wall}
     log(f"[meshtrain] phase seconds {json.dumps(seconds)}")
-    return {"b": rb, **seconds}, launches, runs["xlstm-350m"]
+    return {"b": rb, **seconds}, launches, runs["xlstm-350m"], \
+        runs[DENSEMESH_ARCH]
 
 
 # --------------------------------------------------------------------------
@@ -4566,6 +4597,470 @@ def shapes_phase(torch, procs, cases):
     return rows, launches
 
 
+# --------------------------------------------------------------------------
+# phase 21: train the dense families at full width, one card and a mesh
+# --------------------------------------------------------------------------
+#: each family on one card at its published widths: (layers, optimizer).
+#: The depth is cut to whole periods of the pattern (gemma2's local /
+#: global pair, gemma3's 5 local + 1 global), never the width; granite,
+#: pixtral and musicgen as deep as keeps a step's peak well under the
+#: card's 80 GB at the trainer's ~22 (Muon) to ~30 (AdamW) bytes a
+#: parameter (PERF.md §5: musicgen whole).  Muon on the widest Grams (gemma3's 262144 x 3840
+#: embeddings, granite's 6144 x 24576 MLP), AdamW on the others to keep
+#: the phase short
+DENSETRAIN = {"gemma2-9b": (2, "adamw"), "gemma3-12b": (6, "muon-syrk"),
+              "granite-20b": (6, "muon-syrk"), "pixtral-12b": (4, "adamw"),
+              "musicgen-large": (48, "adamw")}
+#: a warm-up step and 2 timed, 2 x 256 tokens (frames for musicgen)
+DENSETRAIN_STEPS, DENSETRAIN_BATCH = 3, 2
+#: the Muon NS Gram widths these runs add (2048 is phase 7's, 1024
+#: phase 15's), each at the long sides it meets there: an embedding's
+#: vocab, the MLP's d_ff, pixtral's 4096-wide attention projections
+MUON_WIDTHS = ((3584, 256000), (3584, 14336), (3840, 262144),
+               (3840, 15360), (5120, 131072), (5120, 14336), (6144, 49152),
+               (6144, 24576), (4096, 5120))
+#: gemma2-9b on (data 2, model 2) with fsdp_params, one period, AdamW,
+#: in the launch phases 13 and 16 share.  ``init_model(mesh=)`` draws the
+#: whole model on every rank before it shards (ROADMAP A, limitations):
+#: 4 ranks x 4.5 GB of bf16 weights (and a leaf's f32 draw) at once
+DENSEMESH_ARCH, DENSEMESH_LAYERS, DENSEMESH_STEPS = "gemma2-9b", 2, 2
+
+
+#: the symmetric kernels timed at the training shapes phase 21 adds:
+#: (label, stack, n1, n2), the NS Gram (SYRK) and sym(Y)·X (SYMM) of
+#: each; the launches a step are the run's (5 NS steps a leaf)
+DENSE_KERNEL_SHAPES = (("gemma3-12b embedding", 1, 3840, 262144),
+                       ("pixtral-12b embedding", 1, 5120, 131072),
+                       ("granite-20b MLP stack", 6, 6144, 24576))
+
+
+def dense_kernel_rows(torch, cases):
+    """``rank_update`` (the NS Gram, SYRK) and ``sym_stream`` (sym(Y)·X)
+    at ``DENSE_KERNEL_SHAPES``, each held to the same product in f64
+    within ``TOL_F32`` (max error over max(1, max |f64|)), as phases 17
+    and 18 hold the NS factor: at K up to 262144 the plain f32 version's
+    own rounding is of that order, so its distance to the kernel and to
+    f64 is printed, not bounded (``ns_check``).  Each is timed (CUDA
+    events) beside the plain version, one PyTorch call (``torch.matmul``
+    / ``torch.bmm``) and the bound; rows added to ``cases`` (not the
+    kernels line's main rows)."""
+    from repro_torch.core.packing import pack_tril_tiles
+    from repro_torch.kernels import trigrid
+    gen = torch.Generator(device=DEVICE).manual_seed(37)
+
+    def rel(x, ref):
+        err = float((x.double() - ref).abs().max())
+        return err, err / max(1.0, float(ref.abs().max()))
+
+    for label, k, n1, n2 in DENSE_KERNEL_SHAPES:
+        lead = (k,) if k > 1 else ()
+        mm = torch.bmm if k > 1 else torch.matmul
+        shape = str(lead + (n1, n2)).replace(",)", ")")
+        T = (n1 // 128) * (n1 // 128 + 1) // 2
+        a = torch.randn(*lead, n1, n2, generator=gen, device=DEVICE) \
+            / n2 ** 0.5
+        s = torch.randn(*lead, n1, n1, generator=gen, device=DEVICE) \
+            / n1 ** 0.5
+        tiles = pack_tril_tiles(s, 128).contiguous()
+        sym = torch.tril(s) + torch.tril(s, -1).mT
+        del s
+        runs = (
+            ("rank_update", f"{label} NS Gram, SYRK {shape}",
+             lambda: trigrid.rank_update("syrk", a, bm=128),
+             lambda: trigrid._rank_update_plain("syrk", a, None, 128,
+                                                trigrid.Epilogue(), None),
+             lambda: pack_tril_tiles(torch.tril(
+                 a.double() @ a.double().mT), 128),
+             lambda: mm(a, a.mT), k * n1 * n2 * 4 + k * T * 128 * 128 * 4,
+             k * n1 * (n1 + 1) * n2),
+            ("sym_stream", f"{label} NS sym(Y)·X, {n1}² x {shape}",
+             lambda: trigrid.sym_stream(tiles, a, bm=128),
+             lambda: trigrid._sym_stream_plain(tiles, a, n1 // 128, 1.0,
+                                               torch.float32),
+             lambda: sym.double() @ a.double(),
+             lambda: mm(sym, a), tiles.numel() * 4 + 2 * k * n1 * n2 * 4,
+             2 * k * n1 * n1 * n2))
+        for name, case, run, plain, exact, library, nbytes, flops in runs:
+            got, want = run(), exact()
+            err, err_rel = rel(got, want)
+            ours = plain()
+            plain_rel = rel(ours, want)[1]
+            vs_plain = rel(got, ours.double())[1]
+            del ours, want
+            ok = err_rel <= TOL_F32 and bool(torch.isfinite(got).all())
+            del got
+            log(f"[kernels] {name} {case}: vs f64 max_abs_err {err:.3e} "
+                f"(rel {err_rel:.2e} <= {TOL_F32:.0e}); the plain f32 "
+                f"version vs f64 {plain_rel:.2e}, the kernel vs it "
+                f"{vs_plain:.2e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"kernel {name} {case} disagrees with the "
+                                 "product in f64")
+            row = {"case": case, "max_abs_err": err, "vs": "f64",
+                   "plain_rel_err_f64": plain_rel,
+                   "rel_err_vs_plain": vs_plain, "main": False, "batch": k,
+                   "ms": cuda_ms(torch, run), "plain_ms": cuda_ms(torch, plain),
+                   "library_ms": cuda_ms(torch, library),
+                   "library": "torch.bmm" if k > 1 else "torch.matmul",
+                   "ffma_bound_ms": bound_ms(nbytes, flops, False)[0]}
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+            log(f"[densetrain]   {name} {case}: ms {row['ms']:.4f}  plain "
+                f"{row['plain_ms']:.4f}  {row['library']} "
+                f"{row['library_ms']:.4f}  bound {row['bound_ms']:.4f} "
+                f"({row['bound_by']})")
+            cases.setdefault(name, []).append(row)
+            torch.cuda.empty_cache()
+        del a, tiles, sym
+        torch.cuda.empty_cache()
+
+
+def _dense_argv(arch, layers, optimizer, steps):
+    """The train flags of phase 21: ``arch`` at its published widths cut
+    to ``layers``, 2 x 256 tokens a step, seed 0."""
+    return ["--arch", arch, "--full", "--layers", str(layers),
+            "--optimizer", optimizer, "--steps", str(steps),
+            "--global-batch", str(DENSETRAIN_BATCH), "--seq-len", "256",
+            "--loss-chunk", "256", "--seed", "0", "--data-seed", "0",
+            "--log-every", "1"]
+
+
+def _densemesh_args():
+    from repro_torch.launch.train import build_argparser
+    return build_argparser().parse_args(
+        _dense_argv(DENSEMESH_ARCH, DENSEMESH_LAYERS, "adamw",
+                    DENSEMESH_STEPS) + ["--device", DEVICE, "--devices", "4",
+                                        "--max-model", "2"])
+
+
+def muon_launches(cfg, steps) -> dict:
+    """A single-device Muon run's kernel launches from the leaf shapes:
+    each matrix leaf (a stack in one call) whose short side is at least
+    256 (the kernel route) runs 5 NS steps of one SYRK (``rank_update``)
+    and two SYMMs (``sym_stream``) a step."""
+    n = sum(len(s) >= 2 and min(s[-2:]) >= 256
+            for s in _leaves(cfg).values())
+    return {"rank_update": 5 * n * steps, "sym_stream": 10 * n * steps,
+            "slstm_scan": 0, "slstm_scan_bwd": 0}
+
+
+def fsdp_closed_form(cfg, data, P) -> dict:
+    """A rank's loss + backward words a step over 'data' under
+    ``fsdp_params``, from the shapes and specs alone: each block split
+    over 'data' all-gathered (D - 1 times the block) twice for a layer's
+    weights (the forward and the per-period recompute) and once for
+    embed and unembed, and its gradient reduce-scattered once."""
+    from repro_torch.models.sharding import axis_size, param_specs
+    shapes = _leaves(cfg)
+    sizes = {"data": data, "model": P}
+    specs = param_specs(cfg, shapes, sizes)
+    ag = rs = 0
+    for k, shape in shapes.items():
+        if data == 1 or "data" not in specs[k]:
+            continue
+        block = math.prod(shape) // math.prod(
+            axis_size(sizes, a) for a in specs[k] if a is not None)
+        ag += (data - 1) * block * (2 if k[0] == "periods" else 1)
+        rs += (data - 1) * block
+    return {"all_gather": ag, "reduce_scatter": rs}
+
+
+def muon_f64_check(torch, n1, n2):
+    """One Muon orthogonalisation (5 NS steps) of an (n1, n2) f32
+    momentum from a seed on the kernels, against the same iteration in
+    f64 on ``torch.matmul``: the result within ``NS_TOL`` (relative
+    Frobenius) and the first Gram (one ``rank_update`` SYRK) within
+    ``TOL_F32`` (max error over max(1, max |f64|)); 5 / 10 launches."""
+    from repro_torch import blas
+    from repro_torch.kernels import counts
+    from repro_torch.optim.muon import NS_COEFFS, orthogonalize_reference
+    gen = torch.Generator(device=DEVICE).manual_seed(n1 + n2)
+    m = torch.randn(n1, n2, generator=gen, device=DEVICE)
+    before = counts.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = orthogonalize_reference(m, steps=5)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in counts.launch_counts().items()}
+    x32 = m / (torch.linalg.vector_norm(m) + 1e-7)
+    gram = blas.syrk(x32, fill="full")
+    del m
+    a, b, c = NS_COEFFS
+    x = x32.double()
+    del x32
+    gram64 = x @ x.T
+    gram_err = float((gram.double() - gram64).abs().max()) / max(
+        1.0, float(gram64.abs().max()))
+    del gram
+    for i in range(5):
+        s = gram64 if i == 0 else x @ x.T
+        x = a * x + (b * s + c * (s @ s)) @ x
+    rel = float((got.double() - x).norm() / x.norm())
+    del x, got, gram64
+    torch.cuda.empty_cache()
+    ok = rel <= NS_TOL and gram_err <= TOL_F32
+    log(f"[densetrain] Muon NS ({n1}, {n2}), 5 steps on the kernels vs the "
+        f"f64 iteration: rel {rel:.3e} (<= {NS_TOL:.0e}); first Gram "
+        f"{gram_err:.3e} (<= {TOL_F32:.0e}); host s {secs:.4f}; launches "
+        f"{launched} {'ok' if ok else 'FAIL'}")
+    assert launched["rank_update"] == 5 and launched["sym_stream"] == 10, \
+        launched
+    if not ok:
+        raise SystemExit(f"Muon NS at ({n1}, {n2}) on the kernels disagrees "
+                         "with the f64 iteration")
+    return {"shape": [n1, n2], "rel_f64": rel, "gram_err_f64": gram_err,
+            "s": secs}
+
+
+def _dense_report(torch, tag, cfg, out, launches, want):
+    """Print one family's run (s a step and its split, tokens/s, peak
+    against the card's memory, launches against ``want``) and check it:
+    finite losses, the launches, the peak under the card's."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    losses, peak = out["losses"], out["peak_memory_bytes"]
+    log(f"{tag} {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {out['params']} parameters, "
+        f"{out['optimizer']}: losses {losses}")
+    for i, (t, sp) in enumerate(zip(out["step_s"], out["split_s"])):
+        log(f"{tag} step {i}{' (warm-up)' if i == 0 else ''}: {t:.4f} s = "
+            f"loss+backward {sp['loss_backward_s']:.4f} + clip "
+            f"{sp['clip_s']:.4f} + optimizer {sp['opt_s']:.4f}")
+    log(f"{tag} tokens/s {out['tokens_per_s']:.1f} (after the warm-up); "
+        f"peak memory {peak / 2**30:.2f} GiB of {total / 2**30:.2f}; "
+        f"launches {launches}, closed form {want}")
+    assert all(map(math.isfinite, losses)), losses
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    assert peak < total, (peak, total)
+    return {"layers": cfg.n_layers, "optimizer": out["optimizer"],
+            "params": out["params"], "losses": losses,
+            "step_s": out["step_s"], "split_s": out["split_s"],
+            "tokens_per_s": out["tokens_per_s"], "peak_memory_bytes": peak,
+            "launches": launches}
+
+
+def dense_train(torch, arch, layers, optimizer):
+    """``train`` of a token family at full width, ``layers`` deep, on
+    the card; gemma2's initial weights are also kept on the host for
+    the card-vs-CPU loss."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as ttrain
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    kept, init = {}, ttrain.init_model
+
+    def keep(cfg, seed, device, **kw):
+        model = init(cfg, seed=seed, device=device, **kw)
+        if arch == DENSEMESH_ARCH:
+            kept.update({k: v.detach().to("cpu", copy=True)
+                         for k, v in model.state_dict().items()})
+        return model
+
+    ttrain.init_model = keep
+    try:
+        out = ttrain.train(ttrain.build_argparser().parse_args(
+            _dense_argv(arch, layers, optimizer, DENSETRAIN_STEPS)
+            + ["--device", DEVICE]))
+    finally:
+        ttrain.init_model = init
+    launches = out["kernel_launches"]
+    want = muon_launches(cfg, DENSETRAIN_STEPS) \
+        if optimizer.startswith("muon") else \
+        {k: 0 for k in ("rank_update", "sym_stream", "slstm_scan",
+                        "slstm_scan_bwd")}
+    tag = f"[densetrain {arch}]"
+    if optimizer.startswith("muon"):
+        assert_kernel_routes(out, launches, tag)
+    row = _dense_report(torch, tag, cfg, out, launches, want)
+    return row, launches, kept
+
+
+def dense_cpu_loss(torch, cfg, state, card_loss):
+    """The first loss of the card's run, from the same initial weights on
+    the CPU (no grad): within phase 7's ``MUON_TOL`` form,
+    |card - cpu| <= MUON_TOL + MUON_TOL·|cpu|."""
+    from repro_torch.data import DataConfig, make_train_iterator
+    from repro_torch.models.model import Model, lm_loss
+    cpu = torch.device("cpu")
+    model = Model(cfg, torch.Generator(), torch.device("meta"))
+    model.load_state_dict(state, assign=True)
+    model.device = cpu
+    it = make_train_iterator(DataConfig(
+        seq_len=256, global_batch=DENSETRAIN_BATCH, vocab_size=cfg.vocab,
+        seed=0), device="cpu")
+    try:
+        batch = next(it)
+    finally:
+        it.close()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = float(lm_loss(model, batch, chunk=256, remat=False))
+    err = abs(card_loss - want)
+    ok = err <= MUON_TOL + MUON_TOL * abs(want)
+    log(f"[densetrain] {cfg.name} {cfg.n_layers} layers, first loss card "
+        f"{card_loss:.6f} vs cpu {want:.6f}: |diff| {err:.3e} (<= "
+        f"{MUON_TOL:.0e} + {MUON_TOL:.0e}|cpu|), cpu s "
+        f"{time.perf_counter() - t0:.1f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the dense first loss on the card disagrees with "
+                         "the CPU's")
+    return {"card": card_loss, "cpu": want, "abs_err": err}
+
+
+def musicgen_train(torch, layers, optimizer):
+    """musicgen-large at full width, ``layers`` deep, on frames through
+    ``make_train_step`` (the trainer, as the reference's, feeds tokens
+    and refuses it): the batches of ``make_train_iterator(frontend=
+    "embeddings")``, timed as the trainer times its steps."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_train_iterator
+    from repro_torch.kernels import counts
+    from repro_torch.launch.steps import (init_opt_state, make_optimizer,
+                                          make_train_step)
+    from repro_torch.models.model import init_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("musicgen-large"), n_layers=layers)
+    model = init_model(cfg, seed=0, device=DEVICE)
+    opt = make_optimizer(cfg, optimizer)
+    step = make_train_step(model, opt, loss_chunk=256)
+    state = init_opt_state(model, opt)
+    it = make_train_iterator(DataConfig(
+        seq_len=256, global_batch=DENSETRAIN_BATCH, vocab_size=cfg.vocab,
+        seed=0), frontend="embeddings", d_model=cfg.d_model, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset_launch_counts()
+    losses, step_s, split = [], [], []
+    try:
+        for _ in range(DENSETRAIN_STEPS):
+            batch = next(it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            split.append({k: metrics[k] for k in
+                          ("loss_backward_s", "clip_s", "opt_s")})
+    finally:
+        it.close()
+    launches = counts.launch_counts()
+    timed = step_s[1:]
+    out = {"losses": losses, "step_s": step_s, "split_s": split,
+           "optimizer": optimizer,
+           "params": sum(p.numel() for p in model.parameters()),
+           "tokens_per_s": DENSETRAIN_BATCH * 256 * len(timed) / sum(timed),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del model, state, step, opt
+    want = {k: 0 for k in launches}
+    row = _dense_report(torch, "[densetrain musicgen-large frames]", cfg,
+                        out, launches, want)
+    return row, launches
+
+
+def densemesh_check(torch, run, wall, single_losses):
+    """gemma2-9b on (data 2, model 2) with ``fsdp_params`` (phase 13's
+    launch): every rank's losses identical, step 0's within
+    ``MESHTRAIN_RTOL`` of the one-card run's, each rank's loss +
+    backward all-gather and reduce-scatter words a step the closed
+    form; prints the split, words and bytes by phase, and the peaks."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(DENSEMESH_ARCH),
+                              n_layers=DENSEMESH_LAYERS)
+    out = run_mesh_train(torch, run, wall)
+    assert out["mesh"] == {"data": 2, "model": 2}, out["mesh"]
+    ranks, losses = out["ranks"], out["losses"]
+    assert len(losses) == DENSEMESH_STEPS and \
+        all(map(math.isfinite, losses)), losses
+    for i, r in enumerate(ranks):
+        assert r["losses"] == losses, (f"rank {i} disagrees", r["losses"])
+    rel = abs(losses[0] - single_losses[0]) / abs(single_losses[0])
+    want = fsdp_closed_form(cfg, 2, 2)
+    tag = "[densetrain mesh]"
+    log(f"{tag} {cfg.name} {cfg.n_layers} layers, (data 2, model 2), "
+        f"fsdp_params, adamw, 4 gloo ranks on one card: losses {losses}; "
+        f"step 0 vs one card {single_losses[0]}: rel {rel:.3e} (<= "
+        f"{MESHTRAIN_RTOL:.0e}); FSDP words a rank a step, closed form "
+        f"{want}")
+    assert rel <= MESHTRAIN_RTOL, (losses[0], single_losses[0])
+    for i, r in enumerate(ranks):
+        for s, step in enumerate(r["words"]):
+            got = {k: step["loss_backward"].get(k, 0) for k in want}
+            assert got == want, (i, s, got, want)
+        log(f"{tag} rank {i}: s per step {r['step_s']}; words the last step "
+            f"by phase {r['words'][-1]}, bytes {r['bytes'][-1]}; peak memory"
+            f" {r['peak_memory_bytes'] / 2**30:.2f} GiB; launches "
+            f"{r['kernel_launches']}")
+    r0 = ranks[0]
+    for s, (t, sp) in enumerate(zip(r0["step_s"], r0["split_s"])):
+        log(f"{tag} step {s}{' (warm-up)' if s == 0 else ''}: {t:.4f} s = "
+            f"loss+backward {sp['loss_backward_s']:.4f} + reduce "
+            f"{sp['reduce_s']:.4f} + clip {sp['clip_s']:.4f} + optimizer "
+            f"{sp['opt_s']:.4f} (rank 0)")
+    launches = {}
+    for r in ranks:
+        for k, v in r["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"losses": losses, "rel_step0": rel, "fsdp_words": want,
+            "step_s": [r["step_s"] for r in ranks], "split_s": r0["split_s"],
+            "words": _kinds(r0["words"]), "bytes": _kinds(r0["bytes"]),
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+            "wall_s": out["wall_s"]}, launches
+
+
+def densetrain_phase(torch, mesh_run, wall, cases):
+    """Phase 21: the Muon NS at every new Gram width against the f64
+    iteration; the symmetric kernels at the new training shapes against
+    their plain versions, timed (rows added to ``cases``); each dense
+    family trained at full width on the card
+    (``DENSETRAIN``); gemma2's first loss against the CPU's; gemma2 on
+    (data 2, model 2) with ``fsdp_params`` (``mesh_run``: its flags and
+    ranks' results from phase 13's launch, ``wall`` that launch's
+    seconds) against the one-card run."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    ns = [muon_f64_check(torch, n1, n2) for n1, n2 in MUON_WIDTHS]
+    seconds = {"ns_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    dense_kernel_rows(torch, cases)
+    rows, launches = {}, {}
+    seconds["kernels_s"] = time.perf_counter() - t0
+    kept = {}
+    for arch, (layers, optimizer) in DENSETRAIN.items():
+        t1 = time.perf_counter()
+        if arch == "musicgen-large":
+            rows[arch], launches[arch] = musicgen_train(torch, layers,
+                                                        optimizer)
+        else:
+            rows[arch], launches[arch], got = dense_train(torch, arch,
+                                                          layers, optimizer)
+            kept.update(got)
+        seconds[arch] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(DENSEMESH_ARCH),
+                              n_layers=DENSEMESH_LAYERS)
+    cpu = dense_cpu_loss(torch, cfg, kept,
+                         rows[DENSEMESH_ARCH]["losses"][0])
+    del kept
+    seconds["cpu_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    mesh, mlaunches = densemesh_check(torch, mesh_run, wall,
+                                      rows[DENSEMESH_ARCH]["losses"])
+    seconds["mesh_s"] = time.perf_counter() - t1
+    log(f"[densetrain] phase seconds {json.dumps(seconds)}")
+    return {"muon_ns": ns, "runs": rows, "cpu_loss": cpu, "mesh": mesh,
+            **seconds}, launches, mlaunches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4600,7 +5095,7 @@ def main() -> int:
 
 
 def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
-    """Phases 2-20 and the closing lines (``main`` starts phase 20's
+    """Phases 2-21 and the closing lines (``main`` starts phase 20's
     counting children first and stops them last)."""
     build_s = timed("build", build)
     cases = timed("kernels", kernel_phase, torch, clock)
@@ -4616,8 +5111,8 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     rout, rlaunches = timed("recovery", recovery_phase, torch, single)
     pout, plaunches = timed("compress", compress_phase, torch, tout,
                             gloo["compress"])
-    eout, elaunches, xrun = timed("meshtrain", meshtrain_phase, torch,
-                                  single)
+    eout, elaunches, xrun, grun = timed("meshtrain", meshtrain_phase,
+                                        torch, single)
     lout, llaunches = timed("elastic", elastic_phase, torch, single)
     xtout, xtlaunches = timed("xlstmtrain", xlstm_train_phase, torch,
                               cases)
@@ -4627,6 +5122,8 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     dout, dlaunches = timed("dense", dense_phase, torch)
     sout, slaunches = timed("deepseek", deepseek_phase, torch)
     hout, hlaunches = timed("shapes", shapes_phase, torch, counters, cases)
+    tdout, tdlaunches, tdmesh = timed("densetrain", densetrain_phase, torch,
+                                      grun, eout["launch_s"], cases)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s; by phase "
         f"{json.dumps(phase_s)}")
@@ -4648,6 +5145,7 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     log(json.dumps({"dense": dout}))
     log(json.dumps({"deepseek": sout}))
     log(json.dumps({"shapes": hout}))
+    log(json.dumps({"densetrain": tdout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -4677,7 +5175,13 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
                    **{f"{arch} {n} layers": slaunches[arch][name]
                       for arch, n in DEEPSEEK_LAYERS.items()},
                    **{f"shapes {row}": hlaunches[row][name]
-                      for row in hlaunches}}
+                      for row in hlaunches},
+                   **{f"train {arch} {n} layers {opt}"
+                      + (", frames" if arch == "musicgen-large" else ""):
+                      tdlaunches[arch][name]
+                      for arch, (n, opt) in DENSETRAIN.items()},
+                   f"train mesh {DENSEMESH_ARCH} {DENSEMESH_LAYERS} layers "
+                   "adamw fsdp_params": tdmesh.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

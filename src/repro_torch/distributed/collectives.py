@@ -87,7 +87,8 @@ def _home(y: torch.Tensor, like: torch.Tensor, comm: Comm) -> torch.Tensor:
 
 def reduce_scatter(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     """Sum over the group of (P·s, …) operands; this rank keeps rows
-    [index·s, (index+1)·s)."""
+    [index·s, (index+1)·s).  Pass f32 operands: the sum is taken in
+    ``x``'s dtype."""
     P = comm.size
     if P == 1:
         return x
@@ -188,7 +189,8 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
 
 
 # ---------------------------------------------------------------------------
-# the tensor-parallel operators (Megatron's f and g), differentiable
+# the tensor-parallel operators (Megatron's f and g) and ZeRO-3's gather,
+# differentiable
 # ---------------------------------------------------------------------------
 class _CopyToGroup(torch.autograd.Function):
     @staticmethod
@@ -226,6 +228,37 @@ def reduce_from_group(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     if comm.size == 1:
         return x
     return _ReduceFromGroup.apply(x, comm)
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return all_gather(x.movedim(dim, 0), comm).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        part = reduce_scatter(g.float().movedim(ctx.dim, 0), ctx.comm)
+        return part.movedim(0, ctx.dim).to(g.dtype), None, None
+
+
+def gather_from_group(x: torch.Tensor, comm: Comm, dim: int) -> torch.Tensor:
+    """All-gather forward, reduce-scatter (in f32) of the gradient
+    backward: a weight split over ``comm`` along ``dim`` (ZeRO-3's
+    ``fsdp_params`` over 'data') made whole where it is used.  The
+    gradient of this rank's block is then the sum of every rank's."""
+    if comm.size == 1:
+        return x
+    return _GatherFromGroup.apply(x, comm, dim)
+
+
+def fsdp_weight(module, name: str) -> torch.Tensor:
+    """``module``'s weight ``name``, gathered over 'data' where
+    ``Model.shard_`` left it split there (``module.fsdp[name]``: the
+    comm and the dim; a module with no such entry holds it whole)."""
+    w = getattr(module, name)
+    at = getattr(module, "fsdp", {}).get(name)
+    return w if at is None else gather_from_group(w, *at)
 
 
 def row_parallel(y: torch.Tensor, w: torch.Tensor,

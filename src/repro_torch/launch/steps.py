@@ -7,8 +7,10 @@ AdamW-8bit / Muon), with the host seconds of each part.  On a model
 sharded over a (data, model) mesh (``Model.shard_``) the same step runs
 on this rank's rows and blocks: the gradient mean over the data axes
 (``collectives.all_reduce``, or ``ErrorFeedbackInt8.allreduce`` int8 on
-the wire), the global norm summed over 'model' once per sharded leaf,
-and the optimizer on the blocks.
+the wire; a leaf split over 'data' under ``fsdp_params`` arrives summed
+by its gather's reduce-scatter and is only divided), the global norm
+summed over the axes each sharded leaf is split over, and the optimizer
+on the blocks.
 ``make_prefill_step`` / ``make_decode_step`` are the serving entry
 points.  PyTorch runs them eagerly; the parameters live in the model
 and the optimizers see them as the reference's tree
@@ -25,6 +27,7 @@ import torch
 from ..distributed import collectives
 from ..models.common import ArchConfig
 from ..models.model import Model, lm_loss, lm_loss_terms
+from ..models.sharding import split_axes
 from ..optim.adamw import AdamW
 from ..optim.muon import Muon
 from .mesh import dp_axes
@@ -79,25 +82,39 @@ def make_optimizer(cfg: ArchConfig, name: str = "adamw", lr: float = 3e-4,
     raise ValueError(name)
 
 
+def _split_axes(spec, mesh) -> Tuple[str, ...]:
+    """The mesh axes of more than one rank that ``spec`` splits over."""
+    return tuple(sorted(a for a in set(split_axes(spec))
+                        if mesh.shape.get(a, 1) > 1))
+
+
 def _clip_by_global_norm(grads: Tree, max_norm: float, specs=None,
                          mesh=None) -> Tuple[Tree, torch.Tensor]:
     """Scale every gradient by min(1, max_norm / ‖g‖) (‖g‖ over all
     leaves, in f32); the clipped gradients are f32, as the reference's
     (a bf16 leaf times its f32 scale promotes there).  Given this rank's
     blocks (``specs`` on ``mesh``), the squares of the leaves split over
-    'model' are all-reduced there and each replicated leaf counts once."""
+    'model', 'data' (``fsdp_params``) or both are all-reduced over those
+    axes, one all-reduce for each set of axes, and each replicated leaf
+    counts once."""
     dev = next(iter(grads.values())).device
 
     def sq(keys) -> torch.Tensor:
         return sum((torch.sum(torch.square(grads[k].float())) for k in keys),
                    torch.zeros((), device=dev))
 
-    if specs is None or mesh.shape.get("model", 1) == 1:
+    if specs is None:
         total = sq(grads)
     else:
-        split = [k for k in grads if "model" in specs[k]]
-        total = collectives.all_reduce(sq(split), mesh.comm("model")) \
-            + sq([k for k in grads if "model" not in specs[k]])
+        groups: Dict[Tuple[str, ...], List[Any]] = {}
+        for k in grads:
+            groups.setdefault(_split_axes(specs[k], mesh), []).append(k)
+        total = torch.zeros((), device=dev)
+        for axes in sorted(groups, key=lambda a: (not a, a)):
+            part = sq(groups[axes])
+            for a in axes:
+                part = collectives.all_reduce(part, mesh.comm(a))
+            total = total + part
     gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return {k: g.float() * scale for k, g in grads.items()}, gn
@@ -140,18 +157,28 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
     collectives by phase (``loss_backward``, ``reduce``, ``clip``,
     ``opt``) and kind."""
     mesh = model.mesh
-    dp = [mesh.comm(a) for a in dp_axes(mesh) if mesh.shape[a] > 1] \
+    axes = [a for a in dp_axes(mesh) if mesh.shape[a] > 1] \
         if mesh is not None else []
+    dp = [mesh.comm(a) for a in axes]
     n_dp = 1
     for c in dp:
         n_dp *= c.size
+    # the leaves split over a data axis (fsdp_params): their gradients
+    # came out of the gather's reduce-scatter already summed over it
+    summed = {k: [a for a in axes if a in _split_axes(spec, mesh)]
+              for k, spec in (model.specs or {}).items()}
     if compressor is not None and len(dp) > 1:
         raise NotImplementedError("compressed gradients over more than one "
                                   "data axis")
+    if compressor is not None and dp and any(summed.values()):
+        raise NotImplementedError(
+            "compressed gradients of weights split over 'data' "
+            "(fsdp_params) wait for ROADMAP A11g")
 
-    def dp_sum(x: torch.Tensor) -> torch.Tensor:
-        for c in dp:
-            x = collectives.all_reduce(x, c)
+    def dp_sum(x: torch.Tensor, skip=()) -> torch.Tensor:
+        for a, c in zip(axes, dp):
+            if a not in skip:
+                x = collectives.all_reduce(x, c)
         return x
 
     def loss_and_grads(batch) -> Tuple[torch.Tensor, Tree]:
@@ -201,7 +228,8 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
         if reduced:
             grads, ef = compressor.allreduce(grads, ef, dp[0])
         elif dp:
-            grads = {k: dp_sum(g.float()) / n_dp for k, g in grads.items()}
+            grads = {k: dp_sum(g.float(), summed[k]) / n_dp
+                     for k, g in grads.items()}
         _sync(dev)
         t2 = time.perf_counter()
         marks.append(counted())

@@ -97,13 +97,36 @@ layers under autograd):
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
         --full --optimizer muon-syrk --steps 4 --seq-len 256
 
+The dense families train with the same flags: gemma2-9b, gemma3-12b
+(post-block norms, scaled embeddings, sliding windows, softcaps),
+granite-20b (the ungated ``gelu_mlp``, one KV head) and pixtral-12b (on
+text tokens, as the reference's trainer feeds it).  At full width on a
+mesh their ``fsdp_params`` also split the weights over 'data' (ZeRO-3:
+each weight gathered where it is used, its gradient reduce-scattered);
+granite's single KV head keeps its model axis at 1:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch gemma3-12b --smoke --steps 3 --optimizer muon-syrk
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-9b \
+        --full --layers 2 --devices 4 --max-model 2 --steps 2 \
+        --global-batch 2 --seq-len 256
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-20b \
+        --full --layers 1 --devices 4 --max-model 1 --steps 2
+
+musicgen-large takes frames, and the trainer feeds tokens as the
+reference's does (whose trainer fails on it): it refuses before any
+weight is drawn (:func:`refuse_frames`); ``steps.make_train_step``
+trains it on ``make_train_iterator(frontend="embeddings")`` batches.
+
 A model axis that does not divide a headed mixer's head count raises
 ``ValueError`` before any rank starts (a rank runs whole heads).
 Waiting, each raising a clear error that names its ROADMAP item:
 ``--ckpt-dir`` on a mesh with state that is each rank's own (the 8-bit
 AdamW moments; the EF residuals of ``--compress-grads`` over a data
-axis: A8b); any config with Mamba or MoE blocks, MLA, prefix blocks or
-the MTP block (jamba, deepseek: A11b; the port serves them).
+axis: A8b); ``--compress-grads`` over a data axis with weights split
+over it (``fsdp_params``: A11g); any config with Mamba or MoE blocks,
+MLA, prefix blocks or the MTP block (jamba, deepseek: A11b; the port
+serves them).
 """
 from __future__ import annotations
 
@@ -130,8 +153,7 @@ from ..distributed import (ErrorFeedbackInt8, StepTimer, StragglerMonitor,
 from ..distributed.launch import run_ranks
 from ..kernels import counts
 from ..models.model import (Model, check_head_split, init_model,
-                            preload_remat, refuse_training,
-                            single_device_parts)
+                            preload_remat, single_device_parts)
 from ..models.sharding import (batch_specs, global_shape, param_specs,
                                shard_leaf)
 from .steps import (_delta, describe_blas_routing, init_opt_state,
@@ -156,6 +178,18 @@ class InjectedFailure(RuntimeError):
     """``--fail-at N``: the run stops before step N."""
 
 
+def refuse_frames(cfg) -> None:
+    """The trainer feeds tokens, as the reference's: raise
+    ``NotImplementedError`` for the "embeddings" frontend (musicgen),
+    before any weight is drawn."""
+    if cfg.frontend == "embeddings":
+        raise NotImplementedError(
+            f"{cfg.name} takes frames, and the trainer, as the reference's, "
+            "feeds tokens (the reference's fails with KeyError: 'embeds'); "
+            "train frames through launch.steps.make_train_step on batches "
+            "of data.make_train_iterator(frontend='embeddings', d_model=...)")
+
+
 def _refuse_waiting(args, cfg) -> None:
     """The reference's options the port does not carry yet, and a mesh
     the port cannot split the model over (checked before any rank
@@ -168,7 +202,6 @@ def _refuse_waiting(args, cfg) -> None:
             f"training {cfg.name} ({', '.join(parts)}) waits for ROADMAP "
             "A11b: the capacity MoE's backward and Muon on the "
             "(n_periods, E, d, f) expert stacks; serve it instead")
-    refuse_training(cfg)
     if args.devices == 1:
         return
     data, model = plan_shape(args.devices, max_model=args.max_model)
@@ -184,8 +217,16 @@ def _refuse_waiting(args, cfg) -> None:
             "optimizer state on a mesh wait for ROADMAP A8b")
     shapes = Model(cfg, torch.Generator(),
                    torch.device("meta")).stacked_shapes()
-    check_head_split(cfg, param_specs(cfg, shapes, {"data": data,
-                                                    "model": model}), model)
+    specs = param_specs(cfg, shapes, {"data": data, "model": model})
+    check_head_split(cfg, specs, model)
+    if args.compress_grads and data > 1 \
+            and any("data" in spec for spec in specs.values()):
+        raise NotImplementedError(
+            f"--compress-grads with --devices {args.devices} (data {data}):"
+            f" {cfg.name} splits its weights over 'data' (fsdp_params), "
+            "whose gradients are reduce-scattered, not all-reduced; the "
+            "int8 error-feedback wire for reduce-scattered leaves waits "
+            "for ROADMAP A11g")
 
 
 def train(args) -> Dict[str, Any]:
@@ -193,6 +234,7 @@ def train(args) -> Dict[str, Any]:
     on a mesh of that many ranks (rank 0's summary returned, with
     ``"ranks"``: every rank's)."""
     cfg = build_config(args)
+    refuse_frames(cfg)
     _refuse_waiting(args, cfg)
     if args.devices > 1:
         return _train_on_mesh(args)

@@ -9,7 +9,9 @@ over KV blocks (``_sdpa_streamed``) where the dense (B, H, Sq, Sk) f32
 logits would be large, as the reference dispatches (``_dispatch_sdpa``).
 Tensor-parallel (``tp`` set by ``Model.shard_``), a rank
 runs its n_heads / |model| heads and n_kv_heads / |model| KV heads, and
-the output projection's partial sums are all-reduced in f32.
+the output projection's partial sums are all-reduced in f32.  Under
+``fsdp_params`` each projection is also split over 'data' and gathered
+where it is used (``collectives.fsdp_weight``).
 
 MLA caches one latent row a token, ``{"ckv": (B, S_max, kv_lora),
 "kr": (B, S_max, rope_head_dim)}`` in bf16, and up-projects the whole
@@ -25,7 +27,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.collectives import copy_to_group, row_parallel
+from ..distributed.collectives import (copy_to_group, fsdp_weight,
+                                       row_parallel)
 from .common import (ArchConfig, BlockSpec, MLACfg, apply_rope, dense_init,
                      softcap)
 
@@ -141,6 +144,9 @@ class GQA(nn.Module):
         #: the 'model' axis group when the weights hold this rank's heads
         #: (wq / wk / wv column-, wo row-parallel; ``Model.shard_``)
         self.tp = None
+        #: the weights split over 'data' (``fsdp_params``), each gathered
+        #: where it is used: {name: (comm, dim)} (``Model.shard_``)
+        self.fsdp = {}
         for name, shape in (("wq", (d, h * hd)), ("wk", (d, hkv * hd)),
                             ("wv", (d, hkv * hd)), ("wo", (h * hd, d))):
             setattr(self, name, nn.Parameter(
@@ -159,9 +165,9 @@ class GQA(nn.Module):
         if self.tp is not None:             # this rank's heads
             h, hkv = h // self.tp.size, hkv // self.tp.size
             x = copy_to_group(x, self.tp)
-        q = (x @ self.wq).reshape(b, s, h, hd)
-        k = (x @ self.wk).reshape(b, s, hkv, hd)
-        v = (x @ self.wv).reshape(b, s, hkv, hd)
+        q = (x @ fsdp_weight(self, "wq")).reshape(b, s, h, hd)
+        k = (x @ fsdp_weight(self, "wk")).reshape(b, s, hkv, hd)
+        v = (x @ fsdp_weight(self, "wv")).reshape(b, s, hkv, hd)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
         scale = hd ** -0.5
@@ -180,7 +186,7 @@ class GQA(nn.Module):
             y = _dispatch_sdpa(q, ck, cv, positions, k_pos,
                                spec.local_window, valid, cfg.attn_softcap,
                                scale)
-        return row_parallel(y, self.wo, self.tp), cache
+        return row_parallel(y, fsdp_weight(self, "wo"), self.tp), cache
 
 
 def gqa_cache_init(cfg: ArchConfig, batch: int, s_max: int,

@@ -43,13 +43,19 @@ sLSTM, batch on dim 0 in both.
 On a (data, model) mesh (``init_model(..., mesh=)``, ``Model.shard_``)
 each rank holds its block of every parameter under
 :func:`~.sharding.param_specs`: attention, the mLSTM / sLSTM mixers and
-the MLP Megatron-split over 'model' (``collectives.copy_to_group`` /
-``row_parallel`` around them), the embedding on its vocab rows (a
-masked gather and an all-reduce) and the unembedding on its vocab
-columns, so that :func:`lm_loss` is vocab-parallel.  That path trains;
-serving a sharded model raises.  Mamba and MoE blocks, MLA, prefix
-blocks and the MTP block run on one device: on a mesh they wait (ROADMAP
-A11c), and so does their training (A11b, ``launch/train.py``).
+the MLP (gated or not) Megatron-split over 'model'
+(``collectives.copy_to_group`` / ``row_parallel`` around them), the
+embedding on its vocab rows (a masked gather and an all-reduce) and the
+head (``unembed``, or the tied ``embed.T``) on its vocab columns, so
+that :func:`lm_loss` is vocab-parallel.  A config with ``fsdp_params``
+(gemma2, gemma3, granite, pixtral) also splits those weights over
+'data', ZeRO-3's way: each rank keeps its block under both axes and
+gathers a weight over 'data' where it uses it (again in the per-period
+recompute), its gradient reduce-scattered back
+(``collectives.gather_from_group``).  That path trains; serving a
+sharded model raises.  Mamba and MoE blocks, MLA, prefix blocks and the
+MTP block run on one device: on a mesh they wait (ROADMAP A11c), and so
+does their training (A11b, ``launch/train.py``).
 """
 from __future__ import annotations
 
@@ -67,12 +73,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import DeviceLike, resolve_device
 from ..distributed.collectives import (all_reduce, copy_to_group,
-                                       reduce_from_group)
+                                       fsdp_weight, reduce_from_group)
 from .attention import GQA, MLA, gqa_cache_init, mla_cache_init
 from .common import (ArchConfig, BlockSpec, apply_norm, dense_init,
                      embed_init, softcap)
 from .moe import MLP, MoE
-from .sharding import param_specs, shard_leaf
+from .sharding import param_specs, shard_leaf, split_axes
 from .ssm import (MLSTM, SLSTM, Mamba, mamba_state_init, mlstm_state_init,
                   slstm_state_init)
 
@@ -108,33 +114,14 @@ def single_device_parts(cfg: ArchConfig) -> List[str]:
         (cfg.mtp, "the MTP block")) if on]
 
 
-def refuse_training(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config with a feature that the
-    port serves but does not train yet (the dense families': gemma,
-    granite, pixtral, musicgen): training them, on one card at a cut
-    depth and on a mesh with ``fsdp_params``, waits for ROADMAP A11f."""
-    feats = [what for on, what in (
-        (cfg.frontend != "tokens", f"the {cfg.frontend} frontend"),
-        (cfg.post_block_norm, "post-block norms"),
-        (cfg.embed_scale, "scaled embeddings"),
-        (cfg.tie_embeddings, "tied embeddings"),
-        (cfg.act == "gelu_mlp", "the ungated gelu_mlp")) if on]
-    if feats:
-        raise NotImplementedError(
-            f"training {cfg.name} ({', '.join(feats)}) waits for ROADMAP "
-            "A11f; serve it instead")
-
-
 def refuse_on_mesh(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a config with parts that run on
-    one device only (:func:`single_device_parts`), or that the port
-    does not train yet (:func:`refuse_training`)."""
+    one device only (:func:`single_device_parts`)."""
     parts = single_device_parts(cfg)
     if parts:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(parts)} on a mesh wait for ROADMAP "
             "A11c (they run on one device)")
-    refuse_training(cfg)
 
 
 def check_head_split(cfg: ArchConfig, specs, model: int) -> None:
@@ -299,6 +286,9 @@ class Model(nn.Module):
         self.mesh = None
         self.specs = None
         self.embed_tp = self.unembed_tp = None
+        #: embed / unembed split over 'data' (``fsdp_params``): {name:
+        #: (comm, dim)}, each gathered where it is used
+        self.fsdp = {}
         # the reference's leaves: no embed for frames, no unembed when tied
         self.register_parameter("embed", None if cfg.frontend == "embeddings"
                                 else nn.Parameter(embed_init(
@@ -319,8 +309,11 @@ class Model(nn.Module):
         return init_cache(self.cfg, batch, s_max, self.device)
 
     def head(self) -> torch.Tensor:
-        """The (d, V) LM head: ``unembed``, or ``embed.T`` when tied."""
-        return self.embed.T if self.cfg.tie_embeddings else self.unembed
+        """The (d, V) LM head: ``unembed``, or ``embed.T`` when tied
+        (gathered over 'data' under ``fsdp_params``)."""
+        if self.cfg.tie_embeddings:
+            return fsdp_weight(self, "embed").T
+        return fsdp_weight(self, "unembed")
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.unembed_tp is not None:
@@ -371,21 +364,23 @@ class Model(nn.Module):
         built first, so the blocks are the single-device weights): the
         attention, mLSTM, sLSTM and MLP weights Megatron-split over
         'model' (whole heads, whole sLSTM channel quads), embed on its
-        vocab rows, unembed on its vocab columns, the norms whole.  A
+        vocab rows, unembed (or, tied, embed) on its vocab columns, the
+        norms whole.  Under ``fsdp_params`` the attention, MLP, embed and
+        unembed weights are also split over 'data' (ZeRO-3): each is
+        gathered where it is used, and again in the per-period recompute
+        (``collectives.fsdp_weight``), its gradient reduce-scattered.  A
         column shard that would cut a head (:func:`check_head_split`), a
-        layer's weights split only in part, or weights split over
-        another axis than 'model' (``fsdp_params``) raise, naming the
-        leaf; so do Mamba and MoE blocks (:func:`refuse_on_mesh`)."""
+        layer's weights split only in part, a weight split over 'data'
+        that its module does not gather, or an axis other than 'data'
+        and 'model' raise, naming the leaf; so do Mamba and MoE blocks
+        (:func:`refuse_on_mesh`)."""
         cfg = self.cfg
         specs = param_specs(cfg, self.stacked_shapes(), mesh)
         P = mesh.shape.get("model", 1)
         check_head_split(cfg, specs, P)
-        for path, spec in specs.items():
-            if any(a not in (None, "model") for a in spec):
-                raise NotImplementedError(
-                    f"{'/'.join(path)}: spec {spec} splits weights over "
-                    "another axis than 'model' (fsdp_params) and waits")
         comm = mesh.comm("model") if P > 1 else None
+        data = mesh.comm("data") if mesh.shape.get("data", 1) > 1 else None
+        first = len(cfg.prefix)
 
         def split(*paths) -> bool:
             on = ["model" in specs[p] for p in paths]
@@ -396,34 +391,64 @@ class Model(nn.Module):
             return comm is not None and all(on)
 
         for i in range(cfg.period):
-            spec_i = self.blocks[i].spec
+            spec_i = self.blocks[first + i].spec
             base = ("periods", f"b{i}")
             tp = split(*(base + ("mixer", w)
                          for w in TP_WEIGHTS[spec_i.mixer]))
-            for li in range(i, cfg.n_layers, cfg.period):
+            for li in range(first + i, cfg.n_layers, cfg.period):
                 self.blocks[li].mixer.tp = comm if tp else None
             if spec_i.mlp == "dense":
-                tp = split(*(base + ("mlp", w) for w in ("wi", "wg", "wo")))
-                for li in range(i, cfg.n_layers, cfg.period):
+                tp = split(*(base + ("mlp", w) for w in ("wi", "wg", "wo")
+                             if base + ("mlp", w) in specs))
+                for li in range(first + i, cfg.n_layers, cfg.period):
                     self.blocks[li].mlp.tp = comm if tp else None
-        self.embed_tp = comm if "model" in specs[("embed",)] else None
-        self.unembed_tp = comm if "model" in specs[("unembed",)] else None
+        if ("embed",) in specs:
+            self.embed_tp = comm if "model" in specs[("embed",)] else None
+        head = ("embed",) if cfg.tie_embeddings else ("unembed",)
+        self.unembed_tp = comm if "model" in specs[head] else None
         for k, ps in self.param_tree().items():
             inner = specs[k][1:] if k[0] == "periods" else specs[k]
+            axes = split_axes(inner)
+            if any(a not in ("data", "model") for a in axes):
+                raise NotImplementedError(
+                    f"{'/'.join(k)}: spec {specs[k]} splits over an axis "
+                    "other than 'data' and 'model'")
+            if "data" in axes and data is not None:
+                self._gather_over_data(k, len(ps), inner.index("data"), data)
             for p in ps:
                 p.data = shard_leaf(p.data, inner, mesh).clone()
         self.mesh, self.specs = mesh, specs
         return self
 
+    def _gather_over_data(self, key, count: int, dim: int, comm) -> None:
+        """Register leaf ``key`` (its ``count`` Parameters) as split over
+        'data' along ``dim``: each module holding one gathers it where it
+        uses it.  A module that does not (no ``fsdp``) raises."""
+        if key[0] == "periods":
+            first, i = len(self.cfg.prefix), int(key[1][1:])
+            owners = [self.blocks[first + i + p * self.cfg.period]
+                      .get_submodule(".".join(key[2:-1]))
+                      for p in range(count)]
+        else:
+            owners = [self.get_submodule(".".join(key[:-1]))]
+        for owner in owners:
+            if not hasattr(owner, "fsdp"):
+                raise NotImplementedError(
+                    f"{'/'.join(key)}: split over 'data' (fsdp_params), "
+                    f"and {type(owner).__name__} does not gather it")
+            owner.fsdp[key[-1]] = (comm, dim)
+
     def _rows(self, tokens: torch.Tensor) -> torch.Tensor:
         """Rows of the embedding; vocab-sharded, a masked gather of this
-        rank's rows and an all-reduce (one rank holds each row)."""
+        rank's rows and an all-reduce (one rank holds each row); split
+        over 'data' too, its columns gathered first."""
+        embed = fsdp_weight(self, "embed")     # its d columns over 'data'
         if self.embed_tp is None:
-            return self.embed[tokens]
-        rows = self.embed.shape[0]
+            return embed[tokens]
+        rows = embed.shape[0]
         local = tokens - self.embed_tp.index * rows
         hit = (local >= 0) & (local < rows)
-        x = self.embed[torch.clamp(local, 0, rows - 1)] * hit[..., None]
+        x = embed[torch.clamp(local, 0, rows - 1)] * hit[..., None]
         return reduce_from_group(x.float(), self.embed_tp).to(x.dtype)
 
     def _embed(self, tokens: Optional[torch.Tensor],
@@ -601,15 +626,16 @@ def _xent_terms(model: Model, x: torch.Tensor, labels: torch.Tensor,
     fn, extra = _xent_chunk, ()
     if model.unembed_tp is not None:
         fn, extra = _xent_chunk_tp, (model.unembed_tp,)
+    w = model.head()            # gathered once over 'data' (fsdp_params)
     tot = torch.zeros((), device=x.device)
     cnt = torch.zeros((), device=x.device)
     for i in range(nchunks):
         xs, ls = x[:, i * cs:(i + 1) * cs], labels[:, i * cs:(i + 1) * cs]
         if remat and torch.is_grad_enabled():
-            l, n = checkpoint(fn, cfg, model.head(), xs, ls, *extra,
+            l, n = checkpoint(fn, cfg, w, xs, ls, *extra,
                               use_reentrant=False)
         else:
-            l, n = fn(cfg, model.head(), xs, ls, *extra)
+            l, n = fn(cfg, w, xs, ls, *extra)
         tot, cnt = tot + l, cnt + n
     return tot, cnt
 

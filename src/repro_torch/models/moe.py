@@ -4,7 +4,8 @@ experts (jamba, deepseek).
 
 Dense MLP: tensor-parallel (``tp`` set by ``Model.shard_``), wi / wg
 hold this rank's columns of d_ff and wo its rows, and the partial sums
-are all-reduced in f32.
+are all-reduced in f32; under ``fsdp_params`` each is also split over
+'data' and gathered where it is used.
 
 MoE (:class:`MoE`, one device; on a mesh it waits, ROADMAP A11c): f32
 router logits, softmax, top-k, the k gates renormalised (their sum
@@ -43,7 +44,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..distributed.collectives import copy_to_group, row_parallel
+from ..distributed.collectives import (copy_to_group, fsdp_weight,
+                                       row_parallel)
 from .common import ArchConfig, MoECfg, dense_init
 
 
@@ -66,6 +68,9 @@ class MLP(nn.Module):
         #: the 'model' axis group when wi / wg hold this rank's columns
         #: of f and wo its rows (``Model.shard_``)
         self.tp = None
+        #: the weights split over 'data' (``fsdp_params``): {name: (comm,
+        #: dim)}, each gathered where it is used (``Model.shard_``)
+        self.fsdp = {}
         names = ("wi", "wo") if cfg.act == "gelu_mlp" else ("wi", "wg", "wo")
         for name in names:
             shape = (f, d) if name == "wo" else (d, f)
@@ -77,11 +82,11 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp is not None:
             x = copy_to_group(x, self.tp)
-        h = self.act(x @ self.wi)
+        h = self.act(x @ fsdp_weight(self, "wi"))
         if self.wg is not None:
-            h = h * (x @ self.wg)
+            h = h * (x @ fsdp_weight(self, "wg"))
         # tensor-parallel: partial sums over this rank's f
-        return row_parallel(h, self.wo, self.tp)
+        return row_parallel(h, fsdp_weight(self, "wo"), self.tp)
 
 
 # ---------------------------------------------------------------------------

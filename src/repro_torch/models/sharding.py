@@ -215,6 +215,11 @@ def gather_leaf(x_loc: torch.Tensor, spec: Spec, mesh,
     return x
 
 
+def split_axes(spec: Optional[Spec]) -> Tuple[str, ...]:
+    """The mesh axes ``spec`` splits over, in order."""
+    return tuple(a for axis in spec or () for a in _tuplize(axis))
+
+
 def global_shape(shape, spec: Optional[Spec], mesh) -> Tuple[int, ...]:
     """The whole tensor's shape from a block's ``shape`` under ``spec``."""
     if spec is None:

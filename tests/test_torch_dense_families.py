@@ -43,7 +43,6 @@ from repro.models import model as jm
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import counts
 from repro_torch.launch import serve as tserve
-from repro_torch.launch import train as ttrain
 from repro_torch.launch.serving_cache import ServingGramCache
 from repro_torch.models import attention as tatt
 from repro_torch.models.common import ArchConfig
@@ -521,7 +520,7 @@ def test_dispatch_streams_through_the_model(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# what waits: frames through the server, training the dense families
+# what the server refuses: frames
 # ---------------------------------------------------------------------------
 def test_musicgen_serve_refuses_before_drawing_weights(monkeypatch,
                                                        musicgen):
@@ -537,26 +536,6 @@ def test_musicgen_serve_refuses_before_drawing_weights(monkeypatch,
     with pytest.raises(NotImplementedError, match="KeyError: 'embeds'"):
         tserve.Server(musicgen[2], musicgen[3], slots=1, s_max=16,
                       max_new=1, device="cpu")
-
-
-@pytest.mark.parametrize("devices", [1, 4])
-@pytest.mark.parametrize("arch", DENSE)
-def test_training_the_dense_families_refuses(arch, devices, monkeypatch):
-    """Training any of the five (one device or a mesh) raises naming
-    ROADMAP A11f before any weight is drawn; so does sharding one."""
-    def no_init(*a, **kw):
-        raise AssertionError("weights drawn before the refusal")
-    monkeypatch.setattr(ttrain, "init_model", no_init)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11f"):
-        ttrain.train(ttrain.build_argparser().parse_args(
-            ["--arch", arch, "--device", "cpu", "--steps", "1",
-             "--devices", str(devices)]))
-    if devices == 4:
-        from repro_torch.distributed.mesh import planning_mesh
-        from repro_torch.models.model import init_model
-        model = init_model(get_smoke_config(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A11f"):
-            model.shard_(planning_mesh({"data": 2, "model": 2}))
 
 
 @pytest.mark.parametrize("arch", DENSE[:4])

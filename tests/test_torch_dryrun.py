@@ -68,9 +68,7 @@ REF_KEYS = {
 #: train_4k of every config the port's trainer refuses, by the item it
 #: names; long_500k of every config that is not sub-quadratic
 WAITING = {"jamba_v0_1_52b": "A11b", "deepseek_v2_236b": "A11b",
-           "deepseek_v3_671b": "A11b", "gemma2_9b": "A11f",
-           "gemma3_12b": "A11f", "granite_20b": "A11f",
-           "pixtral_12b": "A11f", "musicgen_large": "A11f"}
+           "deepseek_v3_671b": "A11b"}
 
 
 def _meta(shape, dtype=torch.int32):
@@ -148,6 +146,31 @@ def test_total_flops_near_the_reference_hlo_count(kind):
     got = _port_step(kind, get_smoke_config("stablelm_1_6b")).total_flops
     want = _ref_hlo_flops(kind, j_smoke("stablelm_1_6b"))
     assert abs(got / want - 1) <= HLO_TOL, (got, want)
+
+
+def test_granite_train_flops_near_the_reference_hlo_count():
+    """granite's train step (the ungated ``gelu_mlp``, LayerNorm, MQA)
+    against the reference's HLO count, as stablelm's (2.5 % under it).
+    gemma2's is 3.4 % under, past ``HLO_TOL``: XLA lowers the post-block
+    RMSNorms' backward, the GELU-tanh's and the softcaps' with more
+    elementwise ops than eager PyTorch runs; its products are held
+    exactly below."""
+    got = _port_step("train", get_smoke_config("granite_20b")).total_flops
+    want = _ref_hlo_flops("train", j_smoke("granite_20b"))
+    assert abs(got / want - 1) <= HLO_TOL, (got, want)
+
+
+def test_gemma2_train_dot_flops_equal_the_closed_form():
+    """gemma2's train step multiplies 4× its forward's products: the
+    forward, the per-period recomputation and two products a product
+    backward.  Unlike stablelm's, a period's last product (the MLP's
+    ``wo``) is recomputed too: the post-block norm after it saves its
+    output.  (The reference's HLO has the same 218,103,808.)"""
+    cfg = get_smoke_config("gemma2_9b")
+    cost = _port_step("train", cfg)
+    bf16, f32 = _forward_dots(cfg, B * S, B * S * S, B * S)
+    assert cost.dot_flops_by_dtype == {"bfloat16": 4 * bf16,
+                                       "float32": 4 * f32}
 
 
 @pytest.mark.parametrize("flops,nbytes,coll", [

@@ -153,6 +153,26 @@ def test_dense_family_entry_points_raise_without_a_gpu(monkeypatch, arch):
             serve(args)
 
 
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-12b", "granite-20b",
+                                  "pixtral-12b", "musicgen-large"])
+def test_dense_family_trainer_raises_without_a_gpu(monkeypatch, arch):
+    """The trainer of the dense families wants the card as the others
+    do, on one device and on a mesh (granite's model axis at 1: its one
+    KV head); musicgen's frames are refused first, as the server does."""
+    from repro_torch.launch.train import build_argparser, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mesh in ([], ["--devices", "4", "--max-model",
+                      "1" if arch == "granite-20b" else "2"]):
+        args = build_argparser().parse_args(["--arch", arch, "--steps",
+                                             "1"] + mesh)
+        if arch == "musicgen-large":
+            with pytest.raises(NotImplementedError, match="takes frames"):
+                train(args)
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                train(args)
+
+
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
 def test_deepseek_entry_points_raise_without_a_gpu(monkeypatch, arch):
     """``init_model`` and ``serve()`` of the deepseek configs want the
