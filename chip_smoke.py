@@ -144,7 +144,8 @@ Phases (any failure exits non-zero):
              mismatches, completed, every loss of both phases the
              uninterrupted run's bit for bit, both phases launching the
              symmetric kernels; prints each phase's, the restore's and
-             the verify's seconds;
+             the verify's seconds.  That ``run_recovery`` waits on its
+             trainer subprocesses on a thread, beside phase 14's;
 12. compress — int8 gradient compression with error feedback: (a)
              trains stablelm-1.6b at full width with Muon and
              ``--compress-grads`` 4 steps on phase 7's traffic, asserting
@@ -208,7 +209,10 @@ Phases (any failure exits non-zero):
              ``sym_stream`` launched on every rank of both phases, in
              the counts the paths give; prints each phase's seconds, the
              restore's, the verify's, the words of each phase (the
-             checkpoint's gathers apart) and the checkpoint's bytes;
+             checkpoint's gathers apart) and the checkpoint's bytes.
+             Phase 11 (c)'s run goes on beside it: the two share the
+             card and the host's cores, so each one's seconds are its
+             own wall time with the other running;
 15. xlstmtrain — trains xlstm-350m: first the sLSTM kernels of
              training at the train path's (8, 256, 1024) bf16 quads, at
              f32 gates, with ties f == i at t = 0 (and final-state
@@ -331,7 +335,7 @@ Phases (any failure exits non-zero):
              NS shapes against their plain versions, timed beside one
              PyTorch call and the bound; then gemma2-9b (2 layers: one
              local / global pair), gemma3-12b (6: one 5 + 1 period),
-             granite-20b (6) and pixtral-12b (4) through ``train`` and
+             granite-20b (4) and pixtral-12b (4) through ``train`` and
              musicgen-large (all 48) on frames through ``make_train_step``,
              random bf16 weights from seed 0, 2 x 256 tokens, a warm-up
              and 2 timed steps, ``muon-syrk`` on gemma3 and granite and
@@ -346,9 +350,36 @@ Phases (any failure exits non-zero):
              steps, run in phase 13's launch: every rank's losses
              identical, step 0 within 1e-4 of the one-card run's, each
              rank's all-gather and reduce-scatter words a step in the
-             loss + backward the closed form of its blocks.
+             loss + backward the closed form of its blocks;
+22. jambatrain — trains jamba-v0.1-52b at its published widths: first
+             one Muon NS (5 steps) of a (16, 4096, 14336) expert stack
+             on the kernels against the f64 iteration (``NS_TOL``; the
+             first Gram ``TOL_F32``), and ``rank_update`` /
+             ``sym_stream`` at the expert stacks' NS shapes (the Gram,
+             sym(Y)·X and S·S of (16, 4096, 14336)) against the products
+             in f64, timed beside their plain versions, ``torch.bmm``
+             and the bound; one MoE layer (16 experts, top-2, 512
+             tokens, a window overflowing) whose input, router and
+             expert gradients through ``moe.CapacityExperts`` must be
+             autograd's of the plain capacity form within 4 bf16 ulps
+             (outputs bit-equal); then layers 2-3 of its period (Mamba +
+             dense MLP, attention + MoE MLP; 3.68e9 parameters) through
+             the trainer's ``_run`` with ``muon-syrk``, random bf16
+             weights from seed 0, 2 x 256 tokens (the capacity form), a
+             warm-up and 2 timed steps: finite losses, the launches the
+             closed form, every NS SYRK / SYMM with n1 >= 256 on the
+             kernels, s a step and its split, tokens/s, peak memory
+             under 79.18 GiB; the peak of one loss + backward under the
+             "names" and the "full" remat policy, gradients bit-equal;
+             the first loss against the same weights on the CPU
+             (``MUON_TOL`` + ``MUON_TOL``·|cpu|).
 
-The seconds of each phase are printed on the ``[done]`` line.
+The seconds of each phase are printed on the ``[done]`` line.  Phases
+11 (c) and 14 wait on trainer subprocesses of their own; they run on
+threads, side by side, after phase 13, while the main thread runs phase
+9 and phase 12 (c) (``compress_resume``): those four share the card,
+the host's cores and the disk, so each one's seconds are its wall time
+beside the others, and they sum to more than the window they fill.
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2901,9 +2932,9 @@ def compress_collectives(torch, ranks):
 
 def compress_phase(torch, train_out, wire_ranks):
     """Phase 12: (a) compressed Muon at full width, (b) the quantizer
-    card vs host, (c) a resume with the EF state, (d) the compressed
-    all-reduces on gloo ranks sharing the card (``wire_ranks``, from
-    phase 8's launch)."""
+    card vs host, (d) the compressed all-reduces on gloo ranks sharing
+    the card (``wire_ranks``, from phase 8's launch); (c),
+    :func:`compress_resume`, runs beside phase 14 (``run_phases``)."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -2914,15 +2945,13 @@ def compress_phase(torch, train_out, wire_ranks):
     t1 = time.perf_counter()
     quant = compress_quantizer(torch)
     t2 = time.perf_counter()
-    resume = compress_resume(torch)
-    t3 = time.perf_counter()
     wire = compress_collectives(torch, wire_ranks)
-    t4 = time.perf_counter()
+    t3 = time.perf_counter()
     seconds = {"train_s": t1 - t0, "quantizer_s": t2 - t1,
-               "resume_s": t3 - t2, "wire_s": t4 - t3}
+               "wire_s": t3 - t2}
     log(f"[compress] phase seconds {json.dumps(seconds)}")
-    return {"train": train, "quantizer": quant, "resume": resume,
-            "wire": wire, **seconds}, launches
+    return {"train": train, "quantizer": quant, "wire": wire,
+            **seconds}, launches
 
 
 # --------------------------------------------------------------------------
@@ -4609,7 +4638,7 @@ def shapes_phase(torch, procs, cases):
 #: embeddings, granite's 6144 x 24576 MLP), AdamW on the others to keep
 #: the phase short
 DENSETRAIN = {"gemma2-9b": (2, "adamw"), "gemma3-12b": (6, "muon-syrk"),
-              "granite-20b": (6, "muon-syrk"), "pixtral-12b": (4, "adamw"),
+              "granite-20b": (4, "muon-syrk"), "pixtral-12b": (4, "adamw"),
               "musicgen-large": (48, "adamw")}
 #: a warm-up step and 2 timed, 2 x 256 tokens (frames for musicgen)
 DENSETRAIN_STEPS, DENSETRAIN_BATCH = 3, 2
@@ -4632,11 +4661,17 @@ DENSEMESH_ARCH, DENSEMESH_LAYERS, DENSEMESH_STEPS = "gemma2-9b", 2, 2
 DENSE_KERNEL_SHAPES = (("gemma3-12b embedding", 1, 3840, 262144),
                        ("pixtral-12b embedding", 1, 5120, 131072),
                        ("granite-20b MLP stack", 6, 6144, 24576))
+#: each product ``dense_kernel_rows`` can time: its kernel and its case
+NS_PRODUCTS = {"syrk": ("rank_update", "NS Gram, SYRK {shape}"),
+               "symm": ("sym_stream", "NS sym(Y)·X, {n1}² x {shape}"),
+               "ss": ("sym_stream", "NS S·S, {n1}² x {shape}")}
 
 
-def dense_kernel_rows(torch, cases):
-    """``rank_update`` (the NS Gram, SYRK) and ``sym_stream`` (sym(Y)·X)
-    at ``DENSE_KERNEL_SHAPES``, each held to the same product in f64
+def dense_kernel_rows(torch, cases, shapes=DENSE_KERNEL_SHAPES,
+                      products=("syrk", "symm"), tag="[densetrain]"):
+    """``rank_update`` (the NS Gram, SYRK) and ``sym_stream`` (sym(Y)·X;
+    with n2 = n1 it is the NS's S·S, "ss") at ``shapes``, each of
+    ``products`` held to the same product in f64
     within ``TOL_F32`` (max error over max(1, max |f64|)), as phases 17
     and 18 hold the NS factor: at K up to 262144 the plain f32 version's
     own rounding is of that order, so its distance to the kernel and to
@@ -4652,7 +4687,7 @@ def dense_kernel_rows(torch, cases):
         err = float((x.double() - ref).abs().max())
         return err, err / max(1.0, float(ref.abs().max()))
 
-    for label, k, n1, n2 in DENSE_KERNEL_SHAPES:
+    for label, k, n1, n2 in shapes:
         lead = (k,) if k > 1 else ()
         mm = torch.bmm if k > 1 else torch.matmul
         shape = str(lead + (n1, n2)).replace(",)", ")")
@@ -4665,22 +4700,25 @@ def dense_kernel_rows(torch, cases):
         sym = torch.tril(s) + torch.tril(s, -1).mT
         del s
         runs = (
-            ("rank_update", f"{label} NS Gram, SYRK {shape}",
-             lambda: trigrid.rank_update("syrk", a, bm=128),
+            ("syrk", lambda: trigrid.rank_update("syrk", a, bm=128),
              lambda: trigrid._rank_update_plain("syrk", a, None, 128,
                                                 trigrid.Epilogue(), None),
              lambda: pack_tril_tiles(torch.tril(
                  a.double() @ a.double().mT), 128),
              lambda: mm(a, a.mT), k * n1 * n2 * 4 + k * T * 128 * 128 * 4,
              k * n1 * (n1 + 1) * n2),
-            ("sym_stream", f"{label} NS sym(Y)·X, {n1}² x {shape}",
+            ("ss" if n2 == n1 else "symm",
              lambda: trigrid.sym_stream(tiles, a, bm=128),
              lambda: trigrid._sym_stream_plain(tiles, a, n1 // 128, 1.0,
                                                torch.float32),
              lambda: sym.double() @ a.double(),
              lambda: mm(sym, a), tiles.numel() * 4 + 2 * k * n1 * n2 * 4,
              2 * k * n1 * n1 * n2))
-        for name, case, run, plain, exact, library, nbytes, flops in runs:
+        for op, run, plain, exact, library, nbytes, flops in runs:
+            if op not in products:
+                continue
+            name, fmt = NS_PRODUCTS[op]
+            case = f"{label} " + fmt.format(shape=shape, n1=n1)
             got, want = run(), exact()
             err, err_rel = rel(got, want)
             ours = plain()
@@ -4704,7 +4742,7 @@ def dense_kernel_rows(torch, cases):
                    "library": "torch.bmm" if k > 1 else "torch.matmul",
                    "ffma_bound_ms": bound_ms(nbytes, flops, False)[0]}
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
-            log(f"[densetrain]   {name} {case}: ms {row['ms']:.4f}  plain "
+            log(f"{tag}   {name} {case}: ms {row['ms']:.4f}  plain "
                 f"{row['plain_ms']:.4f}  {row['library']} "
                 f"{row['library_ms']:.4f}  bound {row['bound_ms']:.4f} "
                 f"({row['bound_by']})")
@@ -4764,17 +4802,18 @@ def fsdp_closed_form(cfg, data, P) -> dict:
     return {"all_gather": ag, "reduce_scatter": rs}
 
 
-def muon_f64_check(torch, n1, n2):
+def muon_f64_check(torch, n1, n2, stack=(), tag="[densetrain]"):
     """One Muon orthogonalisation (5 NS steps) of an (n1, n2) f32
-    momentum from a seed on the kernels, against the same iteration in
-    f64 on ``torch.matmul``: the result within ``NS_TOL`` (relative
-    Frobenius) and the first Gram (one ``rank_update`` SYRK) within
-    ``TOL_F32`` (max error over max(1, max |f64|)); 5 / 10 launches."""
+    momentum (a ``stack`` of them: one launch a product) from a seed on
+    the kernels, against the same iteration in f64 on ``torch.matmul``:
+    the result within ``NS_TOL`` (relative Frobenius, over the stack)
+    and the first Gram (one ``rank_update`` SYRK) within ``TOL_F32``
+    (max error over max(1, max |f64|)); 5 / 10 launches."""
     from repro_torch import blas
     from repro_torch.kernels import counts
     from repro_torch.optim.muon import NS_COEFFS, orthogonalize_reference
     gen = torch.Generator(device=DEVICE).manual_seed(n1 + n2)
-    m = torch.randn(n1, n2, generator=gen, device=DEVICE)
+    m = torch.randn(*stack, n1, n2, generator=gen, device=DEVICE)
     before = counts.launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4782,33 +4821,37 @@ def muon_f64_check(torch, n1, n2):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launched = {k: n - before[k] for k, n in counts.launch_counts().items()}
-    x32 = m / (torch.linalg.vector_norm(m) + 1e-7)
+    x32 = m / (torch.linalg.vector_norm(m, dim=(-2, -1), keepdim=True)
+               + 1e-7)
     gram = blas.syrk(x32, fill="full")
     del m
     a, b, c = NS_COEFFS
     x = x32.double()
     del x32
-    gram64 = x @ x.T
+    gram64 = x @ x.mT
     gram_err = float((gram.double() - gram64).abs().max()) / max(
         1.0, float(gram64.abs().max()))
     del gram
     for i in range(5):
-        s = gram64 if i == 0 else x @ x.T
+        s = gram64 if i == 0 else x @ x.mT
         x = a * x + (b * s + c * (s @ s)) @ x
+        del s
+        gram64 = None
     rel = float((got.double() - x).norm() / x.norm())
-    del x, got, gram64
+    del x, got
     torch.cuda.empty_cache()
     ok = rel <= NS_TOL and gram_err <= TOL_F32
-    log(f"[densetrain] Muon NS ({n1}, {n2}), 5 steps on the kernels vs the "
+    shape = tuple(stack) + (n1, n2)
+    log(f"{tag} Muon NS {shape}, 5 steps on the kernels vs the "
         f"f64 iteration: rel {rel:.3e} (<= {NS_TOL:.0e}); first Gram "
         f"{gram_err:.3e} (<= {TOL_F32:.0e}); host s {secs:.4f}; launches "
         f"{launched} {'ok' if ok else 'FAIL'}")
     assert launched["rank_update"] == 5 and launched["sym_stream"] == 10, \
         launched
     if not ok:
-        raise SystemExit(f"Muon NS at ({n1}, {n2}) on the kernels disagrees "
+        raise SystemExit(f"Muon NS at {shape} on the kernels disagrees "
                          "with the f64 iteration")
-    return {"shape": [n1, n2], "rel_f64": rel, "gram_err_f64": gram_err,
+    return {"shape": list(shape), "rel_f64": rel, "gram_err_f64": gram_err,
             "s": secs}
 
 
@@ -4878,7 +4921,7 @@ def dense_train(torch, arch, layers, optimizer):
     return row, launches, kept
 
 
-def dense_cpu_loss(torch, cfg, state, card_loss):
+def dense_cpu_loss(torch, cfg, state, card_loss, tag="[densetrain]"):
     """The first loss of the card's run, from the same initial weights on
     the CPU (no grad): within phase 7's ``MUON_TOL`` form,
     |card - cpu| <= MUON_TOL + MUON_TOL·|cpu|."""
@@ -4900,7 +4943,7 @@ def dense_cpu_loss(torch, cfg, state, card_loss):
         want = float(lm_loss(model, batch, chunk=256, remat=False))
     err = abs(card_loss - want)
     ok = err <= MUON_TOL + MUON_TOL * abs(want)
-    log(f"[densetrain] {cfg.name} {cfg.n_layers} layers, first loss card "
+    log(f"{tag} {cfg.name} {cfg.n_layers} layers, first loss card "
         f"{card_loss:.6f} vs cpu {want:.6f}: |diff| {err:.3e} (<= "
         f"{MUON_TOL:.0e} + {MUON_TOL:.0e}|cpu|), cpu s "
         f"{time.perf_counter() - t0:.1f} {'ok' if ok else 'FAIL'}")
@@ -5061,6 +5104,252 @@ def densetrain_phase(torch, mesh_run, wall, cases):
             **seconds}, launches, mlaunches
 
 
+# --------------------------------------------------------------------------
+# phase 22: train jamba-v0.1-52b at full width on one card
+# --------------------------------------------------------------------------
+#: layers 2-3 of jamba's period, (Mamba + dense MLP, attention + MoE
+#: MLP): every block kind of the pattern at its published width (d_model
+#: 4096, 16 experts of d_ff 14336, vocab 65536), ~3.7e9 parameters; one
+#: period (8 layers, ~1.3e10) does not fit the card under Muon's ~22
+#: bytes a parameter
+JAMBATRAIN_LAYERS = slice(2, 4)
+#: a warm-up step and 2 timed, 2 x 256 tokens: 512 tokens a layer, above
+#: ``moe.GATHER_MAX_TOKENS``, so the MoE runs the capacity form
+JAMBATRAIN_STEPS, JAMBATRAIN_BATCH = 3, 2
+#: the NS products of the (1, 16, 4096, 14336) expert stacks (wi, wg,
+#: and wo on its short side): the Gram and sym(Y)·X, and S·S at 4096
+JAMBA_KERNEL_SHAPES = (("jamba expert stack", 16, 4096, 14336),
+                       ("jamba expert stack", 16, 4096, 4096))
+#: one full-width MoE layer's gradients, ``CapacityExperts`` against
+#: autograd of the plain capacity forward: T tokens (> 256: capacity),
+#: a router skewed toward expert 0, so that its window drops rows
+JAMBA_MOE_TOKENS = 512
+#: bf16 ulps of a gradient's largest entry (tests/test_torch_jamba.py)
+JAMBA_GRAD_ULPS = 4
+
+
+def _jamba_train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-v0.1-52b")
+    pattern = cfg.pattern[JAMBATRAIN_LAYERS]
+    return dataclasses.replace(cfg, n_layers=len(pattern), pattern=pattern)
+
+
+def _plain_capacity(torch, moe, layer, cfg, xf):
+    """The capacity form with autograd through each expert's products
+    and the windows' assembly (no ``CapacityExperts``): the oracle of
+    its backward."""
+    mo = cfg.moe
+    t, d = xf.shape
+    k, e = mo.top_k, mo.n_experts
+    topg, tope = moe._route(layer.router, xf, k)
+    act = moe.act_fn(cfg.act)
+    _, inv, token_idx, group_sizes = moe._sort_by_expert(tope, e)
+    xs = xf[token_idx]
+    cap = moe._capacity(t * k, e)
+    sizes = group_sizes.tolist()
+    offsets = [sum(sizes[:i]) for i in range(e)]
+    rows = []
+    for i, (o, n) in enumerate(zip(offsets, sizes)):
+        n = min(n, cap)
+        y = moe._expert_mm(act, xs[o:o + n], layer.wi[i], layer.wg[i],
+                           layer.wo[i]).float()
+        rows.append(torch.nn.functional.pad(y, (0, 0, 0, cap - n)))
+    windows = torch.cat(rows + [xf.new_zeros((1, d), dtype=torch.float32)])
+    idx = moe._window_index(torch.tensor(offsets, device=xf.device), t * k,
+                            e, cap)
+    y = windows[idx[inv]].reshape(t, k, d)
+    dropped = int((idx >= e * cap).sum())
+    return torch.einsum("tkd,tk->td", y, topg.to(y.dtype)).to(
+        xf.dtype), dropped
+
+
+def jamba_moe_grads(torch, cfg):
+    """One MoE layer at full width (16 experts of (4096, 14336), top-2),
+    ``JAMBA_MOE_TOKENS`` tokens with a mean that, against a router column
+    raised for expert 0, sends every token's first choice there: its
+    window of ``_capacity`` rows drops the rest.  The gradients of the
+    input, the router and the three expert stacks through
+    ``CapacityExperts`` against autograd of ``_plain_capacity``, the
+    same cotangent: each within ``JAMBA_GRAD_ULPS`` bf16 ulps of its
+    largest entry; the outputs bit-equal; both timed."""
+    from repro_torch.models import moe
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    layer = moe.MoE(cfg, gen, dev)
+    t, d = JAMBA_MOE_TOKENS, cfg.d_model
+    with torch.no_grad():           # expert 0's logit ~ +10 a token
+        layer.router[:, 0] += 20.0 / d
+    x = (torch.randn(t, d, generator=gen, device=dev) + 0.5).to(
+        torch.bfloat16)
+    g = torch.randn(t, d, generator=gen, device=dev)
+    names = ("x", "router", "wi", "wg", "wo")
+    grads, outs, secs = {}, {}, {}
+    # each form twice, the second timed (the first meets cold kernels)
+    for how in ("function", "plain") * 2:
+        grads.pop(how, None)
+        layer.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "function":
+            y = moe.moe_local(cfg, layer, xi, impl="capacity")
+        else:
+            y, dropped = _plain_capacity(torch, moe, layer, cfg, xi)
+        (y.float() * g).sum().backward()
+        torch.cuda.synchronize()
+        secs[how] = time.perf_counter() - t0
+        outs[how] = y.detach()
+        grads[how] = [xi.grad] + [getattr(layer, n).grad for n in names[1:]]
+    errs = {}
+    for n, got, want in zip(names, grads["function"], grads["plain"]):
+        err = float((got.float() - want.float()).abs().max())
+        bound = JAMBA_GRAD_ULPS * 2.0 ** -8 * float(want.float().abs().max())
+        errs[n] = (err, bound)
+        ok = err <= bound and bool(torch.isfinite(got).all())
+        log(f"[jambatrain] MoE d {d}, {cfg.moe.n_experts} experts, T = {t}, "
+            f"{dropped} of {t * cfg.moe.top_k} pairs dropped: d{n} "
+            f"{tuple(got.shape)} CapacityExperts vs autograd of the plain "
+            f"capacity form: max_abs_err {err:.3e} (bound {bound:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"jamba MoE d{n}: the capacity backward "
+                             "disagrees with autograd of the plain form")
+    same = bool(torch.equal(outs["function"], outs["plain"]))
+    log(f"[jambatrain] MoE outputs bit-equal {same}; forward + backward s "
+        f"(warm): CapacityExperts {secs['function']:.4f}, plain "
+        f"{secs['plain']:.4f}")
+    assert same and dropped > 0
+    del layer, grads, outs
+    torch.cuda.empty_cache()
+    return {"tokens": t, "dropped_pairs": dropped,
+            "errors": {n: {"max_abs_err": e, "bound": b}
+                       for n, (e, b) in errs.items()}, "s": secs}
+
+
+def jamba_remat_peaks(torch, model, cfg, batch):
+    """One loss + backward of the trained model on ``batch`` under each
+    remat policy, "names" (jamba's) and "full": the peak memory of each
+    and their gradients bit for bit."""
+    import dataclasses
+
+    from repro_torch.models.model import lm_loss
+    peaks, grads = {}, {}
+    for policy in ("names", "full"):
+        model.cfg = dataclasses.replace(cfg, remat_policy=policy)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        lm_loss(model, batch, chunk=256).backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        peaks[policy] = {"peak_bytes": peak, "above_start_bytes": peak - base}
+        grads[policy] = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+    model.cfg = cfg
+    same = all(torch.equal(grads["names"][n], grads["full"][n])
+               for n in grads["names"])
+    text = "; ".join(
+        f"{k} {v['above_start_bytes'] / 2**30:.2f} GiB above the "
+        f"{(v['peak_bytes'] - v['above_start_bytes']) / 2**30:.2f} held "
+        "at its start" for k, v in peaks.items())
+    log(f"[jambatrain] loss + backward peak under each remat policy: {text}"
+        f" (\"full\" second, \"names\"' gradients held); gradients "
+        f"bit-equal {same}")
+    assert same
+    return peaks
+
+
+def jambatrain_phase(torch, cases):
+    """Phase 22: the NS of a (16, 4096, 14336) expert stack on the
+    kernels against the f64 iteration; ``rank_update`` / ``sym_stream``
+    at the expert stacks' NS shapes against their plain versions and
+    f64, timed (rows added to ``cases``); one MoE layer's gradients
+    through ``CapacityExperts`` against autograd of the plain capacity
+    form; then jamba's layers 2-3 (``_jamba_train_cfg``) trained through
+    the trainer's ``_run`` with ``muon-syrk``, random bf16 weights from
+    seed 0, 2 x 256 tokens, a warm-up and 2 timed steps: finite losses,
+    the launches the closed form, every NS SYRK / SYMM with n1 >= 256 on
+    the kernels, s a step and its split, peak memory under the card's;
+    the peaks of a loss + backward under "names" and "full" with their
+    gradients bit-equal; the first loss against the same weights on the
+    CPU."""
+    import gc
+
+    from repro_torch.launch import train as ttrain
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _jamba_train_cfg()
+    assert [(b.mixer, b.mlp) for b in cfg.pattern] == [
+        ("mamba", "dense"), ("attn", "moe")], cfg.pattern
+    assert (cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert,
+            cfg.vocab, cfg.remat_policy) == (4096, 16, 14336, 65536,
+                                             "names")
+    seconds = {}
+    t0 = time.perf_counter()
+    ns = muon_f64_check(torch, 4096, 14336, stack=(16,), tag="[jambatrain]")
+    seconds["ns_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense_kernel_rows(torch, cases, JAMBA_KERNEL_SHAPES[:1], ("syrk", "symm"),
+                      "[jambatrain]")
+    dense_kernel_rows(torch, cases, JAMBA_KERNEL_SHAPES[1:], ("ss",),
+                      "[jambatrain]")
+    seconds["kernels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_check = jamba_moe_grads(torch, cfg)
+    seconds["moe_grads_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kept, init = {}, ttrain.init_model
+
+    def keep(cfg, seed, device, **kw):
+        model = init(cfg, seed=seed, device=device, **kw)
+        kept["cpu"] = {k: v.detach().to("cpu", copy=True)
+                       for k, v in model.state_dict().items()}
+        kept["model"] = model
+        return model
+
+    args = ttrain.build_argparser().parse_args(
+        _dense_argv("jamba-v0.1-52b", cfg.n_layers, "muon-syrk",
+                    JAMBATRAIN_STEPS) + ["--device", DEVICE])
+    ttrain.init_model = keep
+    try:
+        out = ttrain._run(args, cfg, torch.device(DEVICE))
+    finally:
+        ttrain.init_model = init
+    seconds["train_s"] = time.perf_counter() - t0
+    launches = out["kernel_launches"]
+    want = muon_launches(cfg, JAMBATRAIN_STEPS)
+    tag = "[jambatrain]"
+    assert_kernel_routes(out, launches, tag)
+    row = _dense_report(torch, tag, cfg, out, launches, want)
+    from repro_torch.data import DataConfig, make_train_iterator
+    it = make_train_iterator(DataConfig(
+        seq_len=256, global_batch=JAMBATRAIN_BATCH, vocab_size=cfg.vocab,
+        seed=0), device=DEVICE)
+    try:
+        batch = next(it)
+    finally:
+        it.close()
+    t0 = time.perf_counter()
+    row["remat_peaks"] = jamba_remat_peaks(torch, kept.pop("model"), cfg,
+                                           batch)
+    seconds["remat_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = dense_cpu_loss(torch, cfg, kept.pop("cpu"), out["losses"][0],
+                         tag)
+    seconds["cpu_s"] = time.perf_counter() - t0
+    log(f"{tag} phase seconds {json.dumps(seconds)}")
+    return {"muon_ns": ns, "moe_grads": moe_check, "run": row,
+            "cpu_loss": cpu, **seconds}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5094,8 +5383,35 @@ def main() -> int:
         shutil.rmtree(count_dir, ignore_errors=True)
 
 
+def in_background(phase_s, name, fn, *a):
+    """Start ``fn(*a)`` on a thread, for a phase that only waits on
+    processes of its own; its seconds go to ``phase_s[name]``.  Returns
+    the join: ``fn``'s result, or its exception raised here."""
+    import threading
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["out"] = fn(*a)
+        except BaseException as e:      # SystemExit of a failed check too
+            box["error"] = e
+        finally:
+            phase_s[name] = round(time.perf_counter() - t0, 1)
+
+    th = threading.Thread(target=run, name=name, daemon=True)
+    th.start()
+
+    def join():
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        return box["out"]
+    return join
+
+
 def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
-    """Phases 2-21 and the closing lines (``main`` starts phase 20's
+    """Phases 2-22 and the closing lines (``main`` starts phase 20's
     counting children first and stops them last)."""
     build_s = timed("build", build)
     cases = timed("kernels", kernel_phase, torch, clock)
@@ -5104,16 +5420,25 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     timed("check", check_phase, torch)
     tout, tlaunches = timed("train", train_phase, torch, cases)
     mout, mlaunches, gloo = timed("mesh", mesh_phase, torch)
-    cout, claunches = timed("ckpt", ckpt_phase, torch)
     wout, wlaunches = timed("warm", warm_phase, torch)
     aout, alaunches = timed("faults", abft_phase, torch, gloo["abft"])
     single = timed("single", single_resume_depth, torch)
-    rout, rlaunches = timed("recovery", recovery_phase, torch, single)
     pout, plaunches = timed("compress", compress_phase, torch, tout,
                             gloo["compress"])
     eout, elaunches, xrun, grun = timed("meshtrain", meshtrain_phase,
                                         torch, single)
-    lout, llaunches = timed("elastic", elastic_phase, torch, single)
+    # phases 11 (c) and 14 each wait on their own trainer subprocesses
+    # (one device; 4, then 2 gloo ranks): they run on threads, side by
+    # side, while this thread runs the in-process resumes of phases 9
+    # and 12 (c)
+    recovery = in_background(phase_s, "recovery", recovery_phase, torch,
+                             single)
+    elastic = in_background(phase_s, "elastic", elastic_phase, torch,
+                            single)
+    cout, claunches = timed("ckpt", ckpt_phase, torch)
+    pout["resume"] = timed("compress_resume", compress_resume, torch)
+    lout, llaunches = elastic()
+    rout, rlaunches = recovery()
     xtout, xtlaunches = timed("xlstmtrain", xlstm_train_phase, torch,
                               cases)
     xmout, xmlaunches, xslaunches = timed("xlstmmesh", xlstm_mesh_phase,
@@ -5124,6 +5449,7 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     hout, hlaunches = timed("shapes", shapes_phase, torch, counters, cases)
     tdout, tdlaunches, tdmesh = timed("densetrain", densetrain_phase, torch,
                                       grun, eout["launch_s"], cases)
+    jtout, jtlaunches = timed("jambatrain", jambatrain_phase, torch, cases)
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s; by phase "
         f"{json.dumps(phase_s)}")
@@ -5146,6 +5472,7 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     log(json.dumps({"deepseek": sout}))
     log(json.dumps({"shapes": hout}))
     log(json.dumps({"densetrain": tdout}))
+    log(json.dumps({"jambatrain": jtout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -5181,7 +5508,9 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
                       tdlaunches[arch][name]
                       for arch, (n, opt) in DENSETRAIN.items()},
                    f"train mesh {DENSEMESH_ARCH} {DENSEMESH_LAYERS} layers "
-                   "adamw fsdp_params": tdmesh.get(name, 0)}
+                   "adamw fsdp_params": tdmesh.get(name, 0),
+                   "train jamba-v0.1-52b layers 2-3 muon-syrk":
+                   jtlaunches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

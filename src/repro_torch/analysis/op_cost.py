@@ -26,7 +26,9 @@ Per op:
     the rows it takes, and a write into a buffer (``copy_``,
     ``index_put_``, ``fill_``) moves what it writes.  That is what eager
     PyTorch moves through HBM, one kernel an op: no fusion, unlike the
-    reference's count of XLA's fused program.
+    reference's count of XLA's fused program.  The remat tag
+    ``scan_out`` (``models.common``) is free too, as XLA's
+    ``checkpoint_name``.
 
 A hand-written kernel is one opaque call: its wrapper adds its own cost
 (:func:`add_kernel_cost`) to the active counters, where it launches and
@@ -88,7 +90,7 @@ FREE = {
     "squeeze", "unsqueeze", "unfold", "diagonal", "narrow", "as_strided",
     "_local_scalar_dense", "sym_size", "sym_stride", "sym_numel",
     "is_same_size", "_to_copy_meta", "unsafe_split", "view_as", "movedim",
-    "_has_compatible_shallow_copy_type", "record_stream",
+    "_has_compatible_shallow_copy_type", "record_stream", "scan_out",
 }
 #: gathers: read the rows they take (``hlo_cost``: 2 × the result)
 GATHERS = {"index", "index_select", "gather", "embedding"}

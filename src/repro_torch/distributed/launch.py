@@ -11,9 +11,10 @@ builds the :class:`~repro_torch.distributed.mesh.Mesh` of one axis
 ``"x"`` of all ranks (``work`` may build others with ``make_mesh``),
 calls ``work(mesh, **kwargs)``
 and returns its result (anything picklable) to the caller, in rank
-order.  Ranks on the CPU split the host's cores between them (intra-op
-threads).  ``device`` is every rank's device: "cpu" (asked for, as the
-tests do); "cuda:0" puts all ranks on one card; "cuda" gives rank r the
+order.  Ranks on the CPU split the caller's intra-op threads between
+them (the host's cores, unless the caller holds itself to fewer).
+``device`` is every rank's device: "cpu" (asked for, as the tests do);
+"cuda:0" puts all ranks on one card; "cuda" gives rank r the
 card r mod the cards present (all on the one card of a one-card
 machine), as NCCL needs.  With no ``device`` the ranks run on the cards
 as with "cuda", whatever the backend, and the launch raises when there
@@ -62,11 +63,14 @@ def run_ranks(target: str, world: int, *, backend: str = "gloo",
     """Run ``target`` ("module:function") on ``world`` ranks; returns
     each rank's result.  ``paths`` are prepended to the ranks' module
     search path."""
+    import torch
     device = spec_device(device)
     tmp = tempfile.mkdtemp(prefix="repro_ranks_")
     try:
+        threads = min(torch.get_num_threads(), os.cpu_count() or 1)
         spec = {"target": target, "world": world, "backend": backend,
                 "device": device, "kwargs": kwargs or {},
+                "threads": max(1, threads // world),
                 "paths": list(paths),
                 "init": "file://" + os.path.join(tmp, "rendezvous")}
         spec_path = os.path.join(tmp, "spec.pkl")
@@ -135,10 +139,9 @@ def _rank_main(spec_path: str, rank: int) -> None:
     if device.startswith("cuda"):
         torch.cuda.set_device(torch.device(device))
     else:
-        # the ranks share the host's cores: intra-op threads beyond a
+        # the ranks share the caller's cores: intra-op threads beyond a
         # rank's share only contend
-        torch.set_num_threads(max(1, (os.cpu_count() or 1)
-                                  // spec["world"]))
+        torch.set_num_threads(spec["threads"])
     init_distributed(rank, spec["world"], spec["init"], spec["backend"])
     try:
         mesh = make_mesh(device=device)

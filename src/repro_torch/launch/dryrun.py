@@ -24,8 +24,8 @@ One card: ``chips`` is 1.  ``--multi-pod`` / ``--both-meshes`` (TPU pod
 shapes) raise, as ``launch/mesh.py::make_production_mesh`` does, and so
 does ``--devices N`` > 1 (the dry run of one rank's block waits for
 ROADMAP A12c).  A ``train_4k`` cell whose config the trainer refuses
-(``launch/train.py::_refuse_waiting``: jamba, deepseek) is recorded as
-``waiting (A11b)``, neither ok nor a failure (musicgen's counts: its
+(``launch/train.py::_refuse_waiting``: deepseek) is recorded as
+``waiting (A11h)``, neither ok nor a failure (musicgen's counts: its
 train step takes frames, which the trainer's own refusal is about, not
 the step); ``long_500k``
 on a config that is not sub-quadratic is ``skipped``, as the

@@ -124,9 +124,19 @@ Waiting, each raising a clear error that names its ROADMAP item:
 ``--ckpt-dir`` on a mesh with state that is each rank's own (the 8-bit
 AdamW moments; the EF residuals of ``--compress-grads`` over a data
 axis: A8b); ``--compress-grads`` over a data axis with weights split
-over it (``fsdp_params``: A11g); any config with Mamba or MoE blocks,
-MLA, prefix blocks or the MTP block (jamba, deepseek: A11b; the port
-serves them).
+over it (``fsdp_params``: A11g); Mamba or MoE blocks on a mesh (jamba
+with ``--devices`` > 1: A11c); any config with MLA, prefix blocks or the
+MTP block, on any device count (deepseek: A11h; the port serves it).
+
+jamba trains on one device with the same flags: its Mamba mixers under
+autograd, its routed MoE through the dropless forms (T ≤ 256 tokens a
+layer) or the capacity form's hand-written backward
+(``models.moe.CapacityExperts``), its periods under the "names" remat
+policy, and Muon on each (n_periods, E, d, f) expert stack as one batched
+call a product:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch jamba-v0.1-52b --smoke --steps 3 --optimizer muon-syrk
 """
 from __future__ import annotations
 
@@ -153,7 +163,7 @@ from ..distributed import (ErrorFeedbackInt8, StepTimer, StragglerMonitor,
 from ..distributed.launch import run_ranks
 from ..kernels import counts
 from ..models.model import (Model, check_head_split, init_model,
-                            preload_remat, single_device_parts)
+                            preload_remat, refuse_on_mesh, untrained_parts)
 from ..models.sharding import (batch_specs, global_shape, param_specs,
                                shard_leaf)
 from .steps import (_delta, describe_blas_routing, init_opt_state,
@@ -196,14 +206,15 @@ def _refuse_waiting(args, cfg) -> None:
     starts)."""
     if args.devices < 1:
         raise ValueError(f"--devices {args.devices}")
-    parts = single_device_parts(cfg)
+    parts = untrained_parts(cfg)
     if parts:
         raise NotImplementedError(
             f"training {cfg.name} ({', '.join(parts)}) waits for ROADMAP "
-            "A11b: the capacity MoE's backward and Muon on the "
-            "(n_periods, E, d, f) expert stacks; serve it instead")
+            "A11h: their backward and a full-width cut that fits the "
+            "card; serve it instead")
     if args.devices == 1:
         return
+    refuse_on_mesh(cfg)                 # Mamba / MoE blocks: A11c
     data, model = plan_shape(args.devices, max_model=args.max_model)
     local = None
     if args.ckpt_dir is not None and args.optimizer == "adamw8bit":

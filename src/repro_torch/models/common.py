@@ -210,3 +210,30 @@ def embed_init(shape, gen: torch.Generator,
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return w.to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the remat policies' named outputs (the reference's ``checkpoint_name``)
+# ---------------------------------------------------------------------------
+@torch.library.custom_op("repro_torch::scan_out", mutates_args=())
+def _scan_out(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()
+
+
+@_scan_out.register_fake
+def _scan_out_fake(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x)
+
+
+_scan_out.register_autograd(lambda ctx, grad: grad)
+
+#: the operator a selective-checkpoint policy saves under "names"
+SCAN_OUT = torch.ops.repro_torch.scan_out.default
+
+
+def scan_out(x: torch.Tensor) -> torch.Tensor:
+    """Tag ``x`` as a recurrence's output, the reference's
+    ``checkpoint_name(x, "scan_out")``: with autograd on, the identity
+    operator :data:`SCAN_OUT` (a copy), whose outputs the "names" and
+    "dots" remat policies keep (``models.model``); else ``x`` itself."""
+    return _scan_out(x) if torch.is_grad_enabled() else x

@@ -54,8 +54,9 @@ gathers a weight over 'data' where it uses it (again in the per-period
 recompute), its gradient reduce-scattered back
 (``collectives.gather_from_group``).  That path trains; serving a
 sharded model raises.  Mamba and MoE blocks, MLA, prefix blocks and the
-MTP block run on one device: on a mesh they wait (ROADMAP A11c), and so
-does their training (A11b, ``launch/train.py``).
+MTP block run on one device: on a mesh they wait (ROADMAP A11c).  Mamba
+and MoE blocks train on one device; training MLA, prefix blocks or the
+MTP block waits (A11h, ``launch/train.py``).
 """
 from __future__ import annotations
 
@@ -75,8 +76,8 @@ from ..device import DeviceLike, resolve_device
 from ..distributed.collectives import (all_reduce, copy_to_group,
                                        fsdp_weight, reduce_from_group)
 from .attention import GQA, MLA, gqa_cache_init, mla_cache_init
-from .common import (ArchConfig, BlockSpec, apply_norm, dense_init,
-                     embed_init, softcap)
+from .common import (SCAN_OUT, ArchConfig, BlockSpec, apply_norm,
+                     dense_init, embed_init, softcap)
 from .moe import MLP, MoE
 from .sharding import param_specs, shard_leaf, split_axes
 from .ssm import (MLSTM, SLSTM, Mamba, mamba_state_init, mlstm_state_init,
@@ -103,12 +104,18 @@ HEADS = {"attn": {"wq": "n_heads", "wk": "n_kv_heads", "wv": "n_kv_heads",
 
 def single_device_parts(cfg: ArchConfig) -> List[str]:
     """The parts of ``cfg`` that run on one device only (their tensor
-    parallelism waits): Mamba mixers, MoE MLPs, MLA, prefix blocks and
-    the MTP block."""
+    parallelism waits): Mamba mixers, MoE MLPs and
+    :func:`untrained_parts`."""
     specs = cfg.prefix + cfg.pattern
     kinds = sorted({"mamba" for b in specs if b.mixer == "mamba"}
                    | {"moe" for b in specs if b.mlp == "moe"})
-    return [f"{k} blocks" for k in kinds] + [what for on, what in (
+    return [f"{k} blocks" for k in kinds] + untrained_parts(cfg)
+
+
+def untrained_parts(cfg: ArchConfig) -> List[str]:
+    """The parts of ``cfg`` whose training waits (ROADMAP A11h): MLA,
+    prefix blocks and the MTP block."""
+    return [what for on, what in (
         (cfg.attn_kind == "mla", "MLA attention"),
         (bool(cfg.prefix), "prefix blocks"),
         (cfg.mtp, "the MTP block")) if on]
@@ -151,11 +158,26 @@ def check_head_split(cfg: ArchConfig, specs, model: int) -> None:
 
 def _save_dots(ctx, op, *args, **kwargs):
     """The "dots" policy: keep the outputs of matmuls with no batch dims
-    (``aten.mm``: the projections; attention's einsums are batched),
-    recompute the rest."""
-    if op == torch.ops.aten.mm.default:
+    (``aten.mm``: the projections; attention's einsums are batched) and
+    the named scan outputs, recompute the rest (the reference's
+    ``save_from_both_policies``)."""
+    if op in (torch.ops.aten.mm.default, SCAN_OUT):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_names(ctx, op, *args, **kwargs):
+    """The "names" policy: keep only the named scan outputs (the
+    ``common.scan_out`` tag: each Mamba chunk's and chunkwise mLSTM
+    chunk's output), recompute the rest (the reference's
+    ``save_only_these_names("scan_out")``)."""
+    if op == SCAN_OUT:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: each selective remat policy's choice of what to keep
+_POLICIES = {"dots": _save_dots, "names": _save_names}
 
 
 def preload_remat() -> threading.Thread:
@@ -177,10 +199,10 @@ def _remat_context(cfg: ArchConfig):
     ``_remat_policy``)."""
     if cfg.remat_policy not in ("full", "dots", "names"):
         raise ValueError(f"remat_policy {cfg.remat_policy!r}")
-    if cfg.remat_policy == "dots":
-        return functools.partial(create_selective_checkpoint_contexts,
-                                 _save_dots)
-    return noop_context_fn
+    if cfg.remat_policy == "full":
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts,
+                             _POLICIES[cfg.remat_policy])
 
 
 class Norm(nn.Module):
@@ -488,9 +510,16 @@ class Model(nn.Module):
         """:meth:`param_tree` with each leaf as one tensor: ``get`` of
         each Parameter (default its data; ``lambda p: p.grad`` for the
         gradients), stacked on the n_periods axis for the periods'
-        leaves (a copy), the tensor itself for the others."""
-        return {k: torch.stack([get(p) for p in ps]) if k[0] == "periods"
-                else get(ps[0]) for k, ps in self.param_tree().items()}
+        leaves (a copy; with one period a view, so that a model cut to
+        one period at full width does not hold its weights twice in a
+        train step), the tensor itself for the others."""
+        def leaf(k, ps):
+            if k[0] != "periods":
+                return get(ps[0])
+            if len(ps) == 1:
+                return get(ps[0]).unsqueeze(0)
+            return torch.stack([get(p) for p in ps])
+        return {k: leaf(k, ps) for k, ps in self.param_tree().items()}
 
     @torch.no_grad()
     def load_stacked(self, tree: Dict[Tuple[str, ...], torch.Tensor]
@@ -526,10 +555,12 @@ class Model(nn.Module):
         lead-in.  Without a cache and with autograd on, each period is
         recomputed in the backward pass (``torch.utils.checkpoint``)
         under ``cfg.remat_policy``, as the reference's scan body is:
-        "full" keeps only the period's input, "dots" also the outputs
-        of its matmuls without batch dims (the projections), "names"
-        only the named scan outputs, which the ported blocks do not
-        tag (so "full" here)."""
+        "full" keeps only the period's input, "names" also the named
+        scan outputs (each Mamba and chunkwise mLSTM chunk's output,
+        ``common.scan_out``), "dots" those and the outputs of its
+        matmuls without batch dims (the projections).  What a policy
+        keeps is not recomputed, so every policy gives the same
+        gradients, bit for bit."""
         x = self._embed(tokens, embeds, patch_embeds)
         b, s, _ = x.shape
         if positions is None:

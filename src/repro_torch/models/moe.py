@@ -33,9 +33,22 @@ multiplies (:func:`_meta_group_sizes`), with no host sync.
 
 The k expert outputs are combined in their dtype (bf16 for the dropless
 forms, f32 for ``capacity``, as the reference's), then cast to the
-activation dtype.  The capacity path's custom VJP waits for training
-(ROADMAP A11b).  Each pass reads the experts' row counts on the host
+activation dtype.  Each pass reads the experts' row counts on the host
 (one device sync a layer) to slice the groups.
+
+Training.  The dropless forms run under autograd as they are: their
+groups are concatenated out of place (:func:`_grouped`), so each
+expert's products differentiate on their own rows.  The capacity form
+is :class:`CapacityExperts`, the reference's ``_grouped_core`` with its
+custom VJP: the forward keeps only its inputs (no (E, cap, d)
+residual), the backward recomputes each expert's window inside its own
+step and pulls back its three products.  Under the per-period remat
+(``models.model``) the routing runs again in the recompute, and its
+host-read sizes are the first pass's: the same deterministic ops
+(softmax, ``topk``, a stable sort, ``bincount``) on the same input give
+the same groups, so the recomputed tensors keep their shapes.  No
+load-balancing loss is added: the reference's loss does not call its
+``moe_aux_loss``.
 """
 from __future__ import annotations
 
@@ -147,16 +160,74 @@ def _expert_mm(act, blk, wi_e, wg_e, wo_e) -> torch.Tensor:
     return (act(blk @ wi_e) * (blk @ wg_e)) @ wo_e
 
 
-def _grouped(xs: torch.Tensor, groups, act, wi, wg, wo,
-             out: torch.Tensor) -> torch.Tensor:
-    """Each expert's three products on its rows of ``xs`` (sorted by
-    expert): ``groups`` yields (expert, first row, rows, first output
-    row); output rows no group writes keep their value."""
-    for e, src, n, dst in groups:
+def _grouped(xs: torch.Tensor, sizes, act, wi, wg, wo) -> torch.Tensor:
+    """The dropless forms: each expert's three products on its rows of
+    ``xs`` (sorted by expert, ``sizes`` rows an expert, every row in a
+    group), concatenated in expert order, out of place."""
+    outs, src = [], 0
+    for e, n in enumerate(sizes):
         if n:
-            out[dst:dst + n] = _expert_mm(act, xs[src:src + n], wi[e], wg[e],
-                                          wo[e]).to(out.dtype)
-    return out
+            outs.append(_expert_mm(act, xs[src:src + n], wi[e], wg[e],
+                                   wo[e]))
+        src += n
+    return torch.cat(outs)
+
+
+class CapacityExperts(torch.autograd.Function):
+    """The capacity form's experts (the reference's ``_grouped_core``
+    and its custom VJP): xs (N, d) sorted by expert, expert e's window
+    the first ``min(size_e, cap)`` of its rows from ``offsets[e]``, out
+    (E·cap + 1, d) f32 with row e·cap + slot holding the window's output
+    and every other row 0 (the last one is where a dropped pair reads).
+
+    The forward saves ``(xs, wi, wg, wo)`` and the host's offsets and
+    sizes, no (E, cap, d) block.  The backward recomputes each window
+    inside its own step and pulls ``dy`` (cast to the block's dtype, as
+    the reference casts ``dy · valid``) back through the three products.
+    Each expert's weight gradient is that one pull-back, in the block's
+    dtype: the reference stacks it in f32 and casts the stack to the
+    weights' dtype, which gives back the same words, so the port writes
+    it in the weights' dtype at once (an f32 copy of the three (E, d, f)
+    stacks would be 11 GB at jamba's width).  ``dxs`` takes each
+    window's rows back where the forward read them (the reference's
+    disjoint-window gather); a dropped row's is 0."""
+
+    @staticmethod
+    def forward(ctx, xs, wi, wg, wo, offsets, sizes, cap, act_name):
+        e, d = wi.shape[0], xs.shape[1]
+        act = act_fn(act_name)
+        out = torch.zeros((e * cap + 1, d), dtype=torch.float32,
+                          device=xs.device)
+        for i, (o, n) in enumerate(zip(offsets, sizes)):
+            n = min(n, cap)
+            if n:
+                out[i * cap:i * cap + n] = _expert_mm(
+                    act, xs[o:o + n], wi[i], wg[i], wo[i]).float()
+        ctx.save_for_backward(xs, wi, wg, wo)
+        ctx.groups, ctx.cap, ctx.act_name = (offsets, sizes), cap, act_name
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        xs, wi, wg, wo = ctx.saved_tensors
+        (offsets, sizes), cap = ctx.groups, ctx.cap
+        act = act_fn(ctx.act_name)
+        dxs = torch.zeros_like(xs)
+        dws = [torch.zeros_like(w) for w in (wi, wg, wo)]
+        for i, (o, n) in enumerate(zip(offsets, sizes)):
+            n = min(n, cap)
+            if not n:
+                continue
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_() for t in
+                       (xs[o:o + n], wi[i], wg[i], wo[i])]
+                y = _expert_mm(act, *ins)
+                grads = torch.autograd.grad(
+                    y, ins, dout[i * cap:i * cap + n].to(y.dtype))
+            dxs[o:o + n] = grads[0]
+            for dw, g in zip(dws, grads[1:]):
+                dw[i] = g
+        return (dxs, *dws, None, None, None, None)
 
 
 def _capacity_gather(ys_flat: torch.Tensor, idx: torch.Tensor,
@@ -175,7 +246,9 @@ def _meta_group_sizes(xs: torch.Tensor, t_k: int, e: int, cap: int,
     windows), the dropless forms T·k rows in all, split evenly (their
     products' flops do not depend on the split)."""
     if not dropless:
-        return [cap] * e, xs.new_empty((e * cap, xs.shape[1]))
+        # padded to the windows, so that a backward reaches xs
+        return [cap] * e, torch.nn.functional.pad(
+            xs, (0, 0, 0, e * cap - t_k))
     q, r = divmod(t_k, e)
     return [q + (i < r) for i in range(e)], xs
 
@@ -202,17 +275,12 @@ def moe_local(cfg: ArchConfig, p, xf: torch.Tensor,
         sizes = group_sizes.tolist()                        # a host sync
     offsets = [sum(sizes[:i]) for i in range(e)]
     if dropless:
-        ys = _grouped(xs, zip(range(e), offsets, sizes, offsets), act,
-                      p.wi, p.wg, p.wo, torch.empty_like(xs))
-        y = ys[inv].reshape(t, k, d)
+        y = _grouped(xs, sizes, act, p.wi, p.wg, p.wo)[inv].reshape(t, k, d)
     else:                                                   # capacity
         idx = _window_index(torch.tensor(offsets, device=xf.device), t * k,
                             e, cap)
-        windows = torch.zeros((e * cap + 1, d), dtype=torch.float32,
-                              device=xf.device)
-        _grouped(xs, ((i, o, min(n, cap), i * cap) for i, (o, n) in
-                      enumerate(zip(offsets, sizes))),
-                 act, p.wi, p.wg, p.wo, windows)
+        windows = CapacityExperts.apply(xs, p.wi, p.wg, p.wo, offsets,
+                                        sizes, cap, cfg.act)
         y = _capacity_gather(windows, idx, inv).reshape(t, k, d)
     out = torch.einsum("tkd,tk->td", y, topg.to(y.dtype)).to(xf.dtype)
     if mo.n_shared:

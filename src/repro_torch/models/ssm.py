@@ -16,7 +16,10 @@ the port in plain PyTorch, with the reference's rule: the sequential
 scan (``_selective_scan_seq``) at decode and at short prefills, the
 chunked one (``_selective_scan``: chunks of ``SSM_CHUNK`` tokens, each
 an associative scan in ``lax.associative_scan``'s association order)
-where s % 64 == 0 and s > 64.  jnp promotes bf16 against f32 silently
+where s % 64 == 0 and s > 64; each chunk's output is tagged
+(``common.scan_out``) for the "names" remat policy, as the reference
+names it.  Under autograd the mixer differentiates as it is (the conv's
+bf16 adds, softplus, either scan).  jnp promotes bf16 against f32 silently
 and ``torch.matmul`` refuses mixed dtypes, so the mixer promotes where
 the reference does: the depthwise conv is a bf16 sum in index order,
 its bias, the SiLU, the projections and the scan run in f32, and ``y``
@@ -40,9 +43,9 @@ Gradients at ties follow ``jax.grad`` of the reference: ``max(·, 1)`` is
 splits at ties as jax's does.
 
 mLSTM has no TPU kernel: the per-step recurrence (``_mlstm_seq``) and
-the chunkwise-parallel form (``_mlstm_chunkwise``) are plain PyTorch,
-chosen by the reference's rule (chunkwise iff s % 128 == 0 and
-s > 128).
+the chunkwise-parallel form (``_mlstm_chunkwise``, each chunk's output
+tagged as the reference's) are plain PyTorch, chosen by the reference's
+rule (chunkwise iff s % 128 == 0 and s > 128).
 
 Tensor-parallel (``tp`` set by ``Model.shard_``), a rank holds the
 columns of ``wq`` / ``wk`` / ``wv`` / ``wif`` / ``wo_gate`` of its
@@ -63,7 +66,7 @@ from torch import nn
 
 from ..distributed.collectives import copy_to_group, row_parallel
 from ..kernels.slstm import SlstmScan, _slstm_scan_plain, slstm_scan
-from .common import ArchConfig, BlockSpec, dense_init
+from .common import ArchConfig, BlockSpec, dense_init, scan_out
 
 State = Dict[str, torch.Tensor]
 
@@ -167,7 +170,7 @@ def _selective_scan(u, dt, A, B, C, D, h0, chunk: int = SSM_CHUNK
         dBu = dtc[..., None] * Bc[:, :, None, :] * uc[..., None]
         acc_a, acc_b = _associative_scan(_linear_combine, [dA, dBu])
         hs = acc_a * h + acc_b
-        ys.append(torch.einsum("lbds,lbs->lbd", hs, Cc))
+        ys.append(scan_out(torch.einsum("lbds,lbs->lbd", hs, Cc)))
         h = hs[-1]
     return torch.cat(ys).movedim(0, 1) + u * D, h
 
@@ -311,7 +314,7 @@ def _mlstm_chunkwise(q, k, v, ig, fg, st: State,
             * torch.einsum("bjhe,bhde->bjhd", qt, C0)
         nq_j = S.sum(dim=2) \
             + carry_scale * torch.einsum("bjhe,bhe->bjh", qt, n0)
-        ys.append(num / torch.maximum(nq_j.abs(), one)[..., None])
+        ys.append(scan_out(num / torch.maximum(nq_j.abs(), one)[..., None]))
         scale_l = torch.exp(a_l - w[:, -1:])                  # (B,L,H)
         end_scale = torch.exp(m0 - w[:, -1])                  # (B,H)
         C0 = end_scale[..., None, None] * C0 + torch.einsum(

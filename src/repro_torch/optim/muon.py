@@ -107,7 +107,12 @@ def ns_iteration_reference(x: torch.Tensor,
             s = blas.syrk(x[..., lo:lo + gram_chunk], fill="full", c=s,
                           **kw)
     y = b * s + c * blas.symm(s, s, **kw)                     # S² (sym·S)
-    return a * x + blas.symm(y, x, **kw)                      # sym(Y)·X
+    out = blas.symm(y, x, **kw)                               # sym(Y)·X
+    if out.requires_grad:
+        return a * x + out
+    # outside autograd, summed into the product's fresh buffer: the same
+    # sum a·X + sym(Y)·X, one stack-sized temporary fewer
+    return out.add_(a * x)
 
 
 def orthogonalize_reference(g: torch.Tensor, steps: int = 5,
@@ -323,8 +328,15 @@ class Muon:
                 o = self._orthogonalize(mm) if spec is None \
                     else self._orthogonalize_shard(mm, spec)
                 scale = math.sqrt(max(1.0, shape[-2] / shape[-1]))
-                delta = o * scale + self.weight_decay * p.float()
-                return (p.float() - self.lr * lr_scale * delta).to(p.dtype)
+                # p − lr·(o·scale + wd·p), each product and sum rounded
+                # as the reference's; in place in o, the orthogonalizer's
+                # own fresh tensor (an (E, d, f) stack is 3.8 GB in f32).
+                # wd = 0 adds ±0, which changes no sum
+                delta = o.mul_(scale)
+                if self.weight_decay:
+                    delta.add_(self.weight_decay * p.float())
+                delta.mul_(self.lr * lr_scale)
+                return delta.neg_().add_(p.float()).to(p.dtype)
             return (p.float() - self.fallback_lr * lr_scale
                     * torch.sign(mm)).to(p.dtype)
 

@@ -35,6 +35,7 @@ from repro_torch.distributed import faults as tf
 from repro_torch.distributed import resilience as tr
 from repro_torch.distributed.launch import run_ranks
 from repro_torch.distributed.straggler import rebuild_replacement_shard
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 SHAPES = [(32, 16), (100, 24)]          # the reference test's; ragged n

@@ -15,6 +15,7 @@ from repro.core.packing import PackedTriangle as JPacked
 from repro.core.packing import TriTiles as JTiles
 from repro_torch import blas as tb
 from repro_torch.core.packing import PackedTriangle, TriTiles
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 F32 = dict(rtol=3e-5, atol=3e-5)
 FILLS = ("tril", "full", "packed")

@@ -17,6 +17,7 @@ from repro import blas as jb
 from repro_torch import blas as tb
 from repro_torch.core.packing import PackedTriangle, TriTiles
 from repro_torch.kernels import trigrid
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=3e-5)
 LEADS = [(3,), (2, 2)]

@@ -18,6 +18,7 @@ import torch
 from repro import blas as jb
 from repro_torch import blas as tb
 from repro_torch.core.packing import PackedTriangle, TriTiles
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=3e-5)
 

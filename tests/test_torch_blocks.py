@@ -18,6 +18,7 @@ from repro import blas as jb
 from repro_torch import blas as tb
 from repro_torch.core.packing import pack_tril_tiles
 from repro_torch.kernels import trigrid
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 BMS = trigrid.KERNEL_BMS
 NTS = (1, 2, 3, 5)

@@ -35,6 +35,7 @@ from repro_torch.optim import muon as tmuon
 from repro_torch.optim.adamw import AdamW as TAdamW
 from repro_torch.optim.gram import GramMonitor
 from repro_torch.optim.muon import Muon as TMuon
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 
 def _tree(seed=0):

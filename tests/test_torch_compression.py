@@ -37,6 +37,7 @@ import torch
 from repro_torch.core.packing import PackedTriangle, tril_size
 from repro_torch.distributed import compression as tc
 from repro_torch.distributed.launch import run_ranks
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 

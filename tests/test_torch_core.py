@@ -18,6 +18,7 @@ from repro_torch.core import gf as tgf
 from repro_torch.core import lower_bounds as tlb
 from repro_torch.core import seq as tseq
 from repro_torch.core import triangle as ttri
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 
 def _rand(shape, seed):

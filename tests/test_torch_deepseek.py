@@ -62,6 +62,7 @@ from test_torch_jamba import (HIDDEN_TOL, LOGIT_TOL, MAX_NEW, N_REQ, S_MAX,
                               SLOTS, TIE_MARGIN, _all_experts, _gate_margin,
                               _load, _margin, _np, _recorded, _ref_logits, _t,
                               _tokens, _ulps_close, _within_gap)
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 ARCHS = ["deepseek-v2-236b", "deepseek-v3-671b"]
 #: the published widths: (layers, d_model, vocab, experts, top-k, shared)
@@ -622,7 +623,7 @@ def test_cpu_serve_launches_no_kernel(arch):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_and_mesh_refuse(pair, arch):
-    """Training deepseek (any device count) waits for ROADMAP A11b, and
+    """Training deepseek (any device count) waits for ROADMAP A11h, and
     the message names MLA, the prefix blocks and (v3) the MTP block; on a
     mesh they wait for A11c, as does a GQA config with a prefix."""
     from repro_torch.distributed.mesh import planning_mesh
@@ -630,7 +631,7 @@ def test_training_and_mesh_refuse(pair, arch):
     from repro_torch.models.model import check_head_split
     from repro_torch.models.sharding import param_specs
     for devices in (1, 4):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11b") as e:
+        with pytest.raises(NotImplementedError, match="ROADMAP A11h") as e:
             train(build_argparser().parse_args(
                 ["--arch", arch, "--device", "cpu", "--steps", "1",
                  "--devices", str(devices)]))

@@ -47,6 +47,7 @@ from repro_torch.launch.serving_cache import ServingGramCache
 from repro_torch.models import attention as tatt
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import from_jax_params, lm_loss
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 LOGIT_TOL = 4e-2      # tests/test_torch_model.py
 HIDDEN_TOL = 6.25e-2  # tests/test_torch_model.py

@@ -39,6 +39,7 @@ from repro_torch.data import make_train_iterator as t_iter
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.models.model import from_jax_params
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 STEPS = 3
 LOSS_RTOL = 2e-3

@@ -48,6 +48,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.distributed.launch import run_ranks
 from repro_torch.launch import train as ttrain
 from repro_torch.models.model import from_jax_params
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 STEPS = 3

@@ -56,6 +56,7 @@ from repro_torch.distributed.checkpoint import read_manifest
 from repro_torch.distributed.launch import run_ranks
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.recovery import run_recovery
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 STEPS, KILL, EVERY = 4, 3, 2

@@ -23,6 +23,7 @@ from repro_torch.distributed.checkpoint import (restore_checkpoint,
                                                 save_checkpoint,
                                                 verify_restored)
 from repro_torch.distributed.resilience import with_retries
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 
 def _run(mod, specs, calls, seed=0):

@@ -28,6 +28,7 @@ from test_torch_dense_families import (HIDDEN_TOL, LOGIT_TOL, _close, _np,
                                        check_parameters,
                                        check_prefill_and_decode,
                                        check_server, smoke_pair)
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 GEMMA = ("gemma2-9b", "gemma3-12b")
 

@@ -16,6 +16,7 @@ import torch
 
 from repro.optim import gram as jg
 from repro_torch.optim import gram as tg
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 
 def _feats(d, n, seed):

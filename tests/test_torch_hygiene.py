@@ -9,10 +9,25 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def limit_torch_threads():
+    """Hold a test module's torch to a share of the host's cores, as
+    ``distributed.launch`` holds each rank: under several test workers
+    a process of one core's worth of small ops with every core's
+    intra-op threads spends most of its time waiting on them.  The
+    modules that import it run under it; the count is put back after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, min(before, (os.cpu_count() or 1) // 4)))
+    yield
+    torch.set_num_threads(before)
+
 
 MODULES = [
     "repro_torch", "repro_torch.device", "repro_torch.configs",
@@ -246,18 +261,35 @@ def test_tf32_is_off():
 
 
 @pytest.mark.parametrize("devices", [1, 4])
-def test_jamba_training_and_mesh_refuse(devices):
-    """jamba serves on one device; training it (any device count) waits
-    for ROADMAP A11b, and its Mamba / MoE blocks on a mesh for A11c."""
+def test_jamba_training_and_mesh_refuse(monkeypatch, devices):
+    """jamba trains on one device (one step of the smoke config on the
+    host; without ``--device cpu`` and no card it raises as the other
+    configs do); on a mesh its Mamba / MoE blocks wait for ROADMAP A11c,
+    raised before any weight is drawn."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.mesh import planning_mesh
-    from repro_torch.launch.train import build_argparser, train
+    from repro_torch.launch import train as ttrain
     from repro_torch.models.model import check_head_split, init_model
     from repro_torch.models.sharding import param_specs
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        train(build_argparser().parse_args(
-            ["--arch", "jamba-v0.1-52b", "--device", "cpu", "--steps", "1",
-             "--devices", str(devices)]))
+    argv = ["--arch", "jamba-v0.1-52b", "--steps", "1", "--devices",
+            str(devices), "--global-batch", "2", "--seq-len", "32"]
+    if devices == 1:
+        out = ttrain.train(ttrain.build_argparser().parse_args(
+            argv + ["--device", "cpu"]))
+        assert out["steps"] == 1 and np.isfinite(out["losses"][0])
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_available", lambda: False)
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                ttrain.train(ttrain.build_argparser().parse_args(argv))
+    else:
+        def no_init(*a, **kw):
+            raise AssertionError("weights drawn before the refusal")
+        with monkeypatch.context() as m:
+            m.setattr(ttrain, "init_model", no_init)
+            m.setattr(ttrain, "run_ranks", no_init)
+            with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
+                ttrain.train(ttrain.build_argparser().parse_args(
+                    argv + ["--device", "cpu"]))
     cfg = get_smoke_config("jamba-v0.1-52b")
     model = init_model(cfg, device="cpu")
     mesh = planning_mesh({"data": 4 // devices, "model": devices})

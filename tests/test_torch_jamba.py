@@ -77,6 +77,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
 from repro_torch.models.common import MoECfg
 from repro_torch.models.model import from_jax_params, init_model
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 ARCH = "jamba-v0.1-52b"
 ULPS = 4

@@ -21,6 +21,7 @@ from repro_torch.kernels import counts, trigrid
 from repro_torch.kernels.symm import symm_tiles
 from repro_torch.kernels.syr2k import syr2k_tiles
 from repro_torch.kernels.syrk import syrk_tiles
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 F32 = dict(rtol=3e-5, atol=3e-5)
 BF16 = dict(rtol=1e-2, atol=1e-2)

@@ -40,6 +40,7 @@ from repro_torch.core.packing import tril_size
 from repro_torch.core.twodim import make_2d_plan
 from repro_torch.distributed.collectives import REPLICATE as REP
 from repro_torch.distributed.launch import run_ranks
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(ROOT, "tests")

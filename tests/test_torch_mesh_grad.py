@@ -29,6 +29,7 @@ from repro_torch.core.dispatch import AlgoChoice
 from repro_torch.core.packing import tril_size
 from repro_torch.distributed.collectives import REPLICATE as REP
 from repro_torch.distributed.launch import run_ranks
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 RTOL = ATOL = 2e-4

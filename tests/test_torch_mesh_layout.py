@@ -29,6 +29,7 @@ from repro_torch.core import twodim as ttwo
 from repro_torch.core.packing import (ShardedTriTiles, TriTiles, pack_tril,
                                       packed_to_device_shard, tril_size)
 from repro_torch.distributed.mesh import grid_shapes, planning_mesh
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 _CACHED = ("make_2d_plan", "tb_pack_tables", "tb_block_tables",
            "tb_device_row_starts")

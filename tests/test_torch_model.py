@@ -23,6 +23,7 @@ from repro.models import model as jm
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.steps import make_decode_step
 from repro_torch.models.model import from_jax_params, init_model
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 LOGIT_TOL = 4e-2      # measured ≤ 2.0e-2 at logits of scale ~3.5
 HIDDEN_TOL = 6.25e-2  # 4 bf16 ulps at |h| ≤ 4; measured ≤ 2 ulps

@@ -20,6 +20,7 @@ from repro_torch import blas
 from repro_torch.optim import muon as tmuon
 from repro_torch.optim.adamw import AdamW as TAdamW
 from repro_torch.optim.muon import Muon as TMuon
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 #: pins every blas call in its context onto the kernel route (heuristic

@@ -8,6 +8,7 @@ import torch
 
 from repro.core import packing as jp
 from repro_torch.core import packing as tp
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 NS = (1, 5, 16, 37, 64)
 BMS = (8, 16, 32)

@@ -20,6 +20,7 @@ from repro_torch.distributed import faults
 from repro_torch.distributed.checkpoint import read_manifest
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.recovery import run_recovery
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 #: the reference's run_recovery summary keys (repro/launch/recovery.py:125)
 RECOVERY_KEYS = {"killed", "kill_step", "resumed_step", "verified_leaves",

@@ -34,6 +34,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.serving_cache import ServingGramCache
 from repro_torch.models.model import from_jax_params
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 LOGIT_TOL = 4e-2
 EMB_RTOL = 5e-2

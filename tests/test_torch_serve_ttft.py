@@ -19,6 +19,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.serving_cache import ServingGramCache
 from repro_torch.models.model import init_model
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 ARCH = "stablelm-1.6b"
 

@@ -29,6 +29,7 @@ from repro_torch.distributed.checkpoint import read_manifest
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.serving_cache import ServingGramCache
 from repro_torch.models.model import init_model
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 FACTOR_RTOL = 1e-4
 KEYS = [("tA", "final"), ("tB", "final"), ("tA", "mid")]

@@ -22,6 +22,7 @@ from repro.configs import get_config as j_config
 from repro.configs import shapes as jshapes
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs import shapes
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 CELLS = list(jshapes.SHAPES)
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,

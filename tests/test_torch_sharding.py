@@ -26,6 +26,7 @@ from repro_torch.distributed import plan_shape
 from repro_torch.distributed.mesh import Mesh
 from repro_torch.models import sharding as tsh
 from repro_torch.models.model import init_model
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 MESHES = [(1, 1), (2, 1), (1, 2), (1, 4), (2, 2), (2, 4), (4, 2)]
 

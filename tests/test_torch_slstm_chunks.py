@@ -26,6 +26,7 @@ from repro.models import ssm as jssm
 from repro_torch.kernels import slstm as tslstm
 from repro_torch.models import ssm
 from repro_torch.models.common import ArchConfig
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 Y_TOL = dict(rtol=2e-5, atol=2e-5)         # tests/test_slstm_kernel.py
 STATE_TOL = dict(rtol=2e-4, atol=2e-4)

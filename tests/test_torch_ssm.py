@@ -34,6 +34,7 @@ from repro_torch.kernels import slstm as tslstm
 from repro_torch.kernels import counts
 from repro_torch.models import ssm
 from repro_torch.models.common import ArchConfig
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 Y_TOL = dict(rtol=2e-5, atol=2e-5)         # tests/test_slstm_kernel.py
 SCAN_STATE_TOL = dict(rtol=2e-4, atol=2e-4)

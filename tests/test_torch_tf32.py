@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import trigrid
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 #: the kernels' f32 tolerance: max |got − want| / max(1, max |want|)
 TOL_F32 = 2e-5

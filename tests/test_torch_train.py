@@ -31,6 +31,7 @@ from repro_torch.data import make_train_iterator as t_iter
 from repro_torch.launch import train as ttrain
 from repro_torch.models.model import from_jax_params
 from repro_torch.models.model import lm_loss as t_loss
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 
 def _setup(layers=2, d_model=64, d_ff=None, seed=0):

@@ -64,6 +64,7 @@ from repro_torch.distributed.compression import wire_bytes_per_device
 from repro_torch.distributed.launch import run_ranks
 from repro_torch.launch import train as ttrain
 from repro_torch.models.model import from_jax_params
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 STEPS = 3

@@ -33,6 +33,7 @@ from repro_torch.kernels import counts
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.serving_cache import ServingGramCache
 from repro_torch.models.model import from_jax_params, init_model
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 LOGIT_TOL = 4e-2      # tests/test_torch_model.py; measured ≤ 1.5e-2 here
 HIDDEN_TOL = 6.25e-2  # tests/test_torch_model.py; measured ≤ 3.2e-2 here

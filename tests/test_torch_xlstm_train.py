@@ -56,6 +56,7 @@ from repro_torch.models import ssm
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import from_jax_params
 from repro_torch.models.model import lm_loss as t_loss
+from test_torch_hygiene import limit_torch_threads  # noqa: F401
 
 GRAD_TOL = dict(rtol=2e-5, atol=2e-5)
 LEAF_RTOL = 3e-2
