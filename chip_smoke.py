@@ -326,16 +326,17 @@ Phases (any failure exits non-zero):
              layer's gates through ``slstm_scan`` against its plain
              version on the card, both timed;
 21. densetrain — trains the dense families at their published widths:
-             first one Muon NS (5 steps) at each Gram width they add
-             (3584, 3840, 5120, 6144 at the embeddings' vocab and the
-             MLP's d_ff, 4096 at pixtral's attention) on the kernels
+             one Muon NS (5 steps, beside phase 8) at each Gram width
+             they add (3584, 3840, 5120, 6144 at the embeddings' vocab
+             and the MLP's d_ff, 4096 at pixtral's attention) on the
+             kernels
              against the same iteration in f64 (``NS_TOL``; the first
              Gram ``TOL_F32``), and ``rank_update`` / ``sym_stream`` at
              the gemma3 and pixtral embeddings' and granite's MLP stack's
              NS shapes against their plain versions, timed beside one
              PyTorch call and the bound; then gemma2-9b (2 layers: one
              local / global pair), gemma3-12b (6: one 5 + 1 period),
-             granite-20b (4) and pixtral-12b (4) through ``train`` and
+             granite-20b (2) and pixtral-12b (4) through ``train`` and
              musicgen-large (all 48) on frames through ``make_train_step``,
              random bf16 weights from seed 0, 2 x 256 tokens, a warm-up
              and 2 timed steps, ``muon-syrk`` on gemma3 and granite and
@@ -351,9 +352,10 @@ Phases (any failure exits non-zero):
              identical, step 0 within 1e-4 of the one-card run's, each
              rank's all-gather and reduce-scatter words a step in the
              loss + backward the closed form of its blocks;
-22. jambatrain — trains jamba-v0.1-52b at its published widths: first
-             one Muon NS (5 steps) of a (16, 4096, 14336) expert stack
-             on the kernels against the f64 iteration (``NS_TOL``; the
+22. jambatrain — trains jamba-v0.1-52b at its published widths: one
+             Muon NS (5 steps, beside phase 8) of a (16, 4096, 14336)
+             expert stack on the kernels against the f64 iteration
+             (``NS_TOL``; the
              first Gram ``TOL_F32``), and ``rank_update`` /
              ``sym_stream`` at the expert stacks' NS shapes (the Gram,
              sym(Y)·X and S·S of (16, 4096, 14336)) against the products
@@ -362,7 +364,8 @@ Phases (any failure exits non-zero):
              tokens, a window overflowing) whose input, router and
              expert gradients through ``moe.CapacityExperts`` must be
              autograd's of the plain capacity form within 4 bf16 ulps
-             (outputs bit-equal); then layers 2-3 of its period (Mamba +
+             (outputs bit-equal; beside phase 8); then layers 2-3 of its
+             period (Mamba +
              dense MLP, attention + MoE MLP; 3.68e9 parameters) through
              the trainer's ``_run`` with ``muon-syrk``, random bf16
              weights from seed 0, 2 x 256 tokens (the capacity form), a
@@ -372,9 +375,34 @@ Phases (any failure exits non-zero):
              under 79.18 GiB; the peak of one loss + backward under the
              "names" and the "full" remat policy, gradients bit-equal;
              the first loss against the same weights on the CPU
-             (``MUON_TOL`` + ``MUON_TOL``·|cpu|).
+             (``MUON_TOL`` + ``MUON_TOL``·|cpu|);
+23. deepseektrain — trains deepseek-v3-671b at its published widths:
+             its first 2 of 3 dense prefix blocks (MLA with q_lora), no
+             MoE layer and the MTP block (3.60e9 parameters, no periods)
+             through the trainer's ``_run`` with ``muon-syrk``, random
+             bf16 weights from seed 0, 2 x 256 tokens, a warm-up and 2
+             timed steps: finite losses, the launches the closed form,
+             every NS SYRK / SYMM with n1 >= 256 on the kernels, s a step
+             and its split, tokens/s, peak memory; then, while the first
+             loss is recomputed from the same weights on the CPU on a
+             thread (``MUON_TOL`` + ``MUON_TOL``·|cpu|), ``rank_update``
+             / ``sym_stream`` at every NS shape the cut adds against the
+             products in f64, timed, and one deepseek-v2 MoE layer at
+             full width (160 experts, 2 shared, top-6, d 5120; 512
+             tokens, a window overflowing) whose input, router, expert
+             and shared-expert gradients
+             through ``moe.CapacityExperts`` must be autograd's of the
+             plain capacity form within 4 bf16 ulps; one Muon NS of the
+             (7168, 129280) embedding and of a (7168, 18432) MLP leaf on
+             the kernels against the f64 iteration (``NS_TOL``), beside
+             phase 8.
 
-The seconds of each phase are printed on the ``[done]`` line.  Phases
+The seconds of each phase are printed on the ``[done]`` line.  The
+checks of phases 21-23 that time nothing on the card (the Muon NS
+against the f64 iteration at their new widths, phase 22's MoE
+gradients) run on a thread beside phase 8's gloo launch, whose ranks
+hold little of the card ("early checks"); the CPU's first loss of
+phases 21-23 runs on a thread beside that phase's kernel rows.  Phases
 11 (c) and 14 wait on trainer subprocesses of their own; they run on
 threads, side by side, after phase 13, while the main thread runs phase
 9 and phase 12 (c) (``compress_resume``): those four share the card,
@@ -1916,10 +1944,14 @@ def gloo_rank(mesh, cases):
     return out
 
 
-def mesh_phase(torch):
+def mesh_phase(torch, beside=None):
     """Phase 8: the single-device blas calls, then the shared gloo launch
     (``gloo_rank``); its mesh cases checked and printed here, its ABFT
-    and compression results returned for phases 11 and 12."""
+    and compression results returned for phases 11 and 12.  ``beside``
+    starts work on a thread of this process while the launch runs (its
+    ranks hold little of the card and wait mostly on the host) and
+    returns its join; the join's result is returned under
+    ``"beside"``."""
     from repro_torch import blas
     from repro_torch.distributed.launch import run_ranks
     card = torch.cuda.get_device_name(0)
@@ -1942,10 +1974,12 @@ def mesh_phase(torch):
         f"on one {card}: P = 12, then 6 and 4 on its first ranks, with "
         "phase 11's ABFT and phase 12's compressed all-reduces on 4")
     t0 = time.perf_counter()
+    join = beside() if beside is not None else None
     every = run_ranks("chip_smoke:gloo_rank", MESH_WORLD, backend="gloo",
                       device="cuda:0", paths=[ROOT], timeout=700,
                       kwargs={"cases": cases})
     wall = time.perf_counter() - t0
+    done = join() if join is not None else None
     log(f"[mesh] the shared launch: {wall:.1f} s (process start included)")
     rows, picks, launched, muon = [], {}, {}, None
     for P in (4, 6, 12):
@@ -1984,7 +2018,8 @@ def mesh_phase(torch):
     assert all(v == 0 for v in launched.values()), launched
     shared = {k: [r[k] for r in every[:4]] for k in ("abft", "compress")}
     return {"cases": rows, "single_device_ms": single, "picks": picks,
-            "muon_1d": muon, "launch_s": wall}, launched, shared
+            "muon_1d": muon, "launch_s": wall, "beside": done}, launched, \
+        shared
 
 
 # --------------------------------------------------------------------------
@@ -4631,14 +4666,15 @@ def shapes_phase(torch, procs, cases):
 # --------------------------------------------------------------------------
 #: each family on one card at its published widths: (layers, optimizer).
 #: The depth is cut to whole periods of the pattern (gemma2's local /
-#: global pair, gemma3's 5 local + 1 global), never the width; granite,
-#: pixtral and musicgen as deep as keeps a step's peak well under the
-#: card's 80 GB at the trainer's ~22 (Muon) to ~30 (AdamW) bytes a
-#: parameter (PERF.md §5: musicgen whole).  Muon on the widest Grams (gemma3's 262144 x 3840
-#: embeddings, granite's 6144 x 24576 MLP), AdamW on the others to keep
-#: the phase short
+#: global pair, gemma3's 5 local + 1 global), never the width; pixtral
+#: and musicgen as deep as keeps a step's peak well under the card's 80
+#: GB at the trainer's ~22 (Muon) to ~30 (AdamW) bytes a parameter
+#: (PERF.md §5: musicgen whole), granite at 2 layers (its (2, 6144,
+#: 24576) MLP stacks: the smoke's time, not its memory).  Muon on the
+#: widest Grams (gemma3's 262144 x 3840 embeddings, granite's 6144 x
+#: 24576 MLP), AdamW on the others to keep the phase short
 DENSETRAIN = {"gemma2-9b": (2, "adamw"), "gemma3-12b": (6, "muon-syrk"),
-              "granite-20b": (4, "muon-syrk"), "pixtral-12b": (4, "adamw"),
+              "granite-20b": (2, "muon-syrk"), "pixtral-12b": (4, "adamw"),
               "musicgen-large": (48, "adamw")}
 #: a warm-up step and 2 timed, 2 x 256 tokens (frames for musicgen)
 DENSETRAIN_STEPS, DENSETRAIN_BATCH = 3, 2
@@ -5058,50 +5094,51 @@ def densemesh_check(torch, run, wall, single_losses):
             "wall_s": out["wall_s"]}, launches
 
 
-def densetrain_phase(torch, mesh_run, wall, cases):
-    """Phase 21: the Muon NS at every new Gram width against the f64
-    iteration; the symmetric kernels at the new training shapes against
-    their plain versions, timed (rows added to ``cases``); each dense
-    family trained at full width on the card
-    (``DENSETRAIN``); gemma2's first loss against the CPU's; gemma2 on
-    (data 2, model 2) with ``fsdp_params`` (``mesh_run``: its flags and
-    ranks' results from phase 13's launch, ``wall`` that launch's
-    seconds) against the one-card run."""
+def densetrain_phase(torch, mesh_run, wall, cases, early):
+    """Phase 21: each dense family trained at full width on the card
+    (``DENSETRAIN``, gemma2 first); gemma2's first loss against the
+    CPU's, on a thread beside the symmetric kernels at the new training
+    shapes against their plain versions, timed (rows added to
+    ``cases``); gemma2 on (data 2, model 2) with ``fsdp_params``
+    (``mesh_run``: its flags and ranks' results from phase 13's launch,
+    ``wall`` that launch's seconds) against the one-card run.  The Muon
+    NS at every new Gram width against the f64 iteration ran beside
+    phase 8's launch (``early_checks``; ``early`` its results)."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    t0 = time.perf_counter()
-    ns = [muon_f64_check(torch, n1, n2) for n1, n2 in MUON_WIDTHS]
-    seconds = {"ns_s": time.perf_counter() - t0}
-    t0 = time.perf_counter()
-    dense_kernel_rows(torch, cases)
+    seconds = {"ns_s (beside phase 8)": early["ns_s"]}
     rows, launches = {}, {}
-    seconds["kernels_s"] = time.perf_counter() - t0
-    kept = {}
+    cpu = None
     for arch, (layers, optimizer) in DENSETRAIN.items():
         t1 = time.perf_counter()
         if arch == "musicgen-large":
             rows[arch], launches[arch] = musicgen_train(torch, layers,
                                                         optimizer)
         else:
-            rows[arch], launches[arch], got = dense_train(torch, arch,
-                                                          layers, optimizer)
-            kept.update(got)
+            rows[arch], launches[arch], kept = dense_train(
+                torch, arch, layers, optimizer)
         seconds[arch] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(DENSEMESH_ARCH),
-                              n_layers=DENSEMESH_LAYERS)
-    cpu = dense_cpu_loss(torch, cfg, kept,
-                         rows[DENSEMESH_ARCH]["losses"][0])
-    del kept
-    seconds["cpu_s"] = time.perf_counter() - t1
+        if arch == DENSEMESH_ARCH:
+            # its CPU loss (host cores) beside the kernel rows (the card)
+            cfg = dataclasses.replace(get_config(DENSEMESH_ARCH),
+                                      n_layers=DENSEMESH_LAYERS)
+            cpu = in_background(seconds, "cpu_s", dense_cpu_loss, torch,
+                                cfg, kept, rows[arch]["losses"][0])
+            del kept
+            t1 = time.perf_counter()
+            dense_kernel_rows(torch, cases)
+            seconds["kernels_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            cpu = cpu()
+            seconds["cpu_wait_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     mesh, mlaunches = densemesh_check(torch, mesh_run, wall,
                                       rows[DENSEMESH_ARCH]["losses"])
     seconds["mesh_s"] = time.perf_counter() - t1
     log(f"[densetrain] phase seconds {json.dumps(seconds)}")
-    return {"muon_ns": ns, "runs": rows, "cpu_loss": cpu, "mesh": mesh,
-            **seconds}, launches, mlaunches
+    return {"muon_ns": early["muon_ns"], "runs": rows, "cpu_loss": cpu,
+            "mesh": mesh, **seconds}, launches, mlaunches
 
 
 # --------------------------------------------------------------------------
@@ -5139,8 +5176,8 @@ def _jamba_train_cfg():
 
 def _plain_capacity(torch, moe, layer, cfg, xf):
     """The capacity form with autograd through each expert's products
-    and the windows' assembly (no ``CapacityExperts``): the oracle of
-    its backward."""
+    and the windows' assembly (no ``CapacityExperts``), plus the shared
+    experts where the config has them: the oracle of its backward."""
     mo = cfg.moe
     t, d = xf.shape
     k, e = mo.top_k, mo.n_experts
@@ -5162,19 +5199,23 @@ def _plain_capacity(torch, moe, layer, cfg, xf):
                             e, cap)
     y = windows[idx[inv]].reshape(t, k, d)
     dropped = int((idx >= e * cap).sum())
-    return torch.einsum("tkd,tk->td", y, topg.to(y.dtype)).to(
-        xf.dtype), dropped
+    out = torch.einsum("tkd,tk->td", y, topg.to(y.dtype)).to(xf.dtype)
+    if mo.n_shared:
+        out = out + layer.shared(xf)
+    return out, dropped
 
 
-def jamba_moe_grads(torch, cfg):
-    """One MoE layer at full width (16 experts of (4096, 14336), top-2),
-    ``JAMBA_MOE_TOKENS`` tokens with a mean that, against a router column
-    raised for expert 0, sends every token's first choice there: its
-    window of ``_capacity`` rows drops the rest.  The gradients of the
-    input, the router and the three expert stacks through
-    ``CapacityExperts`` against autograd of ``_plain_capacity``, the
-    same cotangent: each within ``JAMBA_GRAD_ULPS`` bf16 ulps of its
-    largest entry; the outputs bit-equal; both timed."""
+def moe_layer_grads(torch, cfg, tag="[jambatrain]"):
+    """One MoE layer of ``cfg`` at full width (jamba's: 16 experts of
+    (4096, 14336), top-2; deepseek-v2's: 160 of (5120, 1536), top-6, and
+    2 shared), ``JAMBA_MOE_TOKENS`` tokens with a mean that, against a
+    router column raised for expert 0, sends every token's first choice
+    there: its window of ``_capacity`` rows drops the rest.  The
+    gradients of the input, the router, the three expert stacks and the
+    shared experts' weights through ``CapacityExperts`` against autograd
+    of ``_plain_capacity``, the same cotangent: each within
+    ``JAMBA_GRAD_ULPS`` bf16 ulps of its largest entry; the outputs
+    bit-equal; both timed."""
     from repro_torch.models import moe
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(43)
@@ -5185,7 +5226,8 @@ def jamba_moe_grads(torch, cfg):
     x = (torch.randn(t, d, generator=gen, device=dev) + 0.5).to(
         torch.bfloat16)
     g = torch.randn(t, d, generator=gen, device=dev)
-    names = ("x", "router", "wi", "wg", "wo")
+    names = ("x", "router", "wi", "wg", "wo") + (
+        ("shared.wi", "shared.wg", "shared.wo") if cfg.moe.n_shared else ())
     grads, outs, secs = {}, {}, {}
     # each form twice, the second timed (the first meets cold kernels)
     for how in ("function", "plain") * 2:
@@ -5202,23 +5244,25 @@ def jamba_moe_grads(torch, cfg):
         torch.cuda.synchronize()
         secs[how] = time.perf_counter() - t0
         outs[how] = y.detach()
-        grads[how] = [xi.grad] + [getattr(layer, n).grad for n in names[1:]]
+        grads[how] = [xi.grad] + [layer.get_parameter(n).grad
+                                  for n in names[1:]]
     errs = {}
     for n, got, want in zip(names, grads["function"], grads["plain"]):
         err = float((got.float() - want.float()).abs().max())
         bound = JAMBA_GRAD_ULPS * 2.0 ** -8 * float(want.float().abs().max())
         errs[n] = (err, bound)
         ok = err <= bound and bool(torch.isfinite(got).all())
-        log(f"[jambatrain] MoE d {d}, {cfg.moe.n_experts} experts, T = {t}, "
-            f"{dropped} of {t * cfg.moe.top_k} pairs dropped: d{n} "
-            f"{tuple(got.shape)} CapacityExperts vs autograd of the plain "
-            f"capacity form: max_abs_err {err:.3e} (bound {bound:.3e}) "
+        log(f"{tag} MoE d {d}, {cfg.moe.n_experts} experts "
+            f"({cfg.moe.n_shared} shared), T = {t}, {dropped} of "
+            f"{t * cfg.moe.top_k} pairs dropped: d{n} {tuple(got.shape)} "
+            f"CapacityExperts vs autograd of the plain capacity form: "
+            f"max_abs_err {err:.3e} (bound {bound:.3e}) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"jamba MoE d{n}: the capacity backward "
+            raise SystemExit(f"{cfg.name} MoE d{n}: the capacity backward "
                              "disagrees with autograd of the plain form")
     same = bool(torch.equal(outs["function"], outs["plain"]))
-    log(f"[jambatrain] MoE outputs bit-equal {same}; forward + backward s "
+    log(f"{tag} MoE outputs bit-equal {same}; forward + backward s "
         f"(warm): CapacityExperts {secs['function']:.4f}, plain "
         f"{secs['plain']:.4f}")
     assert same and dropped > 0
@@ -5263,46 +5307,29 @@ def jamba_remat_peaks(torch, model, cfg, batch):
     return peaks
 
 
-def jambatrain_phase(torch, cases):
-    """Phase 22: the NS of a (16, 4096, 14336) expert stack on the
-    kernels against the f64 iteration; ``rank_update`` / ``sym_stream``
-    at the expert stacks' NS shapes against their plain versions and
-    f64, timed (rows added to ``cases``); one MoE layer's gradients
-    through ``CapacityExperts`` against autograd of the plain capacity
-    form; then jamba's layers 2-3 (``_jamba_train_cfg``) trained through
-    the trainer's ``_run`` with ``muon-syrk``, random bf16 weights from
-    seed 0, 2 x 256 tokens, a warm-up and 2 timed steps: finite losses,
-    the launches the closed form, every NS SYRK / SYMM with n1 >= 256 on
-    the kernels, s a step and its split, peak memory under the card's;
-    the peaks of a loss + backward under "names" and "full" with their
-    gradients bit-equal; the first loss against the same weights on the
-    CPU."""
+def jambatrain_phase(torch, cases, early):
+    """Phase 22: jamba's layers 2-3 (``_jamba_train_cfg``) trained
+    through the trainer's ``_run`` with ``muon-syrk``, random bf16
+    weights from seed 0, 2 x 256 tokens, a warm-up and 2 timed steps:
+    finite losses, the launches the closed form, every NS SYRK / SYMM
+    with n1 >= 256 on the kernels, s a step and its split, peak memory
+    under the card's; the peaks of a loss + backward under "names" and
+    "full" with their gradients bit-equal; the first loss against the
+    same weights on the CPU, on a thread beside ``rank_update`` /
+    ``sym_stream`` at the expert stacks' NS shapes against their plain
+    versions and f64, timed (rows added to ``cases``).  The NS of a
+    (16, 4096, 14336) expert stack against the f64 iteration and one
+    MoE layer's gradients through ``CapacityExperts`` against autograd
+    of the plain capacity form ran beside phase 8's launch
+    (``early_checks``; ``early`` their results)."""
     import gc
 
     from repro_torch.launch import train as ttrain
     gc.collect()
     torch.cuda.empty_cache()
     cfg = _jamba_train_cfg()
-    assert [(b.mixer, b.mlp) for b in cfg.pattern] == [
-        ("mamba", "dense"), ("attn", "moe")], cfg.pattern
-    assert (cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert,
-            cfg.vocab, cfg.remat_policy) == (4096, 16, 14336, 65536,
-                                             "names")
-    seconds = {}
-    t0 = time.perf_counter()
-    ns = muon_f64_check(torch, 4096, 14336, stack=(16,), tag="[jambatrain]")
-    seconds["ns_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    dense_kernel_rows(torch, cases, JAMBA_KERNEL_SHAPES[:1], ("syrk", "symm"),
-                      "[jambatrain]")
-    dense_kernel_rows(torch, cases, JAMBA_KERNEL_SHAPES[1:], ("ss",),
-                      "[jambatrain]")
-    seconds["kernels_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    moe_check = jamba_moe_grads(torch, cfg)
-    seconds["moe_grads_s"] = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
+    seconds = {f"{k} (beside phase 8)": early[k]
+               for k in ("ns_s", "moe_grads_s")}
     t0 = time.perf_counter()
     kept, init = {}, ttrain.init_model
 
@@ -5341,13 +5368,171 @@ def jambatrain_phase(torch, cases):
     seconds["remat_s"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
+    # the CPU's first loss (host cores) beside the kernel rows (the card)
+    cpu = in_background(seconds, "cpu_s", dense_cpu_loss, torch, cfg,
+                        kept.pop("cpu"), out["losses"][0], tag)
     t0 = time.perf_counter()
-    cpu = dense_cpu_loss(torch, cfg, kept.pop("cpu"), out["losses"][0],
-                         tag)
-    seconds["cpu_s"] = time.perf_counter() - t0
+    dense_kernel_rows(torch, cases, JAMBA_KERNEL_SHAPES[:1], ("syrk", "symm"),
+                      tag)
+    dense_kernel_rows(torch, cases, JAMBA_KERNEL_SHAPES[1:], ("ss",), tag)
+    seconds["kernels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = cpu()
+    seconds["cpu_wait_s"] = time.perf_counter() - t0
     log(f"{tag} phase seconds {json.dumps(seconds)}")
-    return {"muon_ns": ns, "moe_grads": moe_check, "run": row,
-            "cpu_loss": cpu, **seconds}, launches
+    return {"muon_ns": early["muon_ns"], "moe_grads": early["moe_grads"],
+            "run": row, "cpu_loss": cpu, **seconds}, launches
+
+
+def early_checks(torch):
+    """The checks of phases 21-23 that use the card but time nothing of
+    it, run beside phase 8's gloo launch (``mesh_phase``'s ``beside``):
+    the Muon NS at phase 21's new Gram widths (``MUON_WIDTHS``), of a
+    (16, 4096, 14336) expert stack and of deepseek-v3's (7168, 129280)
+    embedding and (7168, 18432) MLP leaf against the f64 iteration, and
+    one jamba MoE layer's gradients through ``CapacityExperts`` against
+    autograd of the plain capacity form (their host seconds, beside the
+    launch, are not the kernels' times).  Returns each phase's results
+    and seconds."""
+    cfg = _jamba_train_cfg()
+    assert [(b.mixer, b.mlp) for b in cfg.pattern] == [
+        ("mamba", "dense"), ("attn", "moe")], cfg.pattern
+    assert (cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert,
+            cfg.vocab, cfg.remat_policy) == (4096, 16, 14336, 65536,
+                                             "names")
+    t0 = time.perf_counter()
+    dense = {"muon_ns": [muon_f64_check(torch, n1, n2)
+                         for n1, n2 in MUON_WIDTHS]}
+    dense["ns_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jamba = {"muon_ns": muon_f64_check(torch, 4096, 14336, stack=(16,),
+                                       tag="[jambatrain]")}
+    jamba["ns_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jamba["moe_grads"] = moe_layer_grads(torch, cfg)
+    jamba["moe_grads_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deepseek = {"muon_ns": [muon_f64_check(torch, 7168, n2,
+                                           tag="[deepseektrain]")
+                            for n2 in (129280, 18432)]}
+    deepseek["ns_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return {"densetrain": dense, "jambatrain": jamba,
+            "deepseektrain": deepseek}
+
+
+# --------------------------------------------------------------------------
+# phase 23: train deepseek-v3-671b at full width on one card
+# --------------------------------------------------------------------------
+#: deepseek-v3 cut to its first 2 of 3 dense prefix blocks, none of its 58
+#: MoE layers (no periods) and the MTP block: MLA with q_lora, the prefix
+#: blocks and the MTP term at d_model 7168, vocab 129280, ~3.60e9
+#: parameters.  All 3 prefix blocks (~4.19e9) fit only with ~2 GiB to
+#: spare under Muon's ~19 bytes a parameter, and any cut with an MoE
+#: layer (the prefix and one: ~1.57e10) not at all
+DEEPSEEKTRAIN_PREFIX = 2
+#: a warm-up step and 2 timed, 2 x 256 tokens
+DEEPSEEKTRAIN_STEPS = 3
+#: the Muon NS shapes the cut adds (label, stack, n1, n2): the Gram and
+#: sym(Y)·X of each; S·S at 7168 is phase 3's deepseek NS product
+DEEPSEEK_KERNEL_SHAPES = (("deepseek-v3 embedding", 1, 7168, 129280),
+                          ("deepseek-v3 MLP wi / wg / wo", 1, 7168, 18432),
+                          ("deepseek-v3 MLA wo", 1, 7168, 16384),
+                          ("deepseek-v3 MLA w_uq", 1, 1536, 24576),
+                          ("deepseek-v3 MLA w_dq", 1, 1536, 7168),
+                          ("deepseek-v3 MLA w_uk / w_uv", 1, 512, 16384),
+                          ("deepseek-v3 MLA w_dkv", 1, 512, 7168))
+DEEPSEEK_SS_SHAPES = (("deepseek-v3 MLA", 1, 1536, 1536),
+                      ("deepseek-v3 MLA", 1, 512, 512))
+#: the MoE layer whose backward runs at full width: deepseek-v2's (160
+#: experts of (5120, 1536), 2 shared, top-6: ~7.6 GB of weights, ~23 GB
+#: with both forms' gradients); deepseek-v3's (256 of (7168, 2048),
+#: 1.13e10 parameters) would need ~68 GB for the same check
+DEEPSEEK_MOE_ARCH = "deepseek-v2-236b"
+
+
+def _deepseek_train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v3-671b")
+    prefix = cfg.prefix[:DEEPSEEKTRAIN_PREFIX]
+    cfg = dataclasses.replace(cfg, n_layers=len(prefix), prefix=prefix)
+    assert (cfg.n_periods, cfg.mtp, cfg.attn_kind, cfg.mla.q_lora,
+            cfg.d_model, cfg.d_ff, cfg.vocab) == (0, True, "mla", 1536, 7168,
+                                                  18432, 129280), cfg
+    # 29 Muon matrices on the kernels: 9 a block (2 prefix, the MTP
+    # block; w_kr's short side, 64, routes dense), embed and unembed
+    assert muon_launches(cfg, 1)["rank_update"] == 29 * 5
+    return cfg
+
+
+def deepseektrain_phase(torch, cases, early):
+    """Phase 23: deepseek-v3's first 2 prefix blocks and its MTP block
+    (``_deepseek_train_cfg``) trained through the trainer's ``_run`` with
+    ``muon-syrk``, random bf16 weights from seed 0, 2 x 256 tokens, a
+    warm-up and 2 timed steps: finite, falling losses, the launches the
+    closed form, every NS SYRK / SYMM with n1 >= 256 on the kernels, s a
+    step and its split, peak memory under the card's.  Then, while the
+    first loss is recomputed from the same weights on the CPU on a
+    thread, ``rank_update`` / ``sym_stream`` at the cut's NS shapes
+    against f64, timed (rows added to ``cases``), and one deepseek-v2
+    MoE layer's gradients (shared experts included) through
+    ``CapacityExperts`` against autograd of the plain capacity form.
+    The NS of the embedding and of an MLP leaf against the f64
+    iteration ran beside phase 8's launch (``early_checks``; ``early``
+    their results)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as ttrain
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _deepseek_train_cfg()
+    tag = "[deepseektrain]"
+    seconds = {"ns_s (beside phase 8)": early["ns_s"]}
+    t0 = time.perf_counter()
+    kept, init = {}, ttrain.init_model
+
+    def keep(cfg, seed, device, **kw):
+        model = init(cfg, seed=seed, device=device, **kw)
+        kept["cpu"] = {k: v.detach().to("cpu", copy=True)
+                       for k, v in model.state_dict().items()}
+        return model
+
+    args = ttrain.build_argparser().parse_args(
+        _dense_argv("deepseek-v3-671b", cfg.n_layers, "muon-syrk",
+                    DEEPSEEKTRAIN_STEPS) + ["--device", DEVICE])
+    ttrain.init_model = keep
+    try:
+        out = ttrain._run(args, cfg, torch.device(DEVICE))
+    finally:
+        ttrain.init_model = init
+    seconds["train_s"] = time.perf_counter() - t0
+    launches = out["kernel_launches"]
+    want = muon_launches(cfg, DEEPSEEKTRAIN_STEPS)
+    assert_kernel_routes(out, launches, tag)
+    row = _dense_report(torch, tag, cfg, out, launches, want)
+    assert out["losses"][-1] < out["losses"][0], out["losses"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the CPU's first loss (host cores) beside the card's checks below
+    cpu = in_background(seconds, "cpu_s", dense_cpu_loss, torch, cfg,
+                        kept.pop("cpu"), out["losses"][0], tag)
+    t0 = time.perf_counter()
+    dense_kernel_rows(torch, cases, DEEPSEEK_KERNEL_SHAPES, ("syrk", "symm"),
+                      tag)
+    dense_kernel_rows(torch, cases, DEEPSEEK_SS_SHAPES, ("ss",), tag)
+    seconds["kernels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_check = moe_layer_grads(torch, get_config(DEEPSEEK_MOE_ARCH), tag)
+    seconds["moe_grads_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_loss = cpu()
+    seconds["cpu_wait_s"] = time.perf_counter() - t0
+    log(f"{tag} phase seconds {json.dumps(seconds)}")
+    return {"muon_ns": early["muon_ns"], "moe_grads": moe_check, "run": row,
+            "cpu_loss": cpu_loss, **seconds}, launches
 
 
 def main() -> int:
@@ -5411,7 +5596,7 @@ def in_background(phase_s, name, fn, *a):
 
 
 def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
-    """Phases 2-22 and the closing lines (``main`` starts phase 20's
+    """Phases 2-23 and the closing lines (``main`` starts phase 20's
     counting children first and stops them last)."""
     build_s = timed("build", build)
     cases = timed("kernels", kernel_phase, torch, clock)
@@ -5419,7 +5604,10 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     xout, xlaunches = timed("xlstm", xlstm_phase, torch)
     timed("check", check_phase, torch)
     tout, tlaunches = timed("train", train_phase, torch, cases)
-    mout, mlaunches, gloo = timed("mesh", mesh_phase, torch)
+    mout, mlaunches, gloo = timed(
+        "mesh", mesh_phase, torch,
+        lambda: in_background(phase_s, "early checks", early_checks, torch))
+    early = mout.pop("beside")
     wout, wlaunches = timed("warm", warm_phase, torch)
     aout, alaunches = timed("faults", abft_phase, torch, gloo["abft"])
     single = timed("single", single_resume_depth, torch)
@@ -5448,8 +5636,12 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     sout, slaunches = timed("deepseek", deepseek_phase, torch)
     hout, hlaunches = timed("shapes", shapes_phase, torch, counters, cases)
     tdout, tdlaunches, tdmesh = timed("densetrain", densetrain_phase, torch,
-                                      grun, eout["launch_s"], cases)
-    jtout, jtlaunches = timed("jambatrain", jambatrain_phase, torch, cases)
+                                      grun, eout["launch_s"], cases,
+                                      early["densetrain"])
+    jtout, jtlaunches = timed("jambatrain", jambatrain_phase, torch, cases,
+                              early["jambatrain"])
+    dtout, dtlaunches = timed("deepseektrain", deepseektrain_phase, torch,
+                              cases, early["deepseektrain"])
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s; by phase "
         f"{json.dumps(phase_s)}")
@@ -5473,6 +5665,7 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     log(json.dumps({"shapes": hout}))
     log(json.dumps({"densetrain": tdout}))
     log(json.dumps({"jambatrain": jtout}))
+    log(json.dumps({"deepseektrain": dtout}))
 
     kernels = []
     for name, rows in cases.items():
@@ -5510,7 +5703,9 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
                    f"train mesh {DENSEMESH_ARCH} {DENSEMESH_LAYERS} layers "
                    "adamw fsdp_params": tdmesh.get(name, 0),
                    "train jamba-v0.1-52b layers 2-3 muon-syrk":
-                   jtlaunches[name]}
+                   jtlaunches[name],
+                   "train deepseek-v3-671b prefix 0-1 + MTP muon-syrk":
+                   dtlaunches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

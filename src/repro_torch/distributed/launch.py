@@ -18,8 +18,15 @@ them (the host's cores, unless the caller holds itself to fewer).
 card r mod the cards present (all on the one card of a one-card
 machine), as NCCL needs.  With no ``device`` the ranks run on the cards
 as with "cuda", whatever the backend, and the launch raises when there
-is none, as every entry point of the port does.  A rank that fails makes the launch
-raise with the end of its log; a launch that outlives ``timeout``
+is none, as every entry point of the port does.
+
+A rank that fails makes the launch raise with the end of its log.  Once
+one rank has failed, the others get ``FAIL_GRACE_S`` seconds to end on
+their own before they are killed, and the rank reported is the first to
+end with a Python error (a positive exit code): not a peer that aborted
+when it lost that rank, nor one the launch killed.  A rank that wrote
+its result has done its work: a crash in its own teardown after that
+(an abort at exit) fails nothing.  A launch that outlives ``timeout``
 seconds is killed and raises.  Nothing is retried or switched.
 """
 from __future__ import annotations
@@ -53,6 +60,26 @@ def rank_device(device: str, rank: int, n_cards: int) -> str:
     """Rank ``rank``'s device from the spec's: "cuda" is card
     ``rank mod n_cards``; anything else is taken as it is."""
     return f"cuda:{rank % n_cards}" if device == "cuda" else device
+
+
+#: seconds the other ranks are given to end on their own once one rank
+#: has failed, before they are killed
+FAIL_GRACE_S = 5.0
+
+
+def _first_failure(exits: Sequence[int], codes: Sequence[int]) -> int:
+    """The rank to report of a failed launch, given each rank's exit
+    code (0 for a rank that returned its result): the first in
+    ``exits`` (ranks in the order they ended on their own) with a
+    positive code, a Python error; else the first to end with a signal
+    (an abort after a peer left); else a rank that was killed."""
+    for r in exits:
+        if codes[r] > 0:
+            return r
+    for r in exits:
+        if codes[r]:
+            return r
+    return next(r for r, c in enumerate(codes) if c)
 
 
 def run_ranks(target: str, world: int, *, backend: str = "gloo",
@@ -89,11 +116,30 @@ def run_ranks(target: str, world: int, *, backend: str = "gloo",
                  spec_path, str(r)], stdout=log, stderr=subprocess.STDOUT,
                 env=child_env))
         deadline = time.monotonic() + timeout
+        result = [os.path.join(tmp, f"rank{r}.pkl") for r in range(world)]
+        exits: List[int] = []             # ranks in the order they ended
+
+        def failed(r: int) -> bool:
+            # a rank whose result is written has done its work: an exit
+            # code from its teardown after that is not its failure
+            return bool(procs[r].returncode) and \
+                not os.path.exists(result[r])
         try:
-            while any(p.poll() is None for p in procs):
-                if any(p.returncode not in (None, 0) for p in procs):
-                    break                  # one rank failed: stop the rest
-                if time.monotonic() > deadline:
+            grace = None
+            while len(exits) < world:
+                for r, p in enumerate(procs):
+                    if r not in exits and p.poll() is not None:
+                        exits.append(r)
+                now = time.monotonic()
+                if grace is None and any(map(failed, exits)):
+                    # one rank failed: the others get a moment to end on
+                    # their own, so that the order they ended in shows
+                    # which failed first
+                    grace = now + FAIL_GRACE_S
+                if len(exits) == world or (grace is not None
+                                           and now > grace):
+                    break
+                if now > deadline:
                     raise TimeoutError(f"{target} on {world} ranks did not "
                                        f"finish in {timeout:.0f} s")
                 time.sleep(0.05)
@@ -104,17 +150,17 @@ def run_ranks(target: str, world: int, *, backend: str = "gloo",
                     p.wait()
             for log in logs:
                 log.close()
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if failed:
-            # the first rank that failed on its own, not one killed after
-            r = min(failed, key=lambda i: procs[i].returncode < 0)
+        codes = [p.returncode if failed(r) else 0
+                 for r, p in enumerate(procs)]
+        if any(codes):
+            r = _first_failure(exits, codes)
             with open(os.path.join(tmp, f"rank{r}.log"), "rb") as f:
                 tail = f.read()[-6000:].decode(errors="replace")
             raise RuntimeError(f"{target} failed on rank {r} of {world} "
-                               f"(exit {procs[r].returncode}):\n{tail}")
+                               f"(exit {codes[r]}):\n{tail}")
         out = []
         for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            with open(result[r], "rb") as f:
                 out.append(pickle.load(f))
         return out
     finally:

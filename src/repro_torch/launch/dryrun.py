@@ -23,11 +23,10 @@ form.
 One card: ``chips`` is 1.  ``--multi-pod`` / ``--both-meshes`` (TPU pod
 shapes) raise, as ``launch/mesh.py::make_production_mesh`` does, and so
 does ``--devices N`` > 1 (the dry run of one rank's block waits for
-ROADMAP A12c).  A ``train_4k`` cell whose config the trainer refuses
-(``launch/train.py::_refuse_waiting``: deepseek) is recorded as
-``waiting (A11h)``, neither ok nor a failure (musicgen's counts: its
-train step takes frames, which the trainer's own refusal is about, not
-the step); ``long_500k``
+ROADMAP A12c).  Every config trains on one device, so every
+``train_4k`` cell counts, deepseek's included (musicgen's too: its train
+step takes frames, which the trainer's own refusal is about, not the
+step); ``long_500k``
 on a config that is not sub-quadratic is ``skipped``, as the
 reference's.
 
@@ -45,7 +44,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import sys
 import time
 import traceback
@@ -67,25 +65,11 @@ META = torch.device("meta")
 SKIPPED = "skipped (full attention at 500k — DESIGN §5)"
 
 
-def waiting_status(cfg: ArchConfig) -> Optional[str]:
-    """``"waiting (A11x)"`` where the port's trainer refuses ``cfg`` on
-    one device (the item its refusal names), else None."""
-    from .train import _refuse_waiting
-    try:
-        _refuse_waiting(argparse.Namespace(devices=1), cfg)
-    except NotImplementedError as e:
-        item = re.search(r"A\d+[a-z]?", str(e))
-        return f"waiting ({item.group(0) if item else 'training'})"
-    return None
-
-
 def cell_status(cfg: ArchConfig, shape_name: str) -> Optional[str]:
-    """The status of a cell the port does not count (skipped or
-    waiting), else None."""
+    """The status of a cell the port does not count (the reference's
+    skip), else None."""
     if not cell_applicable(cfg, shape_name):
         return SKIPPED
-    if SHAPES[shape_name].kind == "train":
-        return waiting_status(cfg)
     return None
 
 

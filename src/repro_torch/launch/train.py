@@ -124,9 +124,9 @@ Waiting, each raising a clear error that names its ROADMAP item:
 ``--ckpt-dir`` on a mesh with state that is each rank's own (the 8-bit
 AdamW moments; the EF residuals of ``--compress-grads`` over a data
 axis: A8b); ``--compress-grads`` over a data axis with weights split
-over it (``fsdp_params``: A11g); Mamba or MoE blocks on a mesh (jamba
-with ``--devices`` > 1: A11c); any config with MLA, prefix blocks or the
-MTP block, on any device count (deepseek: A11h; the port serves it).
+over it (``fsdp_params``: A11g); Mamba or MoE blocks, MLA, prefix blocks
+or the MTP block on a mesh (jamba or deepseek with ``--devices`` > 1:
+A11c).
 
 jamba trains on one device with the same flags: its Mamba mixers under
 autograd, its routed MoE through the dropless forms (T ≤ 256 tokens a
@@ -137,6 +137,18 @@ call a product:
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch jamba-v0.1-52b --smoke --steps 3 --optimizer muon-syrk
+
+deepseek-v2 and deepseek-v3 train on one device with the same flags:
+MLA and the MTP block under autograd, the unscanned prefix blocks
+outside the per-period remat (as the reference runs them), the shared
+experts beside the routed ones.  At full width no whole step with a
+deepseek MoE layer fits one card; ``_run(args, cfg, dev)`` with
+``cfg = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=2,
+prefix=cfg.prefix[:2])`` trains its first two dense blocks and the MTP
+block (no periods):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch deepseek-v3-671b --smoke --steps 3 --optimizer muon-syrk
 """
 from __future__ import annotations
 
@@ -163,7 +175,7 @@ from ..distributed import (ErrorFeedbackInt8, StepTimer, StragglerMonitor,
 from ..distributed.launch import run_ranks
 from ..kernels import counts
 from ..models.model import (Model, check_head_split, init_model,
-                            preload_remat, refuse_on_mesh, untrained_parts)
+                            preload_remat, refuse_on_mesh)
 from ..models.sharding import (batch_specs, global_shape, param_specs,
                                shard_leaf)
 from .steps import (_delta, describe_blas_routing, init_opt_state,
@@ -206,15 +218,9 @@ def _refuse_waiting(args, cfg) -> None:
     starts)."""
     if args.devices < 1:
         raise ValueError(f"--devices {args.devices}")
-    parts = untrained_parts(cfg)
-    if parts:
-        raise NotImplementedError(
-            f"training {cfg.name} ({', '.join(parts)}) waits for ROADMAP "
-            "A11h: their backward and a full-width cut that fits the "
-            "card; serve it instead")
     if args.devices == 1:
         return
-    refuse_on_mesh(cfg)                 # Mamba / MoE blocks: A11c
+    refuse_on_mesh(cfg)          # Mamba / MoE blocks, MLA, prefix, MTP: A11c
     data, model = plan_shape(args.devices, max_model=args.max_model)
     local = None
     if args.ckpt_dir is not None and args.optimizer == "adamw8bit":

@@ -54,9 +54,11 @@ gathers a weight over 'data' where it uses it (again in the per-period
 recompute), its gradient reduce-scattered back
 (``collectives.gather_from_group``).  That path trains; serving a
 sharded model raises.  Mamba and MoE blocks, MLA, prefix blocks and the
-MTP block run on one device: on a mesh they wait (ROADMAP A11c).  Mamba
-and MoE blocks train on one device; training MLA, prefix blocks or the
-MTP block waits (A11h, ``launch/train.py``).
+MTP block run on one device: on a mesh they wait (ROADMAP A11c).  On one
+device they all train.  A config with as many layers as prefix blocks
+has no periods (deepseek-v3 cut to its dense prefix on one card): no
+``("periods", ...)`` leaves (the reference's are ``(0, ...)`` and hold
+nothing) and no per-period recompute.
 """
 from __future__ import annotations
 
@@ -104,18 +106,12 @@ HEADS = {"attn": {"wq": "n_heads", "wk": "n_kv_heads", "wv": "n_kv_heads",
 
 def single_device_parts(cfg: ArchConfig) -> List[str]:
     """The parts of ``cfg`` that run on one device only (their tensor
-    parallelism waits): Mamba mixers, MoE MLPs and
-    :func:`untrained_parts`."""
+    parallelism waits): Mamba mixers, MoE MLPs, MLA, prefix blocks and
+    the MTP block."""
     specs = cfg.prefix + cfg.pattern
     kinds = sorted({"mamba" for b in specs if b.mixer == "mamba"}
                    | {"moe" for b in specs if b.mlp == "moe"})
-    return [f"{k} blocks" for k in kinds] + untrained_parts(cfg)
-
-
-def untrained_parts(cfg: ArchConfig) -> List[str]:
-    """The parts of ``cfg`` whose training waits (ROADMAP A11h): MLA,
-    prefix blocks and the MTP block."""
-    return [what for on, what in (
+    return [f"{k} blocks" for k in kinds] + [what for on, what in (
         (cfg.attn_kind == "mla", "MLA attention"),
         (bool(cfg.prefix), "prefix blocks"),
         (cfg.mtp, "the MTP block")) if on]
@@ -366,7 +362,7 @@ class Model(nn.Module):
             for name, p in module.named_parameters():
                 tree[base + tuple(name.split("."))] = [p]
         first = len(cfg.prefix)
-        for i in range(cfg.period):
+        for i in range(cfg.period if cfg.n_periods else 0):
             for name, _ in self.blocks[first + i].named_parameters():
                 tree[("periods", f"b{i}") + tuple(name.split("."))] = [
                     self.blocks[li].get_parameter(name)
@@ -796,6 +792,18 @@ def from_jax_params(np_tree: Dict[str, Any], cfg: ArchConfig,
         p, i = divmod(li, cfg.period)
         put(blk, np_tree["periods"][f"b{i}"], ("periods", f"b{i}"),
             lambda a, p=p: np.asarray(a)[p])
+
+    def leaves(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, path + (k,))
+            else:
+                yield path + (k,), v
+    if not cfg.n_periods:       # the reference's (0, ...) stacks hold nothing
+        for where, v in leaves(np_tree.get("periods", {}), ("periods",)):
+            if np.size(v):
+                raise ValueError(f"{'/'.join(where)}: the port has no "
+                                 "parameter to place it in (no periods)")
     missed = [n for n, q in model.named_parameters() if id(q) not in placed]
     if missed:
         raise ValueError(f"no leaf for the port's parameters {missed[:4]}"

@@ -622,22 +622,29 @@ def test_cpu_serve_launches_no_kernel(arch):
 # refusals
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_and_mesh_refuse(pair, arch):
-    """Training deepseek (any device count) waits for ROADMAP A11h, and
-    the message names MLA, the prefix blocks and (v3) the MTP block; on a
-    mesh they wait for A11c, as does a GQA config with a prefix."""
+def test_mesh_training_and_sharding_refuse(pair, arch, monkeypatch):
+    """On a mesh MLA, the prefix blocks and the MTP block wait for
+    ROADMAP A11c: ``train --devices 4`` raises before any weight is
+    drawn, naming MLA, the prefix blocks and (v3) the MTP block, and so
+    do ``shard_`` and ``check_head_split``, as does a GQA config with a
+    prefix.  (On one device deepseek trains:
+    tests/test_torch_deepseek_train.py.)"""
     from repro_torch.distributed.mesh import planning_mesh
-    from repro_torch.launch.train import build_argparser, train
+    from repro_torch.launch import train as ttrain
     from repro_torch.models.model import check_head_split
     from repro_torch.models.sharding import param_specs
-    for devices in (1, 4):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11h") as e:
-            train(build_argparser().parse_args(
-                ["--arch", arch, "--device", "cpu", "--steps", "1",
-                 "--devices", str(devices)]))
-        msg = str(e.value)
-        assert "MLA" in msg and "prefix blocks" in msg
-        assert ("MTP" in msg) == (arch == "deepseek-v3-671b")
+
+    def no_init(*a, **kw):
+        raise AssertionError("weights drawn before the refusal")
+    monkeypatch.setattr(ttrain, "init_model", no_init)
+    monkeypatch.setattr(ttrain, "run_ranks", no_init)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11c") as e:
+        ttrain.train(ttrain.build_argparser().parse_args(
+            ["--arch", arch, "--device", "cpu", "--steps", "1",
+             "--devices", "4"]))
+    msg = str(e.value)
+    assert "MLA" in msg and "prefix blocks" in msg and "moe blocks" in msg
+    assert ("MTP" in msg) == (arch == "deepseek-v3-671b")
     _, _, cfg, model = pair(arch)
     mesh = planning_mesh({"data": 2, "model": 2})
     with pytest.raises(NotImplementedError, match="ROADMAP A11c"):

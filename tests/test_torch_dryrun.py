@@ -66,9 +66,6 @@ REF_KEYS = {
     "collective_operand_bytes", "collective_wire_bytes",
     "collective_counts", "collective_by_kind", "compute_s", "memory_s",
     "collective_s", "dominant", "roofline_fraction", "memory_analysis"}
-#: train_4k of every config the port's trainer refuses, by the item it
-#: names; long_500k of every config that is not sub-quadratic
-WAITING = {"deepseek_v2_236b": "A11h", "deepseek_v3_671b": "A11h"}
 
 
 def _meta(shape, dtype=torch.int32):
@@ -219,15 +216,11 @@ def test_roofline_compute_term_sums_each_dtype_over_its_peak():
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("arch", J_ARCHS)
 def test_cell_status(arch, cell):
-    """ok, the reference's skip, or waiting on the item the trainer's
-    refusal names; a record with a status is returned uncounted."""
+    """ok or the reference's skip (every config's train_4k counts,
+    deepseek's too); a record with a status is returned uncounted."""
     cfg = get_config(arch)
-    if not jshapes.cell_applicable(j_config(arch), cell):
-        want = dryrun.SKIPPED
-    elif cell == "train_4k" and arch in WAITING:
-        want = f"waiting ({WAITING[arch]})"
-    else:
-        want = None
+    want = None if jshapes.cell_applicable(j_config(arch), cell) else \
+        dryrun.SKIPPED
     assert dryrun.cell_status(cfg, cell) == want
     if want is not None:
         assert dryrun.dryrun_cell(arch, cell, verbose=False) == {
@@ -295,6 +288,19 @@ def test_records_of_the_smoke_configs(arch):
             * cfg.n_periods
         assert rec["kernels"] == ({"slstm_scan": n_slstm} if n_slstm
                                   else {})
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "deepseek_v3_671b"])
+def test_deepseek_train_4k_is_counted(arch):
+    """deepseek's train step (MLA, the prefix blocks, the shared experts
+    and v3's MTP term under autograd) counts on meta as any other."""
+    cfg, jcfg = get_smoke_config(arch), j_smoke(arch)
+    assert dryrun.cell_status(get_config(arch), "train_4k") is None
+    rec = dryrun.dryrun_cell(arch, "train_4k", cfg=cfg, verbose=False,
+                             scale=64)
+    batch = max(jshapes.SHAPES["train_4k"].global_batch // 64, 1)
+    _check_record(rec, cfg, jcfg, "train_4k", batch)
+    assert rec["kernels"] == {}
 
 
 def _no_plain(monkeypatch):

@@ -41,7 +41,7 @@ Oracles, on the same numpy inputs from a seed:
   routing discontinuity), at 4 × 32 tokens (the gather form) and at 4 ×
   128 (the capacity form and the chunked scan);
 - the refusals: ``--devices 4`` raises ROADMAP A11c before any weight is
-  drawn (deepseek's A11h is held in tests/test_torch_deepseek.py).
+  drawn (deepseek's is held in tests/test_torch_deepseek.py).
 """
 import dataclasses
 import functools
