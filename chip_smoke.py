@@ -369,13 +369,21 @@ Phases (any failure exits non-zero):
              dense MLP, attention + MoE MLP; 3.68e9 parameters) through
              the trainer's ``_run`` with ``muon-syrk``, random bf16
              weights from seed 0, 2 x 256 tokens (the capacity form), a
-             warm-up and 2 timed steps: finite losses, the launches the
+             warm-up and 1 timed step: finite losses, the launches the
              closed form, every NS SYRK / SYMM with n1 >= 256 on the
              kernels, s a step and its split, tokens/s, peak memory
              under 79.18 GiB; the peak of one loss + backward under the
              "names" and the "full" remat policy, gradients bit-equal;
              the first loss against the same weights on the CPU
-             (``MUON_TOL`` + ``MUON_TOL``·|cpu|);
+             (``MUON_TOL`` + ``MUON_TOL``·|cpu|); and first of all the
+             same layers on (data 1, model 2), 2 gloo ranks sharing the
+             card (started with phase 21, waiting for the card), AdamW, a
+             warm-up and 1 timed step: every rank's losses identical,
+             step 0 within 1e-4 of the one-card run's, each rank's
+             loss + backward words the tensor-parallel closed form, no
+             symmetric-kernel launch, s a step and its split, tokens/s,
+             each rank's peak and the launch's seconds; the closed forms
+             of Muon's routes and ZeRO-3 at this width printed beside;
 23. deepseektrain — trains deepseek-v3-671b at its published widths:
              its first 2 of 3 dense prefix blocks (MLA with q_lora), no
              MoE layer and the MTP block (3.60e9 parameters, no periods)
@@ -5150,9 +5158,10 @@ def densetrain_phase(torch, mesh_run, wall, cases, early):
 #: period (8 layers, ~1.3e10) does not fit the card under Muon's ~22
 #: bytes a parameter
 JAMBATRAIN_LAYERS = slice(2, 4)
-#: a warm-up step and 2 timed, 2 x 256 tokens: 512 tokens a layer, above
+#: a warm-up step and 1 timed (a second timed step would cost what the
+#: mesh part takes), 2 x 256 tokens: 512 tokens a layer, above
 #: ``moe.GATHER_MAX_TOKENS``, so the MoE runs the capacity form
-JAMBATRAIN_STEPS, JAMBATRAIN_BATCH = 3, 2
+JAMBATRAIN_STEPS, JAMBATRAIN_BATCH = 2, 2
 #: the NS products of the (1, 16, 4096, 14336) expert stacks (wi, wg,
 #: and wo on its short side): the Gram and sym(Y)·X, and S·S at 4096
 JAMBA_KERNEL_SHAPES = (("jamba expert stack", 16, 4096, 14336),
@@ -5307,17 +5316,21 @@ def jamba_remat_peaks(torch, model, cfg, batch):
     return peaks
 
 
-def jambatrain_phase(torch, cases, early):
+def jambatrain_phase(torch, cases, early, jmesh):
     """Phase 22: jamba's layers 2-3 (``_jamba_train_cfg``) trained
     through the trainer's ``_run`` with ``muon-syrk``, random bf16
-    weights from seed 0, 2 x 256 tokens, a warm-up and 2 timed steps:
+    weights from seed 0, 2 x 256 tokens, a warm-up and 1 timed step:
     finite losses, the launches the closed form, every NS SYRK / SYMM
     with n1 >= 256 on the kernels, s a step and its split, peak memory
     under the card's; the peaks of a loss + backward under "names" and
     "full" with their gradients bit-equal; the first loss against the
     same weights on the CPU, on a thread beside ``rank_update`` /
     ``sym_stream`` at the expert stacks' NS shapes against their plain
-    versions and f64, timed (rows added to ``cases``).  The NS of a
+    versions and f64, timed (rows added to ``cases``).  The mesh part
+    (``jmesh``, a :class:`JambaMesh` started with phase 21) runs first,
+    while this process holds least of the card: the same layers on
+    (data 1, model 2), held to the one-card step 0 after it
+    (``jambamesh_check``).  The NS of a
     (16, 4096, 14336) expert stack against the f64 iteration and one
     MoE layer's gradients through ``CapacityExperts`` against autograd
     of the plain capacity form ran beside phase 8's launch
@@ -5330,6 +5343,16 @@ def jambatrain_phase(torch, cases, early):
     cfg = _jamba_train_cfg()
     seconds = {f"{k} (beside phase 8)": early[k]
                for k in ("ns_s", "moe_grads_s")}
+    # the mesh part first, while this process holds least of the card
+    # (its ranks started with phase 21 and waited): 2 ranks of ~32 GiB
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[jambatrain mesh] released with this process holding "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} reserved; the card "
+        f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+    ranks, wall = jmesh.release()
+    seconds["mesh_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     kept, init = {}, ttrain.init_model
 
@@ -5379,9 +5402,257 @@ def jambatrain_phase(torch, cases, early):
     t0 = time.perf_counter()
     cpu = cpu()
     seconds["cpu_wait_s"] = time.perf_counter() - t0
+    mesh, mlaunches = jambamesh_check(torch, ranks, wall,
+                                      out["losses"][0])
     log(f"{tag} phase seconds {json.dumps(seconds)}")
     return {"muon_ns": early["muon_ns"], "moe_grads": early["moe_grads"],
-            "run": row, "cpu_loss": cpu, **seconds}, launches
+            "run": row, "cpu_loss": cpu, "mesh": mesh, **seconds}, \
+        launches, mlaunches
+
+
+#: phase 22's mesh part: the same cut on (data 1, model 2), 2 gloo ranks
+#: sharing the card (each draws the whole model, 7.4 GB, then keeps its
+#: blocks), AdamW, phase 22's 2 x 256 tokens, a warm-up and 1 timed step
+JAMBAMESH_DEVICES, JAMBAMESH_MAX_MODEL, JAMBAMESH_STEPS = 2, 2, 2
+#: step 0's loss against the one-card run's, relative (phase 13's
+#: ``MESHTRAIN_RTOL``; the CPU tests' top-2 gap on (1, 2) was 1.9e-5,
+#: tests/test_torch_jamba_mesh.py)
+JAMBAMESH_RTOL = 1e-4
+
+
+def _jambamesh_args():
+    from repro_torch.launch.train import build_argparser
+    return build_argparser().parse_args(
+        _dense_argv("jamba-v0.1-52b", 2, "adamw", JAMBAMESH_STEPS) + [
+            "--device", DEVICE, "--devices", str(JAMBAMESH_DEVICES),
+            "--max-model", str(JAMBAMESH_MAX_MODEL)])
+
+
+def jamba_mesh_rank(mesh_x, flags, go):
+    """One rank of phase 22's mesh part: ``launch.train._run`` of
+    ``_jamba_train_cfg()`` on the planned (data 1, model 2) mesh, what
+    ``train_rank`` runs for a config the flags name.  The ranks start
+    early (their imports, the group and the remat preload) and wait for
+    the file ``go`` before they touch the card's memory: "go" runs,
+    anything else returns None."""
+    import argparse
+
+    import torch
+    from repro_torch.distributed import plan_mesh
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.model import preload_remat
+    args = argparse.Namespace(**flags)
+    mesh = plan_mesh(max_model=args.max_model, device=mesh_x.device)
+    preload_remat().join()
+    t0 = time.perf_counter()
+    while not os.path.exists(go):
+        time.sleep(0.05)
+    waited = time.perf_counter() - t0
+    with open(go) as f:
+        if f.read() != "go":
+            return None
+    t0 = time.perf_counter()
+    drawn, init = {}, ttrain.init_model
+
+    def keep(cfg, seed, device, **kw):
+        model = init(cfg, seed=seed, device=device, **kw)
+        drawn["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        drawn["s"] = time.perf_counter() - t0
+        return model
+
+    ttrain.init_model = keep
+    try:
+        out = ttrain._run(args, _jamba_train_cfg(), mesh.device, mesh=mesh,
+                          say=lambda line: None)
+    finally:
+        ttrain.init_model = init
+    keys = ("losses", "words", "bytes", "step_s", "split_s",
+            "kernel_launches", "peak_memory_bytes", "params", "mesh",
+            "tokens_per_s")
+    return {**{k: out[k] for k in keys}, "waited_s": waited,
+            "run_s": time.perf_counter() - t0, "draw": drawn}
+
+
+class JambaMesh:
+    """Phase 22's mesh launch, started ahead on a thread (``start``),
+    its ranks waiting; ``release`` lets them run and returns their
+    results and the seconds from the release to the launch's end;
+    ``stop`` (a failed phase) lets them return at once."""
+
+    def __init__(self, phase_s):
+        import tempfile
+        from repro_torch.distributed.launch import run_ranks
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_jambamesh_")
+        self.go = os.path.join(self.dir, "go")
+        self.args = _jambamesh_args()
+        self.join = in_background(
+            phase_s, "jamba mesh launch", lambda: run_ranks(
+                "chip_smoke:jamba_mesh_rank", JAMBAMESH_DEVICES,
+                backend="gloo", device=DEVICE, paths=[ROOT], timeout=1200,
+                kwargs={"flags": dict(vars(self.args)), "go": self.go}))
+
+    def _signal(self, word):
+        if not os.path.exists(self.go):
+            with open(self.go + ".tmp", "w") as f:
+                f.write(word)
+            os.replace(self.go + ".tmp", self.go)
+
+    def release(self):
+        self._signal("go")
+        t0 = time.perf_counter()
+        ranks = self.join()
+        return ranks, time.perf_counter() - t0
+
+    def stop(self):
+        import shutil
+        self._signal("stop")
+        try:
+            self.join()
+        finally:
+            shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def jamba_tp_closed_form(cfg, tokens, P, seq, chunk) -> int:
+    """A rank's loss + backward all-reduce words a step on (data 1,
+    model P), ``tokens`` a step (tests/test_torch_jamba_mesh.py holds
+    the same count on gloo CPU ranks): the vocab-parallel embed rows; in
+    each block the mixer's and the MLP's exit sums forward (Mamba also
+    its x_proj sum), their ``copy_to_group`` gradients backward (the
+    block's input, Mamba's projection and three per-channel vectors, the
+    MoE's router); each forward sum again in the per-period recompute
+    but for the period's last exit (the non-reentrant checkpoint stops
+    at the last tensor the backward needs); the vocab-parallel loss
+    chunk by chunk (its max, sum of exponentials and label logit forward
+    and in the chunk's recompute, its input's gradient backward)."""
+    def ar(n):
+        return 2 * n * (P - 1) // P
+    d, T = cfg.d_model, tokens
+    di = cfg.mamba_expand * d
+    R = max(d // 16, 1) + 2 * cfg.mamba_d_state
+    words = ar(T * d)
+    for _ in range(cfg.n_periods):
+        fwd, bwd = [], []
+        for spec in cfg.pattern:
+            if spec.mixer == "mamba":
+                fwd += [ar(T * R), ar(T * d)]
+                bwd += [ar(T * d), ar(T * R)] + [ar(di)] * 3
+            else:
+                fwd += [ar(T * d)]
+                bwd += [ar(T * d)]
+            fwd += [ar(T * d)]
+            bwd += [ar(T * d)]
+            if spec.mlp == "moe":
+                bwd += [ar(d * cfg.moe.n_experts)]
+        words += 2 * sum(fwd) - fwd[-1] + sum(bwd)
+    n = max(seq // chunk, 1)
+    per = T // seq * (seq // n)
+    return words + n * (2 * 3 * ar(per) + ar(per * d))
+
+
+def jamba_mesh_words(cfg) -> dict:
+    """Closed forms, from the shapes and specs alone, of what the mesh
+    would move at full width under Muon and ZeRO-3 (ROADMAP B10, B11):
+    each matrix leaf's Muon route on (data 1, model 2)
+    (``Muon.shard_route`` on its ``fsdp_params`` spec: every split leaf
+    names 'data', so all are gathered) and its words a rank a step,
+    beside the 1D schedule's words where the spec without 'data' would
+    take it; and ZeRO-3's loss + backward words a rank a step on
+    (data 2, model 2) (``fsdp_closed_form``)."""
+    from repro_torch.core.packing import tril_size
+    from repro_torch.distributed.mesh import planning_mesh
+    from repro_torch.models.sharding import param_specs
+    from repro_torch.optim.muon import Muon
+    shapes = _leaves(cfg)
+    mesh = planning_mesh({"data": 1, "model": 2})
+    specs = param_specs(cfg, shapes, mesh)
+    opt = Muon(mode="syrk-1d", mesh=mesh, specs=specs)
+    rows, P = {}, 2
+    for k, shape in shapes.items():
+        if len(shape) < 2 or min(shape[-2:]) < 8:
+            continue
+        spec = specs[k]
+        local = tuple(n // (P if a == "model" else 1)
+                      for n, a in zip(shape, spec))
+        route = opt.shard_route(local, spec)
+        whole = math.prod(shape)
+        words = whole // P * (P - 1) if route == "gathered" else 0
+        bare = tuple(None if a == "data" else a for a in spec)
+        alt = opt.shard_route(local, bare)
+        one_d = None
+        if alt in ("1d", "1d-rows"):
+            m = min(shape[-2:])
+            lead = math.prod(shape[:-2])
+            lp = lead * (-(-tril_size(m) // P) * P)
+            one_d = 5 * (lp * (P - 1) // P + lp // P * (P - 1)) \
+                + 2 * lead * (P - 1) // P
+        rows["/".join(k)] = {"route": route, "words": words,
+                             "without_data": alt, "words_1d": one_d}
+    return {"muon_1x2": rows,
+            "muon_1x2_total": sum(r["words"] for r in rows.values()),
+            "zero3_2x2": fsdp_closed_form(cfg, 2, 2)}
+
+
+def jambamesh_check(torch, ranks, wall, card_step0):
+    """Phase 22's mesh part against the one-card run: every rank's
+    losses identical, step 0 within ``JAMBAMESH_RTOL`` of the one-card
+    step 0 (same weights, same batch), each rank's loss + backward words
+    a step the tensor-parallel closed form (and no other kind: 'data' is
+    1), no symmetric-kernel launch (AdamW); prints s a step and its
+    split, tokens/s, each rank's peak and the launch's seconds."""
+    cfg = _jamba_train_cfg()
+    args = _jambamesh_args()
+    tag = "[jambatrain mesh]"
+    losses = ranks[0]["losses"]
+    assert ranks[0]["mesh"] == {"data": 1, "model": JAMBAMESH_MAX_MODEL}
+    assert len(losses) == JAMBAMESH_STEPS and \
+        all(map(math.isfinite, losses)), losses
+    for i, r in enumerate(ranks):
+        assert r["losses"] == losses, (f"rank {i} disagrees", r["losses"])
+    rel = abs(losses[0] - card_step0) / abs(card_step0)
+    want = {"all_reduce": jamba_tp_closed_form(
+        cfg, args.global_batch * args.seq_len, JAMBAMESH_MAX_MODEL,
+        args.seq_len, args.loss_chunk)}
+    log(f"{tag} {cfg.name} layers 2-3, {ranks[0]['params']} parameters, "
+        f"(data 1, model {JAMBAMESH_MAX_MODEL}), adamw, "
+        f"{JAMBAMESH_DEVICES} gloo ranks on one card: losses {losses}; "
+        f"step 0 vs one card {card_step0}: rel {rel:.3e} (<= "
+        f"{JAMBAMESH_RTOL:.0e}); tensor-parallel words a rank a step, "
+        f"closed form {want}")
+    assert rel <= JAMBAMESH_RTOL, (losses[0], card_step0)
+    launches = {}
+    for i, r in enumerate(ranks):
+        for s, step in enumerate(r["words"]):
+            assert step["loss_backward"] == want, (i, s, step, want)
+        assert not r["kernel_launches"]["rank_update"] and \
+            not r["kernel_launches"]["sym_stream"], r["kernel_launches"]
+        for k, v in r["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"{tag} rank {i}: waited {r['waited_s']:.1f} s for the card, "
+            f"drew and sharded in {r['draw']['s']:.2f} s (peak "
+            f"{r['draw']['peak_bytes'] / 2**30:.2f} GiB), ran in "
+            f"{r['run_s']:.2f} s; s per step {r['step_s']}; peak memory "
+            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB; words the last "
+            f"step by phase {r['words'][-1]}, bytes {r['bytes'][-1]}; "
+            f"launches {r['kernel_launches']}")
+    r0 = ranks[0]
+    for s, (t, sp) in enumerate(zip(r0["step_s"], r0["split_s"])):
+        log(f"{tag} step {s}{' (warm-up)' if s == 0 else ''}: {t:.4f} s = "
+            f"loss+backward {sp['loss_backward_s']:.4f} + reduce "
+            f"{sp['reduce_s']:.4f} + clip {sp['clip_s']:.4f} + optimizer "
+            f"{sp['opt_s']:.4f} (rank 0)")
+    log(f"{tag} tokens/s {r0['tokens_per_s']:.1f} (after the warm-up); "
+        f"the launch's seconds from the release: {wall:.1f}")
+    forecast = jamba_mesh_words(cfg)
+    log(f"{tag} closed forms at this width, not run (ROADMAP B10, B11): "
+        f"{json.dumps(forecast)}")
+    return {"losses": losses, "rel_step0": rel, "tp_words": want,
+            "step_s": [r["step_s"] for r in ranks], "split_s": r0["split_s"],
+            "tokens_per_s": r0["tokens_per_s"],
+            "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+            "draw_peak_bytes": [r["draw"]["peak_bytes"] for r in ranks],
+            "waited_s": [r["waited_s"] for r in ranks],
+            "run_s": [r["run_s"] for r in ranks], "release_s": wall,
+            "closed_forms": forecast}, launches
 
 
 def early_checks(torch):
@@ -5635,11 +5906,17 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     dout, dlaunches = timed("dense", dense_phase, torch)
     sout, slaunches = timed("deepseek", deepseek_phase, torch)
     hout, hlaunches = timed("shapes", shapes_phase, torch, counters, cases)
-    tdout, tdlaunches, tdmesh = timed("densetrain", densetrain_phase, torch,
-                                      grun, eout["launch_s"], cases,
-                                      early["densetrain"])
-    jtout, jtlaunches = timed("jambatrain", jambatrain_phase, torch, cases,
-                              early["jambatrain"])
+    # phase 22's mesh ranks start now and wait for the card
+    jmesh = JambaMesh(phase_s)
+    try:
+        tdout, tdlaunches, tdmesh = timed(
+            "densetrain", densetrain_phase, torch, grun, eout["launch_s"],
+            cases, early["densetrain"])
+        jtout, jtlaunches, jtmesh = timed(
+            "jambatrain", jambatrain_phase, torch, cases,
+            early["jambatrain"], jmesh)
+    finally:
+        jmesh.stop()
     dtout, dtlaunches = timed("deepseektrain", deepseektrain_phase, torch,
                               cases, early["deepseektrain"])
     log(f"[done] build {build_s:.2f} s, total "
@@ -5704,6 +5981,8 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
                    "adamw fsdp_params": tdmesh.get(name, 0),
                    "train jamba-v0.1-52b layers 2-3 muon-syrk":
                    jtlaunches[name],
+                   "train mesh jamba-v0.1-52b layers 2-3 adamw":
+                   jtmesh.get(name, 0),
                    "train deepseek-v3-671b prefix 0-1 + MTP muon-syrk":
                    dtlaunches[name]}
         kernels.append({

@@ -20,14 +20,22 @@ machine), as NCCL needs.  With no ``device`` the ranks run on the cards
 as with "cuda", whatever the backend, and the launch raises when there
 is none, as every entry point of the port does.
 
-A rank that fails makes the launch raise with the end of its log.  Once
+A rank that returned waits for every rank's work to end (a barrier)
+before it tears its group down.  A rank that fails makes the launch
+raise with the end of its log.  Once
 one rank has failed, the others get ``FAIL_GRACE_S`` seconds to end on
 their own before they are killed, and the rank reported is the first to
 end with a Python error (a positive exit code): not a peer that aborted
-when it lost that rank, nor one the launch killed.  A rank that wrote
-its result has done its work: a crash in its own teardown after that
-(an abort at exit) fails nothing.  A launch that outlives ``timeout``
-seconds is killed and raises.  Nothing is retried or switched.
+when it lost that rank, nor one the launch killed.  A rank whose
+``work`` raised says so in a file before its teardown: the first to say
+so is the rank reported (a peer whose collective broke when that rank
+left raises after it, and may end first), and it is not killed at the
+grace's end but ends on its own (or at ``timeout``), so that a slow
+teardown on a loaded host cannot hide the rank that failed.
+A rank that wrote its result has done its work: a crash in its own
+teardown after that (an abort at exit) fails nothing.  A launch that
+outlives ``timeout`` seconds is killed and raises.  Nothing is retried
+or switched.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from typing import Any, Dict, List, Optional, Sequence
 
 
@@ -67,12 +76,18 @@ def rank_device(device: str, rank: int, n_cards: int) -> str:
 FAIL_GRACE_S = 5.0
 
 
-def _first_failure(exits: Sequence[int], codes: Sequence[int]) -> int:
+def _first_failure(exits: Sequence[int], codes: Sequence[int],
+                   raised: Sequence[int] = ()) -> int:
     """The rank to report of a failed launch, given each rank's exit
-    code (0 for a rank that returned its result): the first in
+    code (0 for a rank that returned its result): the first of
+    ``raised`` (the ranks whose work raised, in the order they said so:
+    a peer that lost that rank raises after it); else the first in
     ``exits`` (ranks in the order they ended on their own) with a
     positive code, a Python error; else the first to end with a signal
     (an abort after a peer left); else a rank that was killed."""
+    for r in raised:
+        if codes[r]:
+            return r
     for r in exits:
         if codes[r] > 0:
             return r
@@ -117,6 +132,7 @@ def run_ranks(target: str, world: int, *, backend: str = "gloo",
                 env=child_env))
         deadline = time.monotonic() + timeout
         result = [os.path.join(tmp, f"rank{r}.pkl") for r in range(world)]
+        raised = [os.path.join(tmp, f"rank{r}.err") for r in range(world)]
         exits: List[int] = []             # ranks in the order they ended
 
         def failed(r: int) -> bool:
@@ -125,10 +141,11 @@ def run_ranks(target: str, world: int, *, backend: str = "gloo",
             return bool(procs[r].returncode) and \
                 not os.path.exists(result[r])
         try:
-            grace = None
-            while len(exits) < world:
+            grace, killed = None, set()
+            while len(exits) + len(killed) < world:
                 for r, p in enumerate(procs):
-                    if r not in exits and p.poll() is not None:
+                    if r not in exits and r not in killed \
+                            and p.poll() is not None:
                         exits.append(r)
                 now = time.monotonic()
                 if grace is None and any(map(failed, exits)):
@@ -136,9 +153,15 @@ def run_ranks(target: str, world: int, *, backend: str = "gloo",
                     # their own, so that the order they ended in shows
                     # which failed first
                     grace = now + FAIL_GRACE_S
-                if len(exits) == world or (grace is not None
-                                           and now > grace):
-                    break
+                if grace is not None and now > grace:
+                    # past the grace, only ranks whose work raised are
+                    # left to end on their own
+                    for r, p in enumerate(procs):
+                        if r not in exits and r not in killed \
+                                and not os.path.exists(raised[r]):
+                            p.kill()
+                            p.wait()
+                            killed.add(r)
                 if now > deadline:
                     raise TimeoutError(f"{target} on {world} ranks did not "
                                        f"finish in {timeout:.0f} s")
@@ -153,7 +176,9 @@ def run_ranks(target: str, world: int, *, backend: str = "gloo",
         codes = [p.returncode if failed(r) else 0
                  for r, p in enumerate(procs)]
         if any(codes):
-            r = _first_failure(exits, codes)
+            order = sorted((os.stat(raised[r]).st_mtime_ns, r)
+                           for r in range(world) if os.path.exists(raised[r]))
+            r = _first_failure(exits, codes, [r for _, r in order])
             with open(os.path.join(tmp, f"rank{r}.log"), "rb") as f:
                 tail = f.read()[-6000:].decode(errors="replace")
             raise RuntimeError(f"{target} failed on rank {r} of {world} "
@@ -192,12 +217,26 @@ def _rank_main(spec_path: str, rank: int) -> None:
     try:
         mesh = make_mesh(device=device)
         mod, fn = spec["target"].split(":")
-        result = getattr(importlib.import_module(mod), fn)(mesh,
-                                                           **spec["kwargs"])
+        try:
+            result = getattr(importlib.import_module(mod), fn)(
+                mesh, **spec["kwargs"])
+        except BaseException:
+            # the launcher waits for a rank whose work raised (its
+            # teardown may be slow) instead of killing it at the grace
+            with open(os.path.join(os.path.dirname(spec_path),
+                                   f"rank{rank}.err"), "w") as f:
+                f.write(traceback.format_exc())
+            raise
         out = os.path.join(os.path.dirname(spec_path), f"rank{rank}.pkl")
         with open(out + ".tmp", "wb") as f:
             pickle.dump(result, f)
         os.replace(out + ".tmp", out)
+        # no rank leaves before every rank's work has ended: a group that
+        # work made returns on one rank while its peer may still be
+        # connecting to it, and a rank that left at once would close
+        # that connection under the peer (gloo's connectFullMesh:
+        # "Connection closed by peer")
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

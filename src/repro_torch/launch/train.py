@@ -124,19 +124,25 @@ Waiting, each raising a clear error that names its ROADMAP item:
 ``--ckpt-dir`` on a mesh with state that is each rank's own (the 8-bit
 AdamW moments; the EF residuals of ``--compress-grads`` over a data
 axis: A8b); ``--compress-grads`` over a data axis with weights split
-over it (``fsdp_params``: A11g); Mamba or MoE blocks, MLA, prefix blocks
-or the MTP block on a mesh (jamba or deepseek with ``--devices`` > 1:
-A11c).
+over it (``fsdp_params``: A11g); MLA, prefix blocks or the MTP block on
+a mesh (deepseek with ``--devices`` > 1: A11c).
 
 jamba trains on one device with the same flags: its Mamba mixers under
 autograd, its routed MoE through the dropless forms (T ≤ 256 tokens a
 layer) or the capacity form's hand-written backward
 (``models.moe.CapacityExperts``), its periods under the "names" remat
 policy, and Muon on each (n_periods, E, d, f) expert stack as one batched
-call a product:
+call a product.  On a mesh its Mamba mixers are tensor-parallel over
+their d_inner channels and its MoE over every expert's f (one all-reduce
+a layer); the published config's ``fsdp_params`` also splits their
+weights over 'data'.  jamba's 8 KV heads (2 in the smoke config) bound
+``--max-model``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch jamba-v0.1-52b --smoke --steps 3 --optimizer muon-syrk
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch jamba-v0.1-52b --smoke --devices 4 --max-model 2 \
+        --steps 3 --optimizer muon-syrk
 
 deepseek-v2 and deepseek-v3 train on one device with the same flags:
 MLA and the MTP block under autograd, the unscanned prefix blocks
@@ -220,7 +226,7 @@ def _refuse_waiting(args, cfg) -> None:
         raise ValueError(f"--devices {args.devices}")
     if args.devices == 1:
         return
-    refuse_on_mesh(cfg)          # Mamba / MoE blocks, MLA, prefix, MTP: A11c
+    refuse_on_mesh(cfg)          # MLA, prefix blocks, MTP: A11c
     data, model = plan_shape(args.devices, max_model=args.max_model)
     local = None
     if args.ckpt_dir is not None and args.optimizer == "adamw8bit":
@@ -277,7 +283,7 @@ def _train_on_mesh(args) -> Dict[str, Any]:
     out["ranks"] = [{k: r[k] for k in ("losses", "peak_memory_bytes",
                                        "words", "bytes", "step_s",
                                        "split_s", "kernel_launches",
-                                       "ckpt_words_a_rank")}
+                                       "ckpt_words_a_rank", "leaf_routes")}
                     for r in ranks]
     return out
 
@@ -503,6 +509,13 @@ def _run(args, cfg, dev, mesh=None, say: Callable[[str], None] = print,
             with ckpt_phase():
                 _world_sum(mesh, 0)     # rank 0's last save committed
     timed = step_s[1:] or step_s
+    # on a mesh: each Muon matrix leaf's route and this rank's words for
+    # it in the last step (``Muon.shard_route``)
+    leaf_routes = {"/".join(k): [route, w] for k, (route, w)
+                   in sorted(getattr(opt, "routes", {}).items())}
+    if leaf_routes:
+        say("[train] Muon routes (the last step, this rank's words): "
+            + json.dumps(leaf_routes))
     out = {"arch": cfg.name, "params": n_params, "steps": run_steps,
            "final_loss": losses[-1] if losses else None,
            "first_loss": losses[0] if losses else None,
@@ -536,6 +549,7 @@ def _run(args, cfg, dev, mesh=None, say: Callable[[str], None] = print,
         # every blas call planned on this thread during the steps:
         # [op, n1, n2, path, batched, calls]
         "routes": [list(k) + [n] for k, n in sorted(routes.items())],
+        "leaf_routes": leaf_routes,
         # restore_s / verify_s when resumed, snapshot_s of each async
         # save (the host copy; the write runs on), save_s of the last
         "ckpt_s": dict(ckpt_s, snapshot_s=snapshot_s),

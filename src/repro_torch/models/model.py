@@ -42,23 +42,24 @@ sLSTM, batch on dim 0 in both.
 
 On a (data, model) mesh (``init_model(..., mesh=)``, ``Model.shard_``)
 each rank holds its block of every parameter under
-:func:`~.sharding.param_specs`: attention, the mLSTM / sLSTM mixers and
-the MLP (gated or not) Megatron-split over 'model'
+:func:`~.sharding.param_specs`: attention, the Mamba / mLSTM / sLSTM
+mixers and the MLP (gated or not) Megatron-split over 'model'
 (``collectives.copy_to_group`` / ``row_parallel`` around them), the
-embedding on its vocab rows (a masked gather and an all-reduce) and the
-head (``unembed``, or the tied ``embed.T``) on its vocab columns, so
-that :func:`lm_loss` is vocab-parallel.  A config with ``fsdp_params``
-(gemma2, gemma3, granite, pixtral) also splits those weights over
-'data', ZeRO-3's way: each rank keeps its block under both axes and
-gathers a weight over 'data' where it uses it (again in the per-period
-recompute), its gradient reduce-scattered back
+routed MoE tensor-parallel over every expert's f (one all-reduce a
+layer), the embedding on its vocab rows (a masked gather and an
+all-reduce) and the head (``unembed``, or the tied ``embed.T``) on its
+vocab columns, so that :func:`lm_loss` is vocab-parallel.  A config
+with ``fsdp_params`` (gemma2, gemma3, granite, pixtral, jamba) also
+splits those weights over 'data', ZeRO-3's way: each rank keeps its
+block under both axes and gathers a weight over 'data' where it uses it
+(again in the per-period recompute), its gradient reduce-scattered back
 (``collectives.gather_from_group``).  That path trains; serving a
-sharded model raises.  Mamba and MoE blocks, MLA, prefix blocks and the
-MTP block run on one device: on a mesh they wait (ROADMAP A11c).  On one
-device they all train.  A config with as many layers as prefix blocks
-has no periods (deepseek-v3 cut to its dense prefix on one card): no
-``("periods", ...)`` leaves (the reference's are ``(0, ...)`` and hold
-nothing) and no per-period recompute.
+sharded model raises.  MLA, prefix blocks and the MTP block run on one
+device: on a mesh they wait (ROADMAP A11c).  On one device they all
+train.  A config with as many layers as prefix blocks has no periods
+(deepseek-v3 cut to its dense prefix on one card): no ``("periods",
+...)`` leaves (the reference's are ``(0, ...)`` and hold nothing) and no
+per-period recompute.
 """
 from __future__ import annotations
 
@@ -96,6 +97,8 @@ MLPS = {"dense": MLP, "moe": MoE}
 #: each mixer's weights that tensor parallelism splits together: the
 #: column-parallel projections and the row-parallel ``wo``
 TP_WEIGHTS = {"attn": ("wq", "wk", "wv", "wo"),
+              "mamba": ("in_proj", "conv_w", "x_proj", "dt_proj", "a_log",
+                        "out_proj"),
               "mlstm": ("wq", "wk", "wv", "wif", "wo_gate", "wo"),
               "slstm": ("wx", "wo")}
 #: the heads each headed mixer's split weights hold, by config field
@@ -106,12 +109,8 @@ HEADS = {"attn": {"wq": "n_heads", "wk": "n_kv_heads", "wv": "n_kv_heads",
 
 def single_device_parts(cfg: ArchConfig) -> List[str]:
     """The parts of ``cfg`` that run on one device only (their tensor
-    parallelism waits): Mamba mixers, MoE MLPs, MLA, prefix blocks and
-    the MTP block."""
-    specs = cfg.prefix + cfg.pattern
-    kinds = sorted({"mamba" for b in specs if b.mixer == "mamba"}
-                   | {"moe" for b in specs if b.mlp == "moe"})
-    return [f"{k} blocks" for k in kinds] + [what for on, what in (
+    parallelism waits): MLA, prefix blocks and the MTP block."""
+    return [what for on, what in (
         (cfg.attn_kind == "mla", "MLA attention"),
         (bool(cfg.prefix), "prefix blocks"),
         (cfg.mtp, "the MTP block")) if on]
@@ -380,18 +379,20 @@ class Model(nn.Module):
         """Keep this rank's block of every parameter under
         :func:`~.sharding.param_specs` on ``mesh`` (the whole model was
         built first, so the blocks are the single-device weights): the
-        attention, mLSTM, sLSTM and MLP weights Megatron-split over
-        'model' (whole heads, whole sLSTM channel quads), embed on its
-        vocab rows, unembed (or, tied, embed) on its vocab columns, the
-        norms whole.  Under ``fsdp_params`` the attention, MLP, embed and
+        attention, Mamba, mLSTM, sLSTM, MLP and MoE weights split over
+        'model' (whole heads, whole sLSTM channel quads, Mamba's
+        d_inner channels, every expert's f), embed on its vocab rows,
+        unembed (or, tied, embed) on its vocab columns, the norms, the
+        router and Mamba's per-channel vectors whole.  Under
+        ``fsdp_params`` the attention, Mamba, MLP, expert, embed and
         unembed weights are also split over 'data' (ZeRO-3): each is
         gathered where it is used, and again in the per-period recompute
         (``collectives.fsdp_weight``), its gradient reduce-scattered.  A
         column shard that would cut a head (:func:`check_head_split`), a
         layer's weights split only in part, a weight split over 'data'
         that its module does not gather, or an axis other than 'data'
-        and 'model' raise, naming the leaf; so do Mamba and MoE blocks
-        (:func:`refuse_on_mesh`)."""
+        and 'model' raise, naming the leaf; so do MLA, prefix blocks and
+        the MTP block (:func:`refuse_on_mesh`)."""
         cfg = self.cfg
         specs = param_specs(cfg, self.stacked_shapes(), mesh)
         P = mesh.shape.get("model", 1)
@@ -420,6 +421,16 @@ class Model(nn.Module):
                              if base + ("mlp", w) in specs))
                 for li in range(first + i, cfg.n_layers, cfg.period):
                     self.blocks[li].mlp.tp = comm if tp else None
+            elif spec_i.mlp == "moe":
+                # the experts' and the shared experts' f together: one
+                # all-reduce sums both
+                tp = split(*(k for k in specs if k[:3] == base + ("mlp",)
+                             and k[-1] in ("wi", "wg", "wo")))
+                for li in range(first + i, cfg.n_layers, cfg.period):
+                    mlp = self.blocks[li].mlp
+                    mlp.tp = comm if tp else None
+                    if cfg.moe.n_shared:
+                        mlp.shared.tp = mlp.tp
         if ("embed",) in specs:
             self.embed_tp = comm if "model" in specs[("embed",)] else None
         head = ("embed",) if cfg.tie_embeddings else ("unembed",)

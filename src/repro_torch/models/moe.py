@@ -7,11 +7,10 @@ hold this rank's columns of d_ff and wo its rows, and the partial sums
 are all-reduced in f32; under ``fsdp_params`` each is also split over
 'data' and gathered where it is used.
 
-MoE (:class:`MoE`, one device; on a mesh it waits, ROADMAP A11c): f32
-router logits, softmax, top-k, the k gates renormalised (their sum
-clipped at 1e-9), then the experts in one of the reference's three
-``impl=`` forms, ``"auto"`` taking ``gather`` for T ≤ 256 tokens and
-``capacity`` above:
+MoE (:class:`MoE`): f32 router logits, softmax, top-k, the k gates
+renormalised (their sum clipped at 1e-9), then the experts in one of the
+reference's three ``impl=`` forms, ``"auto"`` taking ``gather`` for
+T ≤ 256 tokens and ``capacity`` above:
 
   * ``gather``  — dropless.  The reference gathers each token's k
     expert slices as (T, k, d, f) tensors; at jamba's width and a
@@ -49,6 +48,18 @@ host-read sizes are the first pass's: the same deterministic ops
 the same groups, so the recomputed tensors keep their shapes.  No
 load-balancing loss is added: the reference's loss does not call its
 ``moe_aux_loss``.
+
+On a mesh (``tp`` set by ``Model.shard_``) the MoE is tensor-parallel
+over f, the reference's ``moe_apply`` under ``shard_map``: every rank
+routes its (replicated) tokens alike and runs its f-slice of every
+expert, ``wi`` / ``wg`` (E, d, f/P) and ``wo`` (E, f/P, d), in either
+form (the capacity form's custom VJP as it is, on the slices), the
+shared experts split the same way; the f32 partial output gets one
+(T, d) all-reduce over 'model'.  x and the router enter through
+``copy_to_group``, so that their partial gradients are summed.  The
+host-read group sizes are then the same on every rank (the same ops on
+the same replicated input).  Under ``fsdp_params`` the stacks are also
+split over 'data' on d and gathered where they are used.
 """
 from __future__ import annotations
 
@@ -58,7 +69,7 @@ import torch
 from torch import nn
 
 from ..distributed.collectives import (copy_to_group, fsdp_weight,
-                                       row_parallel)
+                                       reduce_from_group, row_parallel)
 from .common import ArchConfig, MoECfg, dense_init
 
 
@@ -92,14 +103,25 @@ class MLP(nn.Module):
         if cfg.act == "gelu_mlp":
             self.wg = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.tp is not None:
-            x = copy_to_group(x, self.tp)
+    def _hidden(self, x: torch.Tensor) -> torch.Tensor:
         h = self.act(x @ fsdp_weight(self, "wi"))
         if self.wg is not None:
             h = h * (x @ fsdp_weight(self, "wg"))
+        return h
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = copy_to_group(x, self.tp)
         # tensor-parallel: partial sums over this rank's f
-        return row_parallel(h, fsdp_weight(self, "wo"), self.tp)
+        return row_parallel(self._hidden(x), fsdp_weight(self, "wo"),
+                            self.tp)
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The f32 product of this rank's f columns and ``wo`` rows (the
+        whole MLP off a mesh), not summed over the ranks: for a caller
+        that sums it with its own partials in one all-reduce (the MoE's
+        shared experts)."""
+        return self._hidden(x).float() @ fsdp_weight(self, "wo").float()
 
 
 # ---------------------------------------------------------------------------
@@ -255,14 +277,23 @@ def _meta_group_sizes(xs: torch.Tensor, t_k: int, e: int, cap: int,
 
 def moe_local(cfg: ArchConfig, p, xf: torch.Tensor,
               impl: str = "auto") -> torch.Tensor:
-    """xf (T, d) -> (T, d): route, run the experts, combine."""
+    """xf (T, d) -> (T, d): route, run the experts, combine.  With
+    ``p.tp`` the experts (and shared experts) are this rank's f columns
+    of each, and the f32 partial output is summed over the ranks once."""
     mo: MoECfg = cfg.moe
     t, d = xf.shape
     k, e = mo.top_k, mo.n_experts
     if impl not in ("auto", "gather", "ragged", "capacity"):
         raise ValueError(f"impl must be auto/gather/ragged/capacity: "
                          f"{impl!r}")
-    topg, tope = _route(p.router, xf, k)
+    tp = getattr(p, "tp", None)
+    router = p.router
+    if tp is not None:
+        # every rank routes the same x alike; the gradients of x and the
+        # router (through dgates = dout·y, y this rank's f slice) are
+        # partial sums, all-reduced on the way back
+        xf, router = copy_to_group(xf, tp), copy_to_group(router, tp)
+    topg, tope = _route(router, xf, k)
     act = act_fn(cfg.act)
     _, inv, token_idx, group_sizes = _sort_by_expert(tope, e)
     xs = xf[token_idx]                                      # (T·k, d)
@@ -274,18 +305,29 @@ def moe_local(cfg: ArchConfig, p, xf: torch.Tensor,
     else:
         sizes = group_sizes.tolist()                        # a host sync
     offsets = [sum(sizes[:i]) for i in range(e)]
+    wi, wg, wo = (fsdp_weight(p, n) for n in ("wi", "wg", "wo"))
     if dropless:
-        y = _grouped(xs, sizes, act, p.wi, p.wg, p.wo)[inv].reshape(t, k, d)
+        y = _grouped(xs, sizes, act, wi, wg, wo)[inv].reshape(t, k, d)
     else:                                                   # capacity
         idx = _window_index(torch.tensor(offsets, device=xf.device), t * k,
                             e, cap)
-        windows = CapacityExperts.apply(xs, p.wi, p.wg, p.wo, offsets,
-                                        sizes, cap, cfg.act)
+        windows = CapacityExperts.apply(xs, wi, wg, wo, offsets, sizes,
+                                        cap, cfg.act)
         y = _capacity_gather(windows, idx, inv).reshape(t, k, d)
-    out = torch.einsum("tkd,tk->td", y, topg.to(y.dtype)).to(xf.dtype)
+    if tp is None:
+        out = torch.einsum("tkd,tk->td", y, topg.to(y.dtype)).to(xf.dtype)
+        if mo.n_shared:
+            out = out + p.shared(xf)
+        return out
+    # each rank's y is a partial sum over its f slice: combined with the
+    # gates and the shared experts' partial in f32 and summed over the
+    # ranks once, in f32, as the attention and MLP exits are
+    # (``row_parallel``): a bf16 sum would round every rank's partial
+    # before the sum (the reference psums in the activation dtype)
+    out = torch.einsum("tkd,tk->td", y.float(), topg)
     if mo.n_shared:
-        out = out + p.shared(xf)
-    return out
+        out = out + p.shared.partial(xf)
+    return reduce_from_group(out, tp).to(xf.dtype)
 
 
 class MoE(nn.Module):
@@ -299,6 +341,12 @@ class MoE(nn.Module):
         mo: MoECfg = cfg.moe
         d, f, e = cfg.d_model, mo.d_ff_expert, mo.n_experts
         self.cfg = cfg
+        #: the 'model' axis group when wi / wg hold this rank's f
+        #: columns of every expert and wo its rows (``Model.shard_``)
+        self.tp = None
+        #: the stacks split over 'data' (``fsdp_params``): {name: (comm,
+        #: dim)}, each gathered where it is used (``Model.shard_``)
+        self.fsdp = {}
         self.router = nn.Parameter(
             dense_init((d, e), gen, device).float())
         for name, shape in (("wi", (e, d, f)), ("wg", (e, d, f)),

@@ -14,7 +14,14 @@ Scheme (the reference's):
 A spec is a tuple with one entry per dimension: an axis name, a tuple
 of axis names, or None (replicated) — the port's ``PartitionSpec``.  A
 one-axis tuple is written as the name, as ``PartitionSpec`` normalises
-it.  Every rule falls back to replication on a dimension that does not
+it.  One entry carries a rule of the port's own: Mamba's ``in_proj``
+(d, 2·d_inner) holds its columns as ``[u | z]``, and its split over
+'model' is :class:`Parts` (``"model"`` to every comparison, as in the
+reference's spec): each rank's block is its block of u and its block of
+z side by side, so that a tensor-parallel rank holds the u and z of the
+same channels (``models.ssm``).  The whole tensor keeps the reference's
+layout; :func:`shard_leaf` and :func:`gather_leaf` apply the rule.
+Every rule falls back to replication on a dimension that does not
 divide.  Trees are dicts keyed by the port's paths
 (:meth:`~repro_torch.models.model.Model.param_tree`'s keys), each value
 a shape (or anything with ``.shape``); a ``"periods"`` leaf carries
@@ -60,8 +67,10 @@ def _div(n: int, mesh, axis: Axis) -> bool:
 
 
 def _spec(shape, mesh, *axes) -> Spec:
-    """Per-dimension divisibility fallback to replication."""
-    return tuple(ax if ax is not None and _div(dim, mesh, ax) else None
+    """Per-dimension divisibility fallback to replication (a
+    :class:`Parts` split needs each part to divide)."""
+    return tuple(ax if ax is not None and dim % _parts(ax) == 0
+                 and _div(dim // _parts(ax), mesh, ax) else None
                  for dim, ax in zip(shape, axes))
 
 
@@ -72,6 +81,30 @@ def _shape(leaf) -> Tuple[int, ...]:
 # ---------------------------------------------------------------------------
 # parameter specs
 # ---------------------------------------------------------------------------
+class Parts(str):
+    """A mesh axis name that splits its dim as ``parts`` equal parts side
+    by side, each cut in the axis's blocks: a rank's block is its block of
+    every part, in part order.  It is the axis name to every comparison
+    and hash (a spec holding it equals the reference's)."""
+    parts: int
+
+    def __new__(cls, axis: str, parts: int):
+        self = super().__new__(cls, axis)
+        self.parts = parts
+        return self
+
+    def __reduce__(self):
+        return Parts, (str(self), self.parts)
+
+
+def _parts(axis: Axis) -> int:
+    return getattr(axis, "parts", 1)
+
+
+#: the leaves whose 'model' split is :class:`Parts`: Mamba's in_proj,
+#: ``[u | z]``
+PARTS = {"in_proj": 2}
+
 COLUMN = ("wq", "wk", "wv", "wi", "wg", "in_proj", "wx", "wif", "wo_gate",
           "w_dkv", "w_kr", "w_dq", "w_uq", "w_uk", "w_uv", "dt_proj",
           "conv_w")
@@ -94,6 +127,8 @@ def leaf_spec(cfg, name: str, shape, mesh) -> Spec:
         return _spec(shape, mesh, None, fs, "model")
     if name == "wo" and nd == 3:              # (E, f, d)
         return _spec(shape, mesh, None, "model", fs)
+    if nd == 2 and name in PARTS:
+        return _spec(shape, mesh, fs, Parts("model", PARTS[name]))
     if nd == 2 and name in COLUMN:
         return _spec(shape, mesh, fs, "model")
     if nd == 2 and name in ROW:
@@ -175,18 +210,22 @@ def _block_index(mesh, axis: Axis) -> int:
 
 def shard_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's block of the whole tensor ``x`` under ``spec`` (a
-    view; every rank passes the same ``x``)."""
+    view, or under a :class:`Parts` split a copy; every rank passes the
+    same ``x``)."""
     if len(spec) != x.ndim:
         raise ValueError(f"spec {spec} for a tensor of {x.ndim} dims")
     for dim, axis in enumerate(spec):
         if axis is None:
             continue
-        k = axis_size(mesh, axis)
-        if x.shape[dim] % k:
+        k, parts = axis_size(mesh, axis), _parts(axis)
+        if x.shape[dim] % (k * parts):
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
-                             f"over {axis!r} ({k})")
-        w = x.shape[dim] // k
-        x = x.narrow(dim, _block_index(mesh, axis) * w, w)
+                             f"over {axis!r} ({k}) in {parts} parts")
+        w = x.shape[dim] // (k * parts)
+        i = _block_index(mesh, axis)
+        # part j's block is columns [(j·k + i)·w, (j·k + i + 1)·w)
+        x = x.unflatten(dim, (parts, k, w)).select(dim + 1, i) \
+            .flatten(dim, dim + 1) if parts > 1 else x.narrow(dim, i * w, w)
     return x
 
 
@@ -211,6 +250,10 @@ def gather_leaf(x_loc: torch.Tensor, spec: Spec, mesh,
             else:
                 parts = collectives.all_gather(part, mesh.comm(a),
                                                kind=kind)
+            n = _parts(axis)
+            if n > 1:        # rank-major blocks of each part, part-major
+                parts = parts.unflatten(0, (mesh.shape[a], n, -1)) \
+                    .transpose(0, 1).flatten(0, 2)
             x = parts.movedim(0, dim)
     return x
 

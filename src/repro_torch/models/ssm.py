@@ -23,8 +23,22 @@ bf16 adds, softplus, either scan).  jnp promotes bf16 against f32 silently
 and ``torch.matmul`` refuses mixed dtypes, so the mixer promotes where
 the reference does: the depthwise conv is a bf16 sum in index order,
 its bias, the SiLU, the projections and the scan run in f32, and ``y``
-returns to bf16 before the gate.  The Mamba mixer on a mesh waits
-(ROADMAP A11c).
+returns to bf16 before the gate.
+
+Tensor-parallel Mamba (``tp`` set by ``Model.shard_``, the reference's
+specs): a rank runs d_inner / |model| channels.  It holds the columns of
+``in_proj`` (its u and z channels together), ``conv_w`` and
+``dt_proj`` and the rows of ``x_proj``, ``a_log`` and ``out_proj``; the
+conv and the scan work channel by channel.  ``uc @ x_proj`` is then a
+partial sum: it is all-reduced in f32, a (B, S, dt_rank + 2·d_state)
+sum, before dt, B and C are read, and its gradient is all-reduced on the
+way back (``copy_to_group``), since every channel reads B and C.  The
+replicated ``conv_b``, ``dt_bias`` and ``d_skip`` are read through
+``copy_to_group`` and sliced, so each arrives with its whole gradient on
+every rank.  ``out_proj`` is row-parallel (``row_parallel``, f32).
+Under ``fsdp_params`` each split weight is also split over 'data' and
+gathered where it is used (``collectives.fsdp_weight``).  The state
+caches are not split: a sharded model does not serve.
 
 sLSTM: every call, prefill and decode alike, goes through
 ``kernels.slstm.slstm_scan`` — the hand-written kernel on a CUDA tensor,
@@ -64,7 +78,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..distributed.collectives import copy_to_group, row_parallel
+from ..distributed.collectives import (copy_to_group, fsdp_weight,
+                                       reduce_from_group, row_parallel)
 from ..kernels.slstm import SlstmScan, _slstm_scan_plain, slstm_scan
 from .common import ArchConfig, BlockSpec, dense_init, scan_out
 
@@ -179,34 +194,61 @@ def mamba_mixer(cfg: ArchConfig, p, x: torch.Tensor,
                 state: Optional[State] = None
                 ) -> Tuple[torch.Tensor, Optional[State]]:
     """Selective SSM (S6) over x (B, S, d) bf16; ``state`` carries the
-    conv buffer and the ssm state across calls (decode)."""
+    conv buffer and the ssm state across calls (decode).  ``p`` holds
+    all d_inner channels, or a tensor-parallel rank's (``p.tp``): the
+    columns of ``in_proj`` (its u and z of those channels, the
+    ``sharding.Parts`` rule), ``conv_w`` and ``dt_proj``, the rows of
+    ``x_proj``, ``a_log`` and ``out_proj``; it reads its slice of the
+    replicated ``conv_b``, ``dt_bias`` and ``d_skip``."""
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        x = copy_to_group(x, tp)
     b, s, d = x.shape
-    di = cfg.mamba_expand * d
     ds, dc = cfg.mamba_d_state, cfg.mamba_d_conv
     dt_rank = max(d // 16, 1)
-    xz = x @ p.in_proj
+    xz = x @ fsdp_weight(p, "in_proj")
+    di = xz.shape[-1] // 2                  # this rank's channels
     u, z = xz[..., :di], xz[..., di:]
+    conv_b, dt_bias, d_skip = (_channels(getattr(p, n), di, tp)
+                               for n in ("conv_b", "dt_bias", "d_skip"))
     # causal depthwise conv, carrying the (dc-1)-token buffer
     head = state["conv"].to(u.dtype) if state is not None \
         else u.new_zeros((b, dc - 1, di))
     upad = torch.cat([head, u], dim=1)
     new_conv = upad[:, -(dc - 1):]
-    uc = upad[:, :s] * p.conv_w[0]                 # bf16, in index order
+    conv_w = fsdp_weight(p, "conv_w")
+    uc = upad[:, :s] * conv_w[0]                   # bf16, in index order
     for i in range(1, dc):
-        uc = uc + upad[:, i:i + s] * p.conv_w[i]
-    uc = torch.nn.functional.silu(uc.float() + p.conv_b)         # f32
-    proj = uc @ p.x_proj.float()
+        uc = uc + upad[:, i:i + s] * conv_w[i]
+    uc = torch.nn.functional.silu(uc.float() + conv_b)           # f32
+    proj = uc @ fsdp_weight(p, "x_proj").float()
+    if tp is not None:
+        # a partial sum over this rank's channels: summed in f32, and
+        # dt, B and C of every channel read it, so its gradient is
+        # summed over the ranks on the way back
+        proj = copy_to_group(reduce_from_group(proj, tp), tp)
     dt = torch.nn.functional.softplus(
-        proj[..., :dt_rank] @ p.dt_proj.float() + p.dt_bias)
+        proj[..., :dt_rank] @ fsdp_weight(p, "dt_proj").float() + dt_bias)
     Bm = proj[..., dt_rank:dt_rank + ds]
     Cm = proj[..., dt_rank + ds:]
-    A = -torch.exp(p.a_log)
+    A = -torch.exp(fsdp_weight(p, "a_log"))
     h0 = state["ssm"] if state is not None \
         else torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
-    y, h_last = _selective_scan(uc, dt, A, Bm, Cm, p.d_skip, h0)
-    out = (y.to(x.dtype) * torch.nn.functional.silu(z)) @ p.out_proj
+    y, h_last = _selective_scan(uc, dt, A, Bm, Cm, d_skip, h0)
+    out = row_parallel(y.to(x.dtype) * torch.nn.functional.silu(z),
+                       fsdp_weight(p, "out_proj"), tp)
     return out, (None if state is None else
                  {"conv": new_conv.to(torch.bfloat16), "ssm": h_last})
+
+
+def _channels(w: torch.Tensor, n: int, tp) -> torch.Tensor:
+    """A replicated per-channel vector's slice of this rank's ``n``
+    channels (all of it off a mesh), through ``copy_to_group``: each
+    rank's gradient is 0 off its slice, and the backward's all-reduce
+    makes it the whole gradient on every rank."""
+    if tp is None:
+        return w
+    return copy_to_group(w, tp)[tp.index * n:(tp.index + 1) * n]
 
 
 # ===========================================================================
@@ -439,6 +481,13 @@ class _Recurrent(nn.Module):
 class Mamba(_Recurrent):
     mixer = staticmethod(mamba_mixer)
     params = staticmethod(mamba_params)
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator,
+                 device: torch.device):
+        super().__init__(cfg, gen, device)
+        #: the weights split over 'data' (``fsdp_params``): {name: (comm,
+        #: dim)}, each gathered where it is used (``Model.shard_``)
+        self.fsdp = {}
 
 
 class MLSTM(_Recurrent):

@@ -54,7 +54,7 @@ split gathers the momentum first.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -211,6 +211,10 @@ class Muon:
     #: (``models.sharding.param_specs``, keyed as the trees are); None:
     #: every rank holds its parameters whole
     specs: Optional[Dict[Any, Any]] = None
+    #: with ``specs``: each matrix leaf's route in the last update
+    #: (:meth:`shard_route`) and this rank's words for it, by kind
+    routes: Dict[Any, Any] = field(default_factory=dict, compare=False,
+                                   repr=False)
 
     def _spec(self, k):
         return None if self.specs is None else self.specs[k]
@@ -280,36 +284,50 @@ class Muon:
         return orthogonalize_reference(m2, self.ns_steps, self.gram_chunk,
                                        mesh=self.mesh, axis=self.axis)
 
-    def _orthogonalize_shard(self, m2: torch.Tensor, spec) -> torch.Tensor:
-        """m2: this rank's block, under ``spec``, of a (..., m, n) f32
-        momentum; returns its block of the orthogonalized matrix.
+    def shard_route(self, shape, spec) -> str:
+        """The route :meth:`_orthogonalize_shard` takes for a block of
+        ``shape`` under ``spec``:
 
-        * replicated: the single-device chain, alike on every rank (the
-          norm stacks);
-        * split over the NS axis on the long side, where Thm 9 case 1
-          holds (``_use_1d``): the 1D body on the shard itself, no
-          gather (a column split of m <= n as it is; a row split of
-          m >= n on its transpose, since NS(Xᵀ) = NS(X)ᵀ);
-        * anything else (``_use_1d`` declines: at |model| = 4 every
-          stablelm-1.6b block matrix): gather the whole matrix, run the
-          single-device chain (the kernels on the card), keep the block.
-        """
+        * "replicated": the single-device chain, alike on every rank
+          (the norm stacks);
+        * "1d" / "1d-rows": split over the NS axis on the long side,
+          where Thm 9 case 1 holds (``_use_1d``): the 1D body on the
+          shard itself, no gather (a column split of m <= n as it is; a
+          row split of m >= n on its transpose, since NS(Xᵀ) = NS(X)ᵀ);
+        * "gathered": anything else (``_use_1d`` declines: at |model| =
+          4 every stablelm-1.6b block matrix; a block split over 'data'
+          too): gather the whole matrix, run the single-device chain
+          (the kernels on the card), keep the block."""
         if not is_sharded(spec):
-            return orthogonalize_reference(m2, self.ns_steps,
-                                           self.gram_chunk)
+            return "replicated"
         P = self.mesh.shape[self.axis]
-        m, n = m2.shape[-2], m2.shape[-1]
-        lead_free = all(a is None for a in spec[:-2])
-        if self.mode == "syrk-1d" and lead_free:
+        m, n = shape[-2], shape[-1]
+        if self.mode == "syrk-1d" and all(a is None for a in spec[:-2]):
             rows, cols = spec[-2:]
             if (rows, cols) == (None, self.axis) and m <= n * P \
                     and self._use_1d(m, n * P):
-                return orthogonalize_1d_local(
-                    m2, self.mesh.comm(self.axis), self.ns_steps)
+                return "1d"
             if (rows, cols) == (self.axis, None) and m * P >= n \
                     and self._use_1d(n, m * P):
-                return orthogonalize_1d_local(
-                    m2.mT, self.mesh.comm(self.axis), self.ns_steps).mT
+                return "1d-rows"
+        return "gathered"
+
+    def _orthogonalize_shard(self, m2: torch.Tensor, spec) -> torch.Tensor:
+        """m2: this rank's block, under ``spec``, of a (..., m, n) f32
+        momentum; returns its block of the orthogonalized matrix, by
+        :meth:`shard_route`'s route.  A block under a ``sharding.Parts``
+        split (Mamba's in_proj, its columns permuted) needs nothing of
+        its own: NS of X·Πᵀ is NS(X)·Πᵀ, since X·Πᵀ·(X·Πᵀ)ᵀ = X·Xᵀ."""
+        route = self.shard_route(m2.shape, spec)
+        if route == "replicated":
+            return orthogonalize_reference(m2, self.ns_steps,
+                                           self.gram_chunk)
+        if route == "1d":
+            return orthogonalize_1d_local(
+                m2, self.mesh.comm(self.axis), self.ns_steps)
+        if route == "1d-rows":
+            return orthogonalize_1d_local(
+                m2.mT, self.mesh.comm(self.axis), self.ns_steps).mT
         whole = gather_leaf(m2, spec, self.mesh, kind="all_gather")
         out = orthogonalize_reference(whole, self.ns_steps, self.gram_chunk)
         return shard_leaf(out, spec, self.mesh).contiguous()
@@ -325,8 +343,16 @@ class Muon:
             spec = self._spec(k)
             shape = global_shape(p.shape, spec, self.mesh)
             if len(shape) >= 2 and min(shape[-2:]) >= 8:   # _is_matrix
-                o = self._orthogonalize(mm) if spec is None \
-                    else self._orthogonalize_shard(mm, spec)
+                if spec is None:
+                    o = self._orthogonalize(mm)
+                else:
+                    before = collectives.word_counts()
+                    o = self._orthogonalize_shard(mm, spec)
+                    after = collectives.word_counts()
+                    self.routes[k] = (self.shard_route(mm.shape, spec), {
+                        kind: n - before.get(kind, 0)
+                        for kind, n in after.items()
+                        if n != before.get(kind, 0)})
                 scale = math.sqrt(max(1.0, shape[-2] / shape[-1]))
                 # p − lr·(o·scale + wd·p), each product and sum rounded
                 # as the reference's; in place in o, the orthogonalizer's

@@ -643,7 +643,8 @@ def test_mesh_training_and_sharding_refuse(pair, arch, monkeypatch):
             ["--arch", arch, "--device", "cpu", "--steps", "1",
              "--devices", "4"]))
     msg = str(e.value)
-    assert "MLA" in msg and "prefix blocks" in msg and "moe blocks" in msg
+    assert "MLA" in msg and "prefix blocks" in msg
+    assert "moe blocks" not in msg and "mamba blocks" not in msg
     assert ("MTP" in msg) == (arch == "deepseek-v3-671b")
     _, _, cfg, model = pair(arch)
     mesh = planning_mesh({"data": 2, "model": 2})

@@ -264,8 +264,11 @@ def test_tf32_is_off():
 def test_jamba_training_and_mesh_refuse(monkeypatch, devices):
     """jamba trains on one device (one step of the smoke config on the
     host; without ``--device cpu`` and no card it raises as the other
-    configs do); on a mesh its Mamba / MoE blocks wait for ROADMAP A11c,
-    raised before any weight is drawn."""
+    configs do) and on a mesh whose model axis divides its KV heads
+    (tests/test_torch_jamba_mesh.py); a model axis of 4 would cut the
+    smoke config's 2 KV heads, and raises ``ValueError`` before any
+    weight is drawn, from the trainer, ``shard_`` and
+    ``check_head_split`` alike."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.mesh import planning_mesh
     from repro_torch.launch import train as ttrain
@@ -287,14 +290,17 @@ def test_jamba_training_and_mesh_refuse(monkeypatch, devices):
         with monkeypatch.context() as m:
             m.setattr(ttrain, "init_model", no_init)
             m.setattr(ttrain, "run_ranks", no_init)
-            with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
+            with pytest.raises(ValueError, match="n_kv_heads=2"):
                 ttrain.train(ttrain.build_argparser().parse_args(
-                    argv + ["--device", "cpu"]))
+                    argv + ["--device", "cpu", "--max-model", "4"]))
     cfg = get_smoke_config("jamba-v0.1-52b")
-    model = init_model(cfg, device="cpu")
     mesh = planning_mesh({"data": 4 // devices, "model": devices})
-    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
-        model.shard_(mesh)
-    specs = param_specs(cfg, model.stacked_shapes(), mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
+    specs = param_specs(cfg, init_model(cfg, device="cpu").stacked_shapes(),
+                        mesh)
+    if devices == 1:
+        check_head_split(cfg, specs, devices)       # nothing waits
+        return
+    with pytest.raises(ValueError, match="n_kv_heads=2"):
+        init_model(cfg, device="cpu").shard_(mesh)
+    with pytest.raises(ValueError, match="n_kv_heads=2"):
         check_head_split(cfg, specs, devices)

@@ -40,8 +40,10 @@ Oracles, on the same numpy inputs from a seed:
   the smoke config with every expert routed (top_k = n_experts: no
   routing discontinuity), at 4 × 32 tokens (the gather form) and at 4 ×
   128 (the capacity form and the chunked scan);
-- the refusals: ``--devices 4`` raises ROADMAP A11c before any weight is
-  drawn (deepseek's is held in tests/test_torch_deepseek.py).
+- the refusal: ``--devices 4 --max-model 4`` would cut the smoke config's
+  2 KV heads and raises ``ValueError`` before any weight is drawn (jamba
+  on a mesh: tests/test_torch_jamba_mesh.py; deepseek's refusal:
+  tests/test_torch_deepseek.py).
 """
 import dataclasses
 import functools
@@ -410,13 +412,14 @@ def test_train_cli_follows_reference_losses(monkeypatch, optimizer, seq):
 
 
 def test_mesh_refuses_before_drawing_weights(monkeypatch):
-    """jamba on 4 ranks waits for ROADMAP A11c (its Mamba and MoE blocks
-    run on one device) and raises before any rank starts or any weight
-    is drawn."""
+    """jamba trains on a mesh (tests/test_torch_jamba_mesh.py), but a
+    model axis of 4 would cut the smoke config's 2 KV heads: ``--devices
+    4 --max-model 4`` raises ``ValueError`` before any rank starts or
+    any weight is drawn."""
     def no_init(*a, **kw):
         raise AssertionError("weights drawn before the refusal")
     monkeypatch.setattr(ttrain, "init_model", no_init)
     monkeypatch.setattr(ttrain, "run_ranks", no_init)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11c") as e:
-        ttrain.train(_args(devices=4, steps=1))
-    assert "mamba blocks" in str(e.value) and "moe blocks" in str(e.value)
+    with pytest.raises(ValueError, match="n_kv_heads=2") as e:
+        ttrain.train(_args(devices=4, max_model=4, steps=1))
+    assert "--max-model" in str(e.value)

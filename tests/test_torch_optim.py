@@ -93,6 +93,41 @@ def test_adamw8bit_matches_reference():
         _close(ts.v_scale, js.v_scale, TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_in_place_moments_match_the_pure_update(dtype):
+    """The moments are updated in place (the state passed in is the state
+    returned); params and grads are left as they were; every value is
+    the reference's expression, op by op, bit for bit."""
+    gen = torch.Generator().manual_seed(7)
+    params = {k: torch.randn(3, 40, 24, generator=gen).to(dtype)
+              for k in ("a", "b")}
+    opt = TAdamW(lr=0.01, weight_decay=0.1)
+    state = opt.init(params)
+    m = {k: v.clone() for k, v in state.m.items()}
+    v = {k: x.clone() for k, x in state.v.items()}
+    for step in range(1, 4):
+        grads = {k: torch.randn(p.shape, generator=gen).to(dtype)
+                 for k, p in params.items()}
+        keep = {k: t.clone() for k, t in {**params, **{
+            "g" + k: g for k, g in grads.items()}}.items()}
+        new, out = opt.update(grads, state, params, lr_scale=0.5)
+        assert out.m is state.m and out.v is state.v and out.step == step
+        b1c, b2c = 1 - opt.b1 ** float(step), 1 - opt.b2 ** float(step)
+        for k, p in params.items():
+            g = grads[k].float()
+            m[k] = opt.b1 * m[k] + (1 - opt.b1) * g
+            v[k] = opt.b2 * v[k] + (1 - opt.b2) * torch.square(g)
+            delta = (m[k] / b1c) / (torch.sqrt(v[k] / b2c) + opt.eps) \
+                + opt.weight_decay * p.float()
+            want = (p.float() - opt.lr * 0.5 * delta).to(p.dtype)
+            assert torch.equal(out.m[k], m[k]) and torch.equal(out.v[k],
+                                                               v[k])
+            assert torch.equal(new[k], want), k
+            assert torch.equal(p, keep[k]) and torch.equal(grads[k],
+                                                           keep["g" + k])
+        params, state = new, out
+
+
 def test_adamw_reduces_quadratic():
     opt = TAdamW(lr=0.1, weight_decay=0.0)
     params = {"w": torch.tensor([2.0, -3.0])}
