@@ -375,15 +375,16 @@ Phases (any failure exits non-zero):
              under 79.18 GiB; the peak of one loss + backward under the
              "names" and the "full" remat policy, gradients bit-equal;
              the first loss against the same weights on the CPU
-             (``MUON_TOL`` + ``MUON_TOL``·|cpu|); and first of all the
-             same layers on (data 1, model 2), 2 gloo ranks sharing the
-             card (started with phase 21, waiting for the card), AdamW, a
-             warm-up and 1 timed step: every rank's losses identical,
-             step 0 within 1e-4 of the one-card run's, each rank's
-             loss + backward words the tensor-parallel closed form, no
-             symmetric-kernel launch, s a step and its split, tokens/s,
-             each rank's peak and the launch's seconds; the closed forms
-             of Muon's routes and ZeRO-3 at this width printed beside;
+             (``MUON_TOL`` + ``MUON_TOL``·|cpu|); and the same layers
+             on (data 1, model 2), 2 gloo ranks sharing the card, AdamW,
+             a warm-up and 1 timed step (run beside phase 2, the build,
+             while the card is empty: "train mesh" on the ``[done]``
+             line): every rank's losses identical, step 0 within 1e-4 of
+             the one-card run's, each rank's loss + backward words the
+             tensor-parallel closed form, no symmetric-kernel launch, s
+             a step and its split, tokens/s, each rank's peak and the
+             seconds from the release; the closed forms of Muon's routes
+             and ZeRO-3 at this width printed beside;
 23. deepseektrain — trains deepseek-v3-671b at its published widths:
              its first 2 of 3 dense prefix blocks (MLA with q_lora), no
              MoE layer and the MTP block (3.60e9 parameters, no periods)
@@ -403,7 +404,11 @@ Phases (any failure exits non-zero):
              plain capacity form within 4 bf16 ulps; one Muon NS of the
              (7168, 129280) embedding and of a (7168, 18432) MLP leaf on
              the kernels against the f64 iteration (``NS_TOL``), beside
-             phase 8.
+             phase 8; and the same cut on (data 1, model 2) by phase
+             22's ranks after jamba's part, beside the build, held as
+             phase 22's (its words MLA's latent all-gathers and
+             reduce-scatters beside the all-reduces,
+             ``deepseek_tp_closed_form``).
 
 The seconds of each phase are printed on the ``[done]`` line.  The
 checks of phases 21-23 that time nothing on the card (the Muon NS
@@ -5316,7 +5321,7 @@ def jamba_remat_peaks(torch, model, cfg, batch):
     return peaks
 
 
-def jambatrain_phase(torch, cases, early, jmesh):
+def jambatrain_phase(torch, cases, early, mesh_part):
     """Phase 22: jamba's layers 2-3 (``_jamba_train_cfg``) trained
     through the trainer's ``_run`` with ``muon-syrk``, random bf16
     weights from seed 0, 2 x 256 tokens, a warm-up and 1 timed step:
@@ -5327,10 +5332,9 @@ def jambatrain_phase(torch, cases, early, jmesh):
     same weights on the CPU, on a thread beside ``rank_update`` /
     ``sym_stream`` at the expert stacks' NS shapes against their plain
     versions and f64, timed (rows added to ``cases``).  The mesh part
-    (``jmesh``, a :class:`JambaMesh` started with phase 21) runs first,
-    while this process holds least of the card: the same layers on
-    (data 1, model 2), held to the one-card step 0 after it
-    (``jambamesh_check``).  The NS of a
+    (``mesh_part``: the jamba part's ranks and seconds, run beside the
+    build, ``train_mesh_parts``), the same layers on (data 1, model 2),
+    is held to the one-card step 0 (``mesh_part_check``).  The NS of a
     (16, 4096, 14336) expert stack against the f64 iteration and one
     MoE layer's gradients through ``CapacityExperts`` against autograd
     of the plain capacity form ran beside phase 8's launch
@@ -5343,16 +5347,6 @@ def jambatrain_phase(torch, cases, early, jmesh):
     cfg = _jamba_train_cfg()
     seconds = {f"{k} (beside phase 8)": early[k]
                for k in ("ns_s", "moe_grads_s")}
-    # the mesh part first, while this process holds least of the card
-    # (its ranks started with phase 21 and waited): 2 ranks of ~32 GiB
-    t0 = time.perf_counter()
-    free, total = torch.cuda.mem_get_info()
-    log(f"[jambatrain mesh] released with this process holding "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
-        f"{torch.cuda.memory_reserved() / 2**30:.2f} reserved; the card "
-        f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
-    ranks, wall = jmesh.release()
-    seconds["mesh_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     kept, init = {}, ttrain.init_model
 
@@ -5402,7 +5396,7 @@ def jambatrain_phase(torch, cases, early, jmesh):
     t0 = time.perf_counter()
     cpu = cpu()
     seconds["cpu_wait_s"] = time.perf_counter() - t0
-    mesh, mlaunches = jambamesh_check(torch, ranks, wall,
+    mesh, mlaunches = mesh_part_check(torch, "jamba", *mesh_part,
                                       out["losses"][0])
     log(f"{tag} phase seconds {json.dumps(seconds)}")
     return {"muon_ns": early["muon_ns"], "moe_grads": early["moe_grads"],
@@ -5410,39 +5404,56 @@ def jambatrain_phase(torch, cases, early, jmesh):
         launches, mlaunches
 
 
-#: phase 22's mesh part: the same cut on (data 1, model 2), 2 gloo ranks
-#: sharing the card (each draws the whole model, 7.4 GB, then keeps its
-#: blocks), AdamW, phase 22's 2 x 256 tokens, a warm-up and 1 timed step
-JAMBAMESH_DEVICES, JAMBAMESH_MAX_MODEL, JAMBAMESH_STEPS = 2, 2, 2
+#: the train phases' mesh parts: each phase's cut on (data 1, model 2), 2
+#: gloo ranks sharing the card (each draws the whole model, ~7.4 GB, then
+#: keeps its blocks), AdamW, the phase's 2 x 256 tokens, a warm-up and 1
+#: timed step: jamba's layers 2-3 for phase 22, deepseek-v3's first 2
+#: prefix blocks and its MTP block for phase 23, one launch for both, run
+#: beside the build (``train_mesh_parts``)
+MESHPART_DEVICES, MESHPART_MAX_MODEL, MESHPART_STEPS = 2, 2, 2
 #: step 0's loss against the one-card run's, relative (phase 13's
 #: ``MESHTRAIN_RTOL``; the CPU tests' top-2 gap on (1, 2) was 1.9e-5,
 #: tests/test_torch_jamba_mesh.py)
-JAMBAMESH_RTOL = 1e-4
+MESHPART_RTOL = 1e-4
+#: the mesh parts in the order their ranks run them
+MESHPARTS = ("jamba", "deepseek")
 
 
-def _jambamesh_args():
+def _meshpart_args(part):
     from repro_torch.launch.train import build_argparser
+    arch, layers = {"jamba": ("jamba-v0.1-52b", 2),
+                    "deepseek": ("deepseek-v3-671b",
+                                 DEEPSEEKTRAIN_PREFIX)}[part]
     return build_argparser().parse_args(
-        _dense_argv("jamba-v0.1-52b", 2, "adamw", JAMBAMESH_STEPS) + [
-            "--device", DEVICE, "--devices", str(JAMBAMESH_DEVICES),
-            "--max-model", str(JAMBAMESH_MAX_MODEL)])
+        _dense_argv(arch, layers, "adamw", MESHPART_STEPS) + [
+            "--device", DEVICE, "--devices", str(MESHPART_DEVICES),
+            "--max-model", str(MESHPART_MAX_MODEL)])
 
 
-def jamba_mesh_rank(mesh_x, flags, go):
-    """One rank of phase 22's mesh part: ``launch.train._run`` of
-    ``_jamba_train_cfg()`` on the planned (data 1, model 2) mesh, what
-    ``train_rank`` runs for a config the flags name.  The ranks start
-    early (their imports, the group and the remat preload) and wait for
-    the file ``go`` before they touch the card's memory: "go" runs,
-    anything else returns None."""
+def _meshpart_cfg(part):
+    return {"jamba": _jamba_train_cfg,
+            "deepseek": _deepseek_train_cfg}[part]()
+
+
+def mesh_part_rank(mesh_x, flags, go):
+    """One rank of the train phases' mesh launch: once the file ``go``
+    says "go", for each of ``MESHPARTS`` in turn, ``launch.train._run``
+    of the part's cut (``flags[part]``) on the planned (data 1, model 2)
+    mesh, what ``train_rank`` runs for a config the flags name; each
+    part's result is written to ``go + ".<part>.<rank>"`` for the main
+    process to read while the ranks go on, and its model and optimizer
+    are freed before the next part.  The ranks start early (their
+    imports, the group and the remat preload) and touch the card's
+    memory only once released; anything but "go" ends them."""
     import argparse
+    import gc
+    import pickle
 
     import torch
     from repro_torch.distributed import plan_mesh
     from repro_torch.launch import train as ttrain
     from repro_torch.models.model import preload_remat
-    args = argparse.Namespace(**flags)
-    mesh = plan_mesh(max_model=args.max_model, device=mesh_x.device)
+    mesh = plan_mesh(max_model=MESHPART_MAX_MODEL, device=mesh_x.device)
     preload_remat().join()
     t0 = time.perf_counter()
     while not os.path.exists(go):
@@ -5451,45 +5462,62 @@ def jamba_mesh_rank(mesh_x, flags, go):
     with open(go) as f:
         if f.read() != "go":
             return None
-    t0 = time.perf_counter()
-    drawn, init = {}, ttrain.init_model
+    for part in MESHPARTS:
+        args = argparse.Namespace(**flags[part])
+        t0 = time.perf_counter()
+        drawn, init = {}, ttrain.init_model
 
-    def keep(cfg, seed, device, **kw):
-        model = init(cfg, seed=seed, device=device, **kw)
-        drawn["peak_bytes"] = torch.cuda.max_memory_allocated(device)
-        drawn["s"] = time.perf_counter() - t0
-        return model
+        def keep(cfg, seed, device, **kw):
+            model = init(cfg, seed=seed, device=device, **kw)
+            drawn["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+            drawn["s"] = time.perf_counter() - t0
+            return model
 
-    ttrain.init_model = keep
-    try:
-        out = ttrain._run(args, _jamba_train_cfg(), mesh.device, mesh=mesh,
-                          say=lambda line: None)
-    finally:
-        ttrain.init_model = init
-    keys = ("losses", "words", "bytes", "step_s", "split_s",
-            "kernel_launches", "peak_memory_bytes", "params", "mesh",
-            "tokens_per_s")
-    return {**{k: out[k] for k in keys}, "waited_s": waited,
-            "run_s": time.perf_counter() - t0, "draw": drawn}
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        ttrain.init_model = keep
+        try:
+            out = ttrain._run(args, _meshpart_cfg(part), mesh.device,
+                              mesh=mesh, say=lambda line: None)
+        finally:
+            ttrain.init_model = init
+        keys = ("losses", "words", "bytes", "step_s", "split_s",
+                "kernel_launches", "peak_memory_bytes", "params", "mesh",
+                "tokens_per_s")
+        res = {**{k: out[k] for k in keys}, "waited_s": waited,
+               "run_s": time.perf_counter() - t0, "draw": drawn}
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["held_after_bytes"] = torch.cuda.memory_reserved(mesh.device)
+        path = f"{go}.{part}.{mesh.rank}"
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(res, f)
+        os.replace(path + ".tmp", path)
+        waited = 0.0
+    return "done"
 
 
-class JambaMesh:
-    """Phase 22's mesh launch, started ahead on a thread (``start``),
-    its ranks waiting; ``release`` lets them run and returns their
-    results and the seconds from the release to the launch's end;
-    ``stop`` (a failed phase) lets them return at once."""
+class TrainMesh:
+    """The train phases' mesh launch, started on a thread, its ranks
+    waiting; ``release`` lets them run every part, ``results(part)``
+    waits for that part's results and returns them with the seconds
+    from the release; ``stop`` lets them end (before the release, at
+    once) and joins the launch."""
 
     def __init__(self, phase_s):
         import tempfile
         from repro_torch.distributed.launch import run_ranks
-        self.dir = tempfile.mkdtemp(prefix="chip_smoke_jambamesh_")
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_trainmesh_")
         self.go = os.path.join(self.dir, "go")
-        self.args = _jambamesh_args()
+        self.args = {part: _meshpart_args(part) for part in MESHPARTS}
+        self.t0 = None
         self.join = in_background(
-            phase_s, "jamba mesh launch", lambda: run_ranks(
-                "chip_smoke:jamba_mesh_rank", JAMBAMESH_DEVICES,
+            phase_s, "train mesh launch", lambda: run_ranks(
+                "chip_smoke:mesh_part_rank", MESHPART_DEVICES,
                 backend="gloo", device=DEVICE, paths=[ROOT], timeout=1200,
-                kwargs={"flags": dict(vars(self.args)), "go": self.go}))
+                kwargs={"flags": {p: dict(vars(a))
+                                  for p, a in self.args.items()},
+                        "go": self.go}))
 
     def _signal(self, word):
         if not os.path.exists(self.go):
@@ -5499,17 +5527,61 @@ class JambaMesh:
 
     def release(self):
         self._signal("go")
-        t0 = time.perf_counter()
-        ranks = self.join()
-        return ranks, time.perf_counter() - t0
+        self.t0 = time.perf_counter()
+
+    def results(self, part):
+        import pickle
+        paths = [f"{self.go}.{part}.{r}" for r in range(MESHPART_DEVICES)]
+        while not all(map(os.path.exists, paths)):
+            if not self.join.alive():
+                self.join()             # the launch's failure, raised
+                raise SystemExit(f"the mesh launch ended before its "
+                                 f"{part} part")
+            time.sleep(0.05)
+        wall = time.perf_counter() - self.t0
+        ranks = []
+        for path in paths:
+            with open(path, "rb") as f:
+                ranks.append(pickle.load(f))
+        return ranks, wall
 
     def stop(self):
         import shutil
+        if not os.path.isdir(self.dir):         # stopped already
+            return
         self._signal("stop")
         try:
             self.join()
         finally:
             shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def train_mesh_parts(torch, tmesh):
+    """Every mesh part's results (``TrainMesh.results``), the launch
+    then stopped, so that its ranks have left the card before phase 3
+    times the kernels."""
+    try:
+        return {part: tmesh.results(part) for part in MESHPARTS}
+    finally:
+        tmesh.stop()
+
+
+def _ar_words(n, P):
+    """The words of one all-reduce of n elements over P ranks, as
+    ``collectives.all_reduce`` counts them."""
+    return 2 * n * (P - 1) // P
+
+
+def _loss_tp_words(cfg, tokens, P, seq, chunk) -> int:
+    """The vocab-parallel loss's all-reduce words, chunk by chunk, of
+    each head (next-token, and the MTP block's t+2 with ``cfg.mtp``):
+    its max, sum of exponentials and label logit forward and in the
+    chunk's recompute, its input's gradient backward."""
+    n = max(seq // chunk, 1)
+    per = tokens // seq * (seq // n)
+    heads = 2 if cfg.mtp else 1
+    return heads * n * (2 * 3 * _ar_words(per, P)
+                        + _ar_words(per * cfg.d_model, P))
 
 
 def jamba_tp_closed_form(cfg, tokens, P, seq, chunk) -> int:
@@ -5522,10 +5594,9 @@ def jamba_tp_closed_form(cfg, tokens, P, seq, chunk) -> int:
     MoE's router); each forward sum again in the per-period recompute
     but for the period's last exit (the non-reentrant checkpoint stops
     at the last tensor the backward needs); the vocab-parallel loss
-    chunk by chunk (its max, sum of exponentials and label logit forward
-    and in the chunk's recompute, its input's gradient backward)."""
+    (:func:`_loss_tp_words`)."""
     def ar(n):
-        return 2 * n * (P - 1) // P
+        return _ar_words(n, P)
     d, T = cfg.d_model, tokens
     di = cfg.mamba_expand * d
     R = max(d // 16, 1) + 2 * cfg.mamba_d_state
@@ -5544,12 +5615,56 @@ def jamba_tp_closed_form(cfg, tokens, P, seq, chunk) -> int:
             if spec.mlp == "moe":
                 bwd += [ar(d * cfg.moe.n_experts)]
         words += 2 * sum(fwd) - fwd[-1] + sum(bwd)
-    n = max(seq // chunk, 1)
-    per = T // seq * (seq // n)
-    return words + n * (2 * 3 * ar(per) + ar(per * d))
+    return words + _loss_tp_words(cfg, tokens, P, seq, chunk)
 
 
-def jamba_mesh_words(cfg) -> dict:
+def deepseek_tp_closed_form(cfg, tokens, P, seq, chunk) -> dict:
+    """A rank's loss + backward words a step by kind on (data 1, model
+    P) for a deepseek config (MLA in every block), ``tokens`` a step
+    (tests/test_torch_deepseek_mesh.py holds it on gloo CPU ranks, the
+    card's cut included).  In every block: the MLA latents (q's
+    ``q_lora`` columns where the config has them, ``ckv``'s ``kv_lora``,
+    the rope key's ``rope_head_dim``) each all-gathered forward from its
+    rank's 1/P and its gradient reduce-scattered backward; the ``wo``
+    and MLP exit sums forward, the block input's and the MLP input's
+    ``copy_to_group`` gradients backward (an MoE MLP also its router's).
+    The prefix blocks and the MTP block run once; a period's forward
+    collectives run again in its recompute, but for its last exit sum
+    (as :func:`jamba_tp_closed_form`).  Beside them the vocab-parallel
+    embed rows and loss of both heads (:func:`_loss_tp_words`)."""
+    def ar(n):
+        return _ar_words(n, P)
+    d, T, m = cfg.d_model, tokens, cfg.mla
+    widths = [w for w in (m.q_lora, m.kv_lora, m.rope_head_dim) if w]
+    gather = sum(T * w // P * (P - 1) for w in widths)
+    scatter = sum(T * w * (P - 1) // P for w in widths)
+
+    def sums(spec):
+        bwd = [ar(T * d), ar(T * d)]
+        if spec.mlp == "moe":
+            bwd.append(ar(d * cfg.moe.n_experts))
+        return [ar(T * d), ar(T * d)], bwd
+
+    from repro_torch.models.model import MTP_SPEC
+    once = list(cfg.prefix) + [MTP_SPEC] * bool(cfg.mtp)
+    words = {"all_reduce": ar(T * d), "all_gather": gather * len(once),
+             "reduce_scatter": scatter * len(once)}
+    for spec in once:
+        fwd, bwd = sums(spec)
+        words["all_reduce"] += sum(fwd) + sum(bwd)
+    for _ in range(cfg.n_periods):
+        fwd, bwd = [], []
+        for spec in cfg.pattern:
+            f, b = sums(spec)
+            fwd, bwd = fwd + f, bwd + b
+        words["all_reduce"] += 2 * sum(fwd) - fwd[-1] + sum(bwd)
+        words["all_gather"] += 2 * gather * len(cfg.pattern)
+        words["reduce_scatter"] += scatter * len(cfg.pattern)
+    words["all_reduce"] += _loss_tp_words(cfg, tokens, P, seq, chunk)
+    return words
+
+
+def mesh_words_forecast(cfg) -> dict:
     """Closed forms, from the shapes and specs alone, of what the mesh
     would move at full width under Muon and ZeRO-3 (ROADMAP B10, B11):
     each matrix leaf's Muon route on (data 1, model 2)
@@ -5592,33 +5707,42 @@ def jamba_mesh_words(cfg) -> dict:
             "zero3_2x2": fsdp_closed_form(cfg, 2, 2)}
 
 
-def jambamesh_check(torch, ranks, wall, card_step0):
-    """Phase 22's mesh part against the one-card run: every rank's
-    losses identical, step 0 within ``JAMBAMESH_RTOL`` of the one-card
+def mesh_part_check(torch, part, ranks, wall, card_step0):
+    """A train phase's mesh part against its one-card run: every rank's
+    losses identical, step 0 within ``MESHPART_RTOL`` of the one-card
     step 0 (same weights, same batch), each rank's loss + backward words
-    a step the tensor-parallel closed form (and no other kind: 'data' is
-    1), no symmetric-kernel launch (AdamW); prints s a step and its
-    split, tokens/s, each rank's peak and the launch's seconds."""
-    cfg = _jamba_train_cfg()
-    args = _jambamesh_args()
-    tag = "[jambatrain mesh]"
+    a step the tensor-parallel closed form (no other kind: 'data' is 1),
+    no symmetric-kernel launch (AdamW); prints s a step and its split,
+    tokens/s, each rank's peak (and what it held while drawing) and the
+    seconds from the release to the last rank's result.  The parts ran
+    beside the build, while this process held nothing of the card
+    (``train_mesh_parts``)."""
+    cfg = _meshpart_cfg(part)
+    args = _meshpart_args(part)
+    tag = f"[{part}train mesh]"
     losses = ranks[0]["losses"]
-    assert ranks[0]["mesh"] == {"data": 1, "model": JAMBAMESH_MAX_MODEL}
-    assert len(losses) == JAMBAMESH_STEPS and \
+    assert ranks[0]["mesh"] == {"data": 1, "model": MESHPART_MAX_MODEL}
+    assert len(losses) == MESHPART_STEPS and \
         all(map(math.isfinite, losses)), losses
     for i, r in enumerate(ranks):
         assert r["losses"] == losses, (f"rank {i} disagrees", r["losses"])
     rel = abs(losses[0] - card_step0) / abs(card_step0)
-    want = {"all_reduce": jamba_tp_closed_form(
-        cfg, args.global_batch * args.seq_len, JAMBAMESH_MAX_MODEL,
-        args.seq_len, args.loss_chunk)}
-    log(f"{tag} {cfg.name} layers 2-3, {ranks[0]['params']} parameters, "
-        f"(data 1, model {JAMBAMESH_MAX_MODEL}), adamw, "
-        f"{JAMBAMESH_DEVICES} gloo ranks on one card: losses {losses}; "
+    tokens = args.global_batch * args.seq_len
+    if part == "jamba":
+        want = {"all_reduce": jamba_tp_closed_form(
+            cfg, tokens, MESHPART_MAX_MODEL, args.seq_len, args.loss_chunk)}
+        what = "layers 2-3"
+    else:
+        want = deepseek_tp_closed_form(cfg, tokens, MESHPART_MAX_MODEL,
+                                       args.seq_len, args.loss_chunk)
+        what = f"prefix 0-{cfg.n_layers - 1} + MTP"
+    log(f"{tag} {cfg.name} {what}, {ranks[0]['params']} parameters, "
+        f"(data 1, model {MESHPART_MAX_MODEL}), adamw, "
+        f"{MESHPART_DEVICES} gloo ranks on one card: losses {losses}; "
         f"step 0 vs one card {card_step0}: rel {rel:.3e} (<= "
-        f"{JAMBAMESH_RTOL:.0e}); tensor-parallel words a rank a step, "
+        f"{MESHPART_RTOL:.0e}); tensor-parallel words a rank a step, "
         f"closed form {want}")
-    assert rel <= JAMBAMESH_RTOL, (losses[0], card_step0)
+    assert rel <= MESHPART_RTOL, (losses[0], card_step0)
     launches = {}
     for i, r in enumerate(ranks):
         for s, step in enumerate(r["words"]):
@@ -5631,8 +5755,9 @@ def jambamesh_check(torch, ranks, wall, card_step0):
             f"drew and sharded in {r['draw']['s']:.2f} s (peak "
             f"{r['draw']['peak_bytes'] / 2**30:.2f} GiB), ran in "
             f"{r['run_s']:.2f} s; s per step {r['step_s']}; peak memory "
-            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB; words the last "
-            f"step by phase {r['words'][-1]}, bytes {r['bytes'][-1]}; "
+            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB; held "
+            f"{r['held_after_bytes'] / 2**30:.2f} GiB after it; words the "
+            f"last step by phase {r['words'][-1]}, bytes {r['bytes'][-1]}; "
             f"launches {r['kernel_launches']}")
     r0 = ranks[0]
     for s, (t, sp) in enumerate(zip(r0["step_s"], r0["split_s"])):
@@ -5641,8 +5766,12 @@ def jambamesh_check(torch, ranks, wall, card_step0):
             f"{sp['reduce_s']:.4f} + clip {sp['clip_s']:.4f} + optimizer "
             f"{sp['opt_s']:.4f} (rank 0)")
     log(f"{tag} tokens/s {r0['tokens_per_s']:.1f} (after the warm-up); "
-        f"the launch's seconds from the release: {wall:.1f}")
-    forecast = jamba_mesh_words(cfg)
+        f"seconds from the release (with the build) to the last rank's "
+        f"result: {wall:.1f}")
+    forecast = mesh_words_forecast(cfg)
+    if part == "deepseek":       # the full cut's latents on (2, 2) too
+        forecast["tp_2x2"] = deepseek_tp_closed_form(
+            cfg, tokens // 2, 2, args.seq_len, args.loss_chunk)
     log(f"{tag} closed forms at this width, not run (ROADMAP B10, B11): "
         f"{json.dumps(forecast)}")
     return {"losses": losses, "rel_step0": rel, "tp_words": want,
@@ -5738,7 +5867,7 @@ def _deepseek_train_cfg():
     return cfg
 
 
-def deepseektrain_phase(torch, cases, early):
+def deepseektrain_phase(torch, cases, early, mesh_part):
     """Phase 23: deepseek-v3's first 2 prefix blocks and its MTP block
     (``_deepseek_train_cfg``) trained through the trainer's ``_run`` with
     ``muon-syrk``, random bf16 weights from seed 0, 2 x 256 tokens, a
@@ -5752,7 +5881,10 @@ def deepseektrain_phase(torch, cases, early):
     ``CapacityExperts`` against autograd of the plain capacity form.
     The NS of the embedding and of an MLP leaf against the f64
     iteration ran beside phase 8's launch (``early_checks``; ``early``
-    their results)."""
+    their results).  The mesh part (``mesh_part``: the deepseek part's
+    ranks and seconds, run by phase 22's ranks beside the build after
+    jamba's part, ``train_mesh_parts``), the same cut on (data 1, model
+    2), is held to the one-card step 0 (``mesh_part_check``)."""
     import gc
 
     from repro_torch.configs import get_config
@@ -5801,9 +5933,12 @@ def deepseektrain_phase(torch, cases, early):
     t0 = time.perf_counter()
     cpu_loss = cpu()
     seconds["cpu_wait_s"] = time.perf_counter() - t0
+    mesh, mlaunches = mesh_part_check(torch, "deepseek", *mesh_part,
+                                      out["losses"][0])
     log(f"{tag} phase seconds {json.dumps(seconds)}")
     return {"muon_ns": early["muon_ns"], "moe_grads": moe_check, "run": row,
-            "cpu_loss": cpu_loss, **seconds}, launches
+            "cpu_loss": cpu_loss, "mesh": mesh, **seconds}, launches, \
+        mlaunches
 
 
 def main() -> int:
@@ -5842,7 +5977,8 @@ def main() -> int:
 def in_background(phase_s, name, fn, *a):
     """Start ``fn(*a)`` on a thread, for a phase that only waits on
     processes of its own; its seconds go to ``phase_s[name]``.  Returns
-    the join: ``fn``'s result, or its exception raised here."""
+    the join: ``fn``'s result, or its exception raised here (its
+    ``alive()`` is whether the thread still runs)."""
     import threading
     box = {}
 
@@ -5863,13 +5999,29 @@ def in_background(phase_s, name, fn, *a):
         if "error" in box:
             raise box["error"]
         return box["out"]
+    join.alive = th.is_alive
     return join
 
 
 def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     """Phases 2-23 and the closing lines (``main`` starts phase 20's
     counting children first and stops them last)."""
-    build_s = timed("build", build)
+    # the mesh parts of phases 22 and 23 (2 gloo ranks of ~31 GiB each)
+    # run beside the build, while this process holds nothing of the card
+    # (by phase 22 it pins ~11.6 GiB, and the ranks did not fit beside
+    # it), and end before phase 3 times the kernels
+    tmesh = TrainMesh(phase_s)
+    try:
+        free, total = torch.cuda.mem_get_info()
+        log(f"[train mesh] released with this process holding "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the "
+            f"card {free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+        tmesh.release()
+        build_s = timed("build", build)
+    except BaseException:
+        tmesh.stop()
+        raise
+    parts = timed("train mesh", train_mesh_parts, torch, tmesh)
     cases = timed("kernels", kernel_phase, torch, clock)
     _, launches = timed("serve", serve_phase, torch)
     xout, xlaunches = timed("xlstm", xlstm_phase, torch)
@@ -5906,19 +6058,15 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
     dout, dlaunches = timed("dense", dense_phase, torch)
     sout, slaunches = timed("deepseek", deepseek_phase, torch)
     hout, hlaunches = timed("shapes", shapes_phase, torch, counters, cases)
-    # phase 22's mesh ranks start now and wait for the card
-    jmesh = JambaMesh(phase_s)
-    try:
-        tdout, tdlaunches, tdmesh = timed(
-            "densetrain", densetrain_phase, torch, grun, eout["launch_s"],
-            cases, early["densetrain"])
-        jtout, jtlaunches, jtmesh = timed(
-            "jambatrain", jambatrain_phase, torch, cases,
-            early["jambatrain"], jmesh)
-    finally:
-        jmesh.stop()
-    dtout, dtlaunches = timed("deepseektrain", deepseektrain_phase, torch,
-                              cases, early["deepseektrain"])
+    tdout, tdlaunches, tdmesh = timed(
+        "densetrain", densetrain_phase, torch, grun, eout["launch_s"],
+        cases, early["densetrain"])
+    jtout, jtlaunches, jtmesh = timed(
+        "jambatrain", jambatrain_phase, torch, cases, early["jambatrain"],
+        parts["jamba"])
+    dtout, dtlaunches, dtmesh = timed(
+        "deepseektrain", deepseektrain_phase, torch, cases,
+        early["deepseektrain"], parts["deepseek"])
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s; by phase "
         f"{json.dumps(phase_s)}")
@@ -5984,7 +6132,9 @@ def run_phases(torch, timed, phase_s, t_start, card, clock, counters) -> int:
                    "train mesh jamba-v0.1-52b layers 2-3 adamw":
                    jtmesh.get(name, 0),
                    "train deepseek-v3-671b prefix 0-1 + MTP muon-syrk":
-                   dtlaunches[name]}
+                   dtlaunches[name],
+                   "train mesh deepseek-v3-671b prefix 0-1 + MTP adamw":
+                   dtmesh.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

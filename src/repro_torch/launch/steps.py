@@ -26,7 +26,7 @@ import torch
 
 from ..distributed import collectives
 from ..models.common import ArchConfig
-from ..models.model import Model, lm_loss, lm_loss_terms
+from ..models.model import MTP_WEIGHT, Model, lm_loss, lm_loss_terms
 from ..models.sharding import split_axes
 from ..optim.adamw import AdamW
 from ..optim.muon import Muon
@@ -130,6 +130,38 @@ def _delta(now: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
             if v != before.get(k, 0)}
 
 
+def data_parallel_loss(model: Model, batch: Dict[str, torch.Tensor],
+                       dp: List[Any], chunk: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's share of the global batch's loss on a sharded model,
+    ``batch`` its rows, ``dp`` the data axes' groups of more than one
+    rank: (what to differentiate, the global loss, detached).  The first
+    is its rows' token losses over the valid tokens of every data rank's
+    rows, times the data ranks (with an MTP block, plus ``MTP_WEIGHT``
+    times its rows' t+2 losses over every data rank's valid t+2 tokens,
+    times the data ranks), so that the gradients' mean over the data
+    axes is the global loss's gradient; the second, that mean of the
+    first, is the same on every rank."""
+    n_dp = 1
+    for c in dp:
+        n_dp *= c.size
+
+    def dp_sum(x: torch.Tensor) -> torch.Tensor:
+        for c in dp:
+            x = collectives.all_reduce(x, c)
+        return x
+
+    (tot, cnt), mtp = lm_loss_terms(model, batch, chunk=chunk)
+    if mtp is None:
+        cnt = torch.clamp(dp_sum(cnt.detach()), min=1.0)
+        loss = tot * (n_dp / cnt)
+    else:           # both counts over the data axes in one all-reduce
+        cnt, cnt2 = torch.clamp(dp_sum(torch.stack(
+            [cnt, mtp[1]]).detach()), min=1.0)
+        loss = tot * (n_dp / cnt) + MTP_WEIGHT * mtp[0] * (n_dp / cnt2)
+    return loss, dp_sum(loss.detach()) / n_dp
+
+
 def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
                     clip_norm: float = 1.0, loss_chunk: int = 512,
                     compressor=None) -> Callable:
@@ -145,11 +177,10 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
     clipped gradients pass through its int8 quantize / dequantize with
     error feedback before the optimizer, as the reference's step does.
 
-    On a sharded model ``batch`` is this rank's rows.  Each rank's loss
-    is its rows' token losses over the valid tokens of every data
-    rank's rows, times the data ranks, so that the gradient mean over
-    the data axes is the global batch's; ``metrics["loss"]`` is the
-    global batch's on every rank.  A ``compressor`` then replaces the
+    On a sharded model ``batch`` is this rank's rows, and each rank
+    differentiates its share of the global loss
+    (:func:`data_parallel_loss`); ``metrics["loss"]`` is the global
+    batch's on every rank.  A ``compressor`` then replaces the
     data-axis mean (each rank's own residual; the reduction before the
     clip, as the wire needs), timed as ``compress_s``; the plain mean is
     ``reduce_s``.  With no data axis over 1 rank the compressor runs
@@ -187,12 +218,9 @@ def make_train_step(model: Model, optimizer, *, microbatches: int = 1,
             loss = lm_loss(model, batch, chunk=loss_chunk)
             loss.backward()
             return loss.detach(), model.stacked(lambda p: p.grad)
-        tot, cnt = lm_loss_terms(model, batch, chunk=loss_chunk)
-        cnt = torch.clamp(dp_sum(cnt.detach()), min=1.0)
-        loss = tot * (n_dp / cnt)
+        loss, global_loss = data_parallel_loss(model, batch, dp, loss_chunk)
         loss.backward()
-        return dp_sum(loss.detach()) / n_dp, \
-            model.stacked(lambda p: p.grad)
+        return global_loss, model.stacked(lambda p: p.grad)
 
     def counted() -> Tuple[Dict[str, int], Dict[str, int]]:
         return collectives.word_counts(), collectives.byte_counts()

@@ -124,8 +124,7 @@ Waiting, each raising a clear error that names its ROADMAP item:
 ``--ckpt-dir`` on a mesh with state that is each rank's own (the 8-bit
 AdamW moments; the EF residuals of ``--compress-grads`` over a data
 axis: A8b); ``--compress-grads`` over a data axis with weights split
-over it (``fsdp_params``: A11g); MLA, prefix blocks or the MTP block on
-a mesh (deepseek with ``--devices`` > 1: A11c).
+over it (``fsdp_params``: A11g).
 
 jamba trains on one device with the same flags: its Mamba mixers under
 autograd, its routed MoE through the dropless forms (T ≤ 256 tokens a
@@ -155,6 +154,17 @@ block (no periods):
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch deepseek-v3-671b --smoke --steps 3 --optimizer muon-syrk
+
+On a mesh MLA is tensor-parallel over its heads (its three latents
+gathered whole over 'model'), the prefix blocks and the MTP block are
+split as the periods' blocks are, and the published configs'
+``fsdp_params`` also split their weights over 'data'; the MTP term is
+the whole batch's t+2 mean.  The smoke configs' 4 heads bound
+``--max-model``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch deepseek-v3-671b --smoke --devices 4 --max-model 2 \
+        --steps 3 --optimizer muon-syrk
 """
 from __future__ import annotations
 
@@ -181,7 +191,7 @@ from ..distributed import (ErrorFeedbackInt8, StepTimer, StragglerMonitor,
 from ..distributed.launch import run_ranks
 from ..kernels import counts
 from ..models.model import (Model, check_head_split, init_model,
-                            preload_remat, refuse_on_mesh)
+                            preload_remat)
 from ..models.sharding import (batch_specs, global_shape, param_specs,
                                shard_leaf)
 from .steps import (_delta, describe_blas_routing, init_opt_state,
@@ -226,7 +236,6 @@ def _refuse_waiting(args, cfg) -> None:
         raise ValueError(f"--devices {args.devices}")
     if args.devices == 1:
         return
-    refuse_on_mesh(cfg)          # MLA, prefix blocks, MTP: A11c
     data, model = plan_shape(args.devices, max_model=args.max_model)
     local = None
     if args.ckpt_dir is not None and args.optimizer == "adamw8bit":

@@ -16,8 +16,13 @@ where it is used (``collectives.fsdp_weight``).
 MLA caches one latent row a token, ``{"ckv": (B, S_max, kv_lora),
 "kr": (B, S_max, rope_head_dim)}`` in bf16, and up-projects the whole
 cached latent to per-head K and V on every call, with the reference's
-dense f32 softmax (it never streams); it runs on one device (on a mesh
-it waits, ROADMAP A11c).
+dense f32 softmax (it never streams).  Tensor-parallel, a rank holds
+column blocks of the three latents' down-projections and gathers each
+latent whole over 'model' before its up-projection to the rank's
+n_heads / |model| heads (``collectives.gather_from_group``: an
+all-gather forward, a reduce-scatter of its gradient backward); the
+output projection is row-parallel as GQA's.  The latent cache is not
+split: a sharded model trains, and serving it raises.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.collectives import (copy_to_group, fsdp_weight,
-                                       row_parallel)
+                                       gather_from_group, row_parallel)
 from .common import (ArchConfig, BlockSpec, MLACfg, apply_rope, dense_init,
                      softcap)
 
@@ -203,7 +208,24 @@ class MLA(nn.Module):
     values from a ``kv_lora``-wide latent ``x @ w_dkv``, up-projected per
     head by ``w_uk`` / ``w_uv``; RoPE only on the ``rope_head_dim``
     query dims and on one key ``x @ w_kr`` that every head shares.
-    Weights bf16, applied as ``x @ W`` like the reference."""
+    Weights bf16, applied as ``x @ W`` like the reference.
+
+    Tensor-parallel (``tp`` set by ``Model.shard_``, P ranks, T tokens)
+    every weight is column-split but ``wo``, as the reference's specs
+    split them: ``w_dq``, ``w_dkv`` and ``w_kr`` give this rank a column
+    block of the q latent, of ``ckv`` and of the rope key, each made
+    whole by an all-gather over 'model' ((P − 1)·T·q_lora/P,
+    (P − 1)·T·kv_lora/P and (P − 1)·T·rd/P words; the rope key before
+    its rotation, whose pairs and frequencies run along the whole
+    width), whose gradient comes back as a reduce-scatter in f32
+    (T·q_lora, T·kv_lora and T·rd words times (P − 1)/P); ``w_uq`` (or
+    ``wq``), ``w_uk`` and ``w_uv`` hold this rank's n_heads / P heads,
+    and the softmax runs over those; ``wo``'s row block leaves through
+    one f32 (T, d) all-reduce (``row_parallel``).  x enters through
+    ``copy_to_group``: its gradient, summed over the three
+    down-projections, is one f32 (T, d) all-reduce.  Under
+    ``fsdp_params`` each weight is also split over 'data' and gathered
+    where it is used (``fsdp_weight``)."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator,
                  device: torch.device):
@@ -213,6 +235,12 @@ class MLA(nn.Module):
             raise ValueError(f"{cfg.name}: attn_kind='mla' needs cfg.mla")
         d, h, qk = cfg.d_model, cfg.n_heads, m.qk_nope_dim
         self.cfg = cfg
+        #: the 'model' axis group when the weights hold this rank's
+        #: latent columns and heads (``Model.shard_``)
+        self.tp = None
+        #: the weights split over 'data' (``fsdp_params``), each gathered
+        #: where it is used: {name: (comm, dim)} (``Model.shard_``)
+        self.fsdp = {}
         shapes = [("w_dkv", (d, m.kv_lora)), ("w_kr", (d, m.rope_head_dim)),
                   ("w_uk", (m.kv_lora, h * qk)),
                   ("w_uv", (m.kv_lora, h * m.v_head_dim)),
@@ -226,6 +254,11 @@ class MLA(nn.Module):
             setattr(self, name, nn.Parameter(
                 dense_init(shape, gen, device)))
 
+    def _latent(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """``x @ name``, gathered whole over 'model' when split there."""
+        y = x @ fsdp_weight(self, name)
+        return y if self.tp is None else gather_from_group(y, self.tp, -1)
+
     def forward(self, spec: BlockSpec, x: torch.Tensor,
                 positions: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None
@@ -237,15 +270,18 @@ class MLA(nn.Module):
         b, s, _ = x.shape
         h, qk, rd, vd = (cfg.n_heads, m.qk_nope_dim, m.rope_head_dim,
                          m.v_head_dim)
+        if self.tp is not None:             # this rank's heads
+            h //= self.tp.size
+            x = copy_to_group(x, self.tp)
         if m.q_lora:
-            q = (x @ self.w_dq) @ self.w_uq
+            q = self._latent(x, "w_dq") @ fsdp_weight(self, "w_uq")
         else:
-            q = x @ self.wq
+            q = x @ fsdp_weight(self, "wq")
         q = q.reshape(b, s, h, qk + rd)
         q_nope = q[..., :qk]
         q_rope = apply_rope(q[..., qk:], positions, cfg.rope_theta)
-        ckv = x @ self.w_dkv                               # (B, S, kv_lora)
-        kr = apply_rope((x @ self.w_kr)[:, :, None, :], positions,
+        ckv = self._latent(x, "w_dkv")                     # (B, S, kv_lora)
+        kr = apply_rope(self._latent(x, "w_kr")[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]           # (B, S, rd)
         if cache is not None:
             rows = torch.arange(b, device=x.device)[:, None]
@@ -260,8 +296,8 @@ class MLA(nn.Module):
             mask = _attn_mask(positions, positions, spec.local_window)
         sk = ckv.shape[1]
         # the whole latent up-projected to per-head K / V
-        k_nope = (ckv @ self.w_uk).reshape(b, sk, h, qk)
-        v = (ckv @ self.w_uv).reshape(b, sk, h, vd)
+        k_nope = (ckv @ fsdp_weight(self, "w_uk")).reshape(b, sk, h, qk)
+        v = (ckv @ fsdp_weight(self, "w_uv")).reshape(b, sk, h, vd)
         logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(),
                                k_nope.float())
                   + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
@@ -270,7 +306,8 @@ class MLA(nn.Module):
                              torch.tensor(NEG_INF, device=x.device))
         w = torch.softmax(logits, dim=-1)
         y = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
-        return y.reshape(b, s, h * vd).to(x.dtype) @ self.wo, cache
+        return row_parallel(y.reshape(b, s, h * vd).to(x.dtype),
+                            fsdp_weight(self, "wo"), self.tp), cache
 
 
 def mla_cache_init(cfg: ArchConfig, batch: int, s_max: int,

@@ -54,12 +54,14 @@ splits those weights over 'data', ZeRO-3's way: each rank keeps its
 block under both axes and gathers a weight over 'data' where it uses it
 (again in the per-period recompute), its gradient reduce-scattered back
 (``collectives.gather_from_group``).  That path trains; serving a
-sharded model raises.  MLA, prefix blocks and the MTP block run on one
-device: on a mesh they wait (ROADMAP A11c).  On one device they all
-train.  A config with as many layers as prefix blocks has no periods
-(deepseek-v3 cut to its dense prefix on one card): no ``("periods",
-...)`` leaves (the reference's are ``(0, ...)`` and hold nothing) and no
-per-period recompute.
+sharded model raises.  MLA (deepseek) is tensor-parallel too: its three
+latents gathered whole over 'model', its up-projections and ``wo`` on
+the rank's heads (``attention.MLA``); the prefix blocks and the MTP
+block are split as a period's blocks are, and run outside the
+per-period recompute.  A config with as many layers as prefix blocks
+has no periods (deepseek-v3 cut to its dense prefix on the card): no
+``("periods", ...)`` leaves (the reference's are ``(0, ...)`` and hold
+nothing) and no per-period recompute.
 """
 from __future__ import annotations
 
@@ -95,8 +97,11 @@ ATTN_KINDS = {"gqa": GQA, "mla": MLA}
 MTP_SPEC = BlockSpec(mixer="attn", mlp="dense")
 MLPS = {"dense": MLP, "moe": MoE}
 #: each mixer's weights that tensor parallelism splits together: the
-#: column-parallel projections and the row-parallel ``wo``
+#: column-parallel projections and the row-parallel ``wo`` ("mla": MLA
+#: with ``q_lora``; without it ``wq`` takes the place of the first two)
 TP_WEIGHTS = {"attn": ("wq", "wk", "wv", "wo"),
+              "mla": ("w_dq", "w_uq", "w_dkv", "w_kr", "w_uk", "w_uv",
+                      "wo"),
               "mamba": ("in_proj", "conv_w", "x_proj", "dt_proj", "a_log",
                         "out_proj"),
               "mlstm": ("wq", "wk", "wv", "wif", "wo_gate", "wo"),
@@ -104,44 +109,80 @@ TP_WEIGHTS = {"attn": ("wq", "wk", "wv", "wo"),
 #: the heads each headed mixer's split weights hold, by config field
 HEADS = {"attn": {"wq": "n_heads", "wk": "n_kv_heads", "wv": "n_kv_heads",
                   "wo": "n_heads"},
+         "mla": {w: "n_heads" for w in ("w_uq", "wq", "w_uk", "w_uv",
+                                        "wo")},
          "mlstm": {w: "n_heads" for w in TP_WEIGHTS["mlstm"]}}
 
 
-def single_device_parts(cfg: ArchConfig) -> List[str]:
-    """The parts of ``cfg`` that run on one device only (their tensor
-    parallelism waits): MLA, prefix blocks and the MTP block."""
-    return [what for on, what in (
-        (cfg.attn_kind == "mla", "MLA attention"),
-        (bool(cfg.prefix), "prefix blocks"),
-        (cfg.mtp, "the MTP block")) if on]
+def _mixer_kind(cfg: ArchConfig, spec: BlockSpec) -> str:
+    """``spec``'s mixer as :data:`TP_WEIGHTS` and :data:`HEADS` key it:
+    attention under ``attn_kind="mla"`` is "mla"."""
+    if spec.mixer == "attn" and cfg.attn_kind == "mla":
+        return "mla"
+    return spec.mixer
 
 
-def refuse_on_mesh(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config with parts that run on
-    one device only (:func:`single_device_parts`)."""
-    parts = single_device_parts(cfg)
-    if parts:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(parts)} on a mesh wait for ROADMAP "
-            "A11c (they run on one device)")
+def _tp_weights(cfg: ArchConfig, spec: BlockSpec) -> Tuple[str, ...]:
+    """The mixer weights of a ``spec`` block that split together."""
+    kind = _mixer_kind(cfg, spec)
+    if kind == "mla" and not cfg.mla.q_lora:
+        return ("wq",) + TP_WEIGHTS["mla"][2:]
+    return TP_WEIGHTS[kind]
 
 
-def check_head_split(cfg: ArchConfig, specs, model: int) -> None:
-    """Raise ``NotImplementedError`` for parts that run on one device
-    only (:func:`refuse_on_mesh`), and ``ValueError`` where
-    ``specs`` (:func:`~.sharding.param_specs`
-    on a 'model' axis of ``model`` ranks) split a headed mixer's weight
-    (attention, mLSTM) over a head count that ``model`` does not divide:
-    a shard would cut a head, and the port's explicit tensor
+def _block_spec(cfg: ArchConfig, path: Tuple[str, ...]) -> BlockSpec:
+    """The spec of the block a ``("periods" | "prefix", "b<i>", ...)`` or
+    ``("mtp", ...)`` parameter path belongs to."""
+    if path[0] == "mtp":
+        return MTP_SPEC
+    return (cfg.pattern if path[0] == "periods" else cfg.prefix)[
+        int(path[1][1:])]
+
+
+def _tp_sets(cfg: ArchConfig, specs) -> Dict[Tuple[str, ...],
+                                              List[Tuple[str, ...]]]:
+    """The weights that tensor parallelism splits together, by the path
+    of their module: each prefix block's, each period's i-th block's and
+    the MTP block's mixer and MLP (the MoE's experts and shared experts
+    together: one all-reduce sums both)."""
+    blocks = [(("prefix", f"b{i}"), s) for i, s in enumerate(cfg.prefix)]
+    if cfg.n_periods:
+        blocks += [(("periods", f"b{i}"), s)
+                   for i, s in enumerate(cfg.pattern)]
+    if cfg.mtp:
+        blocks.append((("mtp",), MTP_SPEC))
+    sets = {}
+    for base, spec in blocks:
+        sets[base + ("mixer",)] = [base + ("mixer", w)
+                                   for w in _tp_weights(cfg, spec)]
+        mlp = base + ("mlp",)
+        if spec.mlp == "dense":
+            sets[mlp] = [mlp + (w,) for w in ("wi", "wg", "wo")
+                         if mlp + (w,) in specs]
+        elif spec.mlp == "moe":
+            sets[mlp] = [k for k in specs if k[:len(mlp)] == mlp
+                         and k[-1] in ("wi", "wg", "wo")]
+    return sets
+
+
+def check_head_split(cfg: ArchConfig, specs, model: int
+                     ) -> Dict[Tuple[str, ...], bool]:
+    """Whether ``specs`` (:func:`~.sharding.param_specs` on a 'model'
+    axis of ``model`` ranks) split each mixer and MLP over 'model'
+    (:func:`_tp_sets`' keys).  Raise ``ValueError`` where they split a
+    headed mixer's weight (attention, MLA, mLSTM; in a period, a prefix
+    block or the MTP block) over a head count that ``model`` does not
+    divide: a shard would cut a head, and the port's explicit tensor
     parallelism runs whole heads on a rank (the reference's GSPMD would
-    split one).  The sLSTM's channels need no such check: a rank takes
-    whole channel quads wherever ``wx`` splits."""
-    refuse_on_mesh(cfg)
+    split one); and where they split a module's weights only in part (an
+    MLA latent whose width ``model`` does not divide, say), naming the
+    leaves.  The sLSTM's channels need no head check: a rank takes whole
+    channel quads wherever ``wx`` splits."""
     for path, spec in specs.items():
-        if path[0] != "periods" or path[-2] != "mixer" \
-                or "model" not in spec:
+        if path[0] not in ("periods", "prefix", "mtp") \
+                or path[-2] != "mixer" or "model" not in spec:
             continue
-        mixer = cfg.pattern[int(path[1][1:])].mixer
+        mixer = _mixer_kind(cfg, _block_spec(cfg, path))
         field = HEADS.get(mixer, {}).get(path[-1])
         if field and getattr(cfg, field) % model:
             raise ValueError(
@@ -149,6 +190,15 @@ def check_head_split(cfg: ArchConfig, specs, model: int) -> None:
                 f"split over model={model}; a shard of {spec} would cut a "
                 f"head (the port runs whole heads on a rank): plan a "
                 f"model axis that divides {field} with --max-model")
+    split = {}
+    for where, paths in _tp_sets(cfg, specs).items():
+        on = ["model" in specs[p] for p in paths]
+        if any(on) and not all(on):
+            bad = [("/".join(p), specs[p]) for p in paths]
+            raise ValueError(f"{'/'.join(where)} split only in part over "
+                             f"model={model}: {bad}")
+        split[where] = model > 1 and all(on)
+    return split
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -379,9 +429,10 @@ class Model(nn.Module):
         """Keep this rank's block of every parameter under
         :func:`~.sharding.param_specs` on ``mesh`` (the whole model was
         built first, so the blocks are the single-device weights): the
-        attention, Mamba, mLSTM, sLSTM, MLP and MoE weights split over
-        'model' (whole heads, whole sLSTM channel quads, Mamba's
-        d_inner channels, every expert's f), embed on its vocab rows,
+        attention (GQA, MLA), Mamba, mLSTM, sLSTM, MLP and MoE weights
+        split over 'model' (whole heads, MLA's latents in column blocks,
+        whole sLSTM channel quads, Mamba's d_inner channels, every
+        expert's f), embed on its vocab rows,
         unembed (or, tied, embed) on its vocab columns, the norms, the
         router and Mamba's per-channel vectors whole.  Under
         ``fsdp_params`` the attention, Mamba, MLP, expert, embed and
@@ -389,48 +440,23 @@ class Model(nn.Module):
         gathered where it is used, and again in the per-period recompute
         (``collectives.fsdp_weight``), its gradient reduce-scattered.  A
         column shard that would cut a head (:func:`check_head_split`), a
-        layer's weights split only in part, a weight split over 'data'
-        that its module does not gather, or an axis other than 'data'
-        and 'model' raise, naming the leaf; so do MLA, prefix blocks and
-        the MTP block (:func:`refuse_on_mesh`)."""
+        layer's weights split only in part (an MLA latent whose width
+        the axis does not divide, say), a weight split over 'data' that
+        its module does not gather, or an axis other than 'data' and
+        'model' raise, naming the leaf.  The prefix blocks and the MTP
+        block are split as a period's blocks are."""
         cfg = self.cfg
         specs = param_specs(cfg, self.stacked_shapes(), mesh)
         P = mesh.shape.get("model", 1)
-        check_head_split(cfg, specs, P)
+        split = check_head_split(cfg, specs, P)
         comm = mesh.comm("model") if P > 1 else None
         data = mesh.comm("data") if mesh.shape.get("data", 1) > 1 else None
-        first = len(cfg.prefix)
-
-        def split(*paths) -> bool:
-            on = ["model" in specs[p] for p in paths]
-            if any(on) and not all(on):
-                bad = [("/".join(p), specs[p]) for p in paths]
-                raise ValueError(f"a layer split only in part over "
-                                 f"model={P}: {bad}")
-            return comm is not None and all(on)
-
-        for i in range(cfg.period):
-            spec_i = self.blocks[first + i].spec
-            base = ("periods", f"b{i}")
-            tp = split(*(base + ("mixer", w)
-                         for w in TP_WEIGHTS[spec_i.mixer]))
-            for li in range(first + i, cfg.n_layers, cfg.period):
-                self.blocks[li].mixer.tp = comm if tp else None
-            if spec_i.mlp == "dense":
-                tp = split(*(base + ("mlp", w) for w in ("wi", "wg", "wo")
-                             if base + ("mlp", w) in specs))
-                for li in range(first + i, cfg.n_layers, cfg.period):
-                    self.blocks[li].mlp.tp = comm if tp else None
-            elif spec_i.mlp == "moe":
-                # the experts' and the shared experts' f together: one
-                # all-reduce sums both
-                tp = split(*(k for k in specs if k[:3] == base + ("mlp",)
-                             and k[-1] in ("wi", "wg", "wo")))
-                for li in range(first + i, cfg.n_layers, cfg.period):
-                    mlp = self.blocks[li].mlp
-                    mlp.tp = comm if tp else None
-                    if cfg.moe.n_shared:
-                        mlp.shared.tp = mlp.tp
+        for where, on in split.items():
+            tp = comm if on else None
+            for module in self._modules_at(where):
+                module.tp = tp
+                if getattr(module, "shared", None) is not None:
+                    module.shared.tp = tp
         if ("embed",) in specs:
             self.embed_tp = comm if "model" in specs[("embed",)] else None
         head = ("embed",) if cfg.tie_embeddings else ("unembed",)
@@ -443,24 +469,31 @@ class Model(nn.Module):
                     f"{'/'.join(k)}: spec {specs[k]} splits over an axis "
                     "other than 'data' and 'model'")
             if "data" in axes and data is not None:
-                self._gather_over_data(k, len(ps), inner.index("data"), data)
+                self._gather_over_data(k, inner.index("data"), data)
             for p in ps:
                 p.data = shard_leaf(p.data, inner, mesh).clone()
         self.mesh, self.specs = mesh, specs
         return self
 
-    def _gather_over_data(self, key, count: int, dim: int, comm) -> None:
-        """Register leaf ``key`` (its ``count`` Parameters) as split over
-        'data' along ``dim``: each module holding one gathers it where it
-        uses it.  A module that does not (no ``fsdp``) raises."""
-        if key[0] == "periods":
-            first, i = len(self.cfg.prefix), int(key[1][1:])
-            owners = [self.blocks[first + i + p * self.cfg.period]
-                      .get_submodule(".".join(key[2:-1]))
-                      for p in range(count)]
-        else:
-            owners = [self.get_submodule(".".join(key[:-1]))]
-        for owner in owners:
+    def _modules_at(self, where: Tuple[str, ...]) -> List[nn.Module]:
+        """The modules at a :meth:`param_tree` path (without the leaf's
+        name): a period's path names that module in each of its
+        layers, a ``("prefix", "b<i>", ...)`` path prefix block i's."""
+        cfg, first = self.cfg, len(self.cfg.prefix)
+        if where[:1] == ("periods",):
+            i = int(where[1][1:])
+            return [self.blocks[li].get_submodule(".".join(where[2:]))
+                    for li in range(first + i, cfg.n_layers, cfg.period)]
+        if where[:1] == ("prefix",):
+            return [self.blocks[int(where[1][1:])]
+                    .get_submodule(".".join(where[2:]))]
+        return [self.get_submodule(".".join(where))]
+
+    def _gather_over_data(self, key, dim: int, comm) -> None:
+        """Register leaf ``key`` as split over 'data' along ``dim``: each
+        module holding one of its Parameters gathers it where it uses
+        it.  A module that does not (no ``fsdp``) raises."""
+        for owner in self._modules_at(key[:-1]):
             if not hasattr(owner, "fsdp"):
                 raise NotImplementedError(
                     f"{'/'.join(key)}: split over 'data' (fsdp_params), "
@@ -652,11 +685,12 @@ def _xent_chunk_tp(cfg: ArchConfig, w: torch.Tensor, x: torch.Tensor,
     return torch.sum((lse - ll) * valid), torch.sum(valid).float()
 
 
-def _xent_terms(model: Model, x: torch.Tensor, labels: torch.Tensor,
-                chunk: int, remat: bool
+def _xent_terms(model: Model, w: torch.Tensor, x: torch.Tensor,
+                labels: torch.Tensor, chunk: int, remat: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of the token losses, count of valid tokens) of hidden ``x``
-    (B, S, d) against ``labels`` through the head, chunk by chunk."""
+    (B, S, d) against ``labels`` through the head ``w``, chunk by
+    chunk."""
     cfg = model.cfg
     b, s, _ = x.shape
     nchunks = max(s // chunk, 1)
@@ -664,7 +698,6 @@ def _xent_terms(model: Model, x: torch.Tensor, labels: torch.Tensor,
     fn, extra = _xent_chunk, ()
     if model.unembed_tp is not None:
         fn, extra = _xent_chunk_tp, (model.unembed_tp,)
-    w = model.head()            # gathered once over 'data' (fsdp_params)
     tot = torch.zeros((), device=x.device)
     cnt = torch.zeros((), device=x.device)
     for i in range(nchunks):
@@ -682,18 +715,28 @@ def _xent_terms(model: Model, x: torch.Tensor, labels: torch.Tensor,
 MTP_WEIGHT = 0.3
 
 
-def _loss_parts(model: Model, batch: Dict[str, torch.Tensor], chunk: int,
-                remat: bool):
-    """The next-token terms (sum, count) and, with ``cfg.mtp``, the t+2
-    terms: the MTP block on the final-normed hidden the head reads, at
-    the batch's positions, then ``mtp_norm``, against ``labels[:, 1:]``
-    padded with -1 (else None)."""
+Terms = Tuple[torch.Tensor, torch.Tensor]
+
+
+def lm_loss_terms(model: Model, batch: Dict[str, torch.Tensor],
+                  chunk: int = 512, remat: bool = True
+                  ) -> Tuple[Terms, Optional[Terms]]:
+    """:func:`lm_loss` before its divisions, so that a data-parallel
+    step can divide each sum by its count over every rank's rows: the
+    next-token (sum of the token losses, count of valid tokens) and,
+    with ``cfg.mtp``, the t+2 pair (else None): the MTP block on the
+    final-normed hidden the head reads, at the batch's positions, then
+    ``mtp_norm``, against ``labels[:, 1:]`` padded with -1.  With a
+    vocab-sharded head the loss is vocab-parallel, chunk by chunk; the
+    head is gathered over 'data' once (``fsdp_params``) for both
+    terms."""
     cfg = model.cfg
     x, _ = model(batch.get("tokens"), positions=batch.get("positions"),
                  remat=remat, embeds=batch.get("embeds"),
                  patch_embeds=batch.get("patch_embeds"))
     labels = batch["labels"]
-    terms = _xent_terms(model, x, labels, chunk, remat)
+    w = model.head()
+    terms = _xent_terms(model, w, x, labels, chunk, remat)
     if not cfg.mtp:
         return terms, None
     b, s, _ = x.shape
@@ -704,24 +747,7 @@ def _loss_parts(model: Model, batch: Dict[str, torch.Tensor], chunk: int,
     h = apply_norm(cfg, model.mtp_norm, h)
     lab2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)],
                      dim=1)
-    return terms, _xent_terms(model, h, lab2, chunk, remat)
-
-
-def lm_loss_terms(model: Model, batch: Dict[str, torch.Tensor],
-                  chunk: int = 512, remat: bool = True
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum of the token losses, count of valid tokens) of ``batch``:
-    :func:`lm_loss` before its division, so that a data-parallel step
-    can divide by the count over every rank's rows.  With a
-    vocab-sharded unembed the loss is vocab-parallel, chunk by chunk.
-    With ``cfg.mtp`` the t+2 term's weighted mean is added to the sum at
-    the count's scale (one device: the MTP block does not run on a
-    mesh)."""
-    (tot, cnt), mtp = _loss_parts(model, batch, chunk, remat)
-    if mtp is not None:
-        tot = tot + MTP_WEIGHT * mtp[0] / torch.clamp(mtp[1], min=1.0) \
-            * torch.clamp(cnt, min=1.0)
-    return tot, cnt
+    return terms, _xent_terms(model, w, h, lab2, chunk, remat)
 
 
 def lm_loss(model: Model, batch: Dict[str, torch.Tensor], chunk: int = 512,
@@ -734,7 +760,7 @@ def lm_loss(model: Model, batch: Dict[str, torch.Tensor], chunk: int = 512,
     (positions past the last whole chunk are dropped, as the
     reference's reshape drops them); with ``cfg.mtp`` plus
     ``MTP_WEIGHT`` times the MTP block's mean t+2 cross-entropy."""
-    (tot, cnt), mtp = _loss_parts(model, batch, chunk, remat)
+    (tot, cnt), mtp = lm_loss_terms(model, batch, chunk, remat)
     loss = tot / torch.clamp(cnt, min=1.0)
     if mtp is not None:
         loss = loss + MTP_WEIGHT * mtp[0] / torch.clamp(mtp[1], min=1.0)

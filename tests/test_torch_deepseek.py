@@ -621,40 +621,44 @@ def test_cpu_serve_launches_no_kernel(arch):
 # ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
-def test_mesh_training_and_sharding_refuse(pair, arch, monkeypatch):
-    """On a mesh MLA, the prefix blocks and the MTP block wait for
-    ROADMAP A11c: ``train --devices 4`` raises before any weight is
-    drawn, naming MLA, the prefix blocks and (v3) the MTP block, and so
-    do ``shard_`` and ``check_head_split``, as does a GQA config with a
-    prefix.  (On one device deepseek trains:
-    tests/test_torch_deepseek_train.py.)"""
+@pytest.mark.parametrize("arch,layers", [(a, 0) for a in ARCHS]
+                         + [("deepseek-v3-671b", 1)])
+def test_mesh_refuses_a_head_split_before_drawing_weights(arch, layers,
+                                                          monkeypatch):
+    """deepseek trains on a mesh whose model axis divides its heads
+    (tests/test_torch_deepseek_mesh.py); a model axis of 8 would cut the
+    smoke configs' 4 heads: ``train --devices 8 --max-model 8`` raises
+    ``ValueError`` naming an MLA leaf that carries heads before any
+    weight is drawn or any rank starts, and so do ``shard_`` and
+    ``check_head_split``.  v3's ``--layers 1`` cut has no periods: the
+    leaf named is its prefix block's or its MTP block's."""
     from repro_torch.distributed.mesh import planning_mesh
     from repro_torch.launch import train as ttrain
-    from repro_torch.models.model import check_head_split
+    from repro_torch.models.model import HEADS, Model, check_head_split
     from repro_torch.models.sharding import param_specs
 
     def no_init(*a, **kw):
         raise AssertionError("weights drawn before the refusal")
-    monkeypatch.setattr(ttrain, "init_model", no_init)
-    monkeypatch.setattr(ttrain, "run_ranks", no_init)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11c") as e:
-        ttrain.train(ttrain.build_argparser().parse_args(
-            ["--arch", arch, "--device", "cpu", "--steps", "1",
-             "--devices", "4"]))
-    msg = str(e.value)
-    assert "MLA" in msg and "prefix blocks" in msg
-    assert "moe blocks" not in msg and "mamba blocks" not in msg
-    assert ("MTP" in msg) == (arch == "deepseek-v3-671b")
-    _, _, cfg, model = pair(arch)
-    mesh = planning_mesh({"data": 2, "model": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
-        model.shard_(mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1",
+            "--devices", "8", "--max-model", "8"]
+    if layers:
+        argv += ["--layers", str(layers)]
+    args = ttrain.build_argparser().parse_args(argv)
+    cfg = ttrain.build_config(args)
+    assert cfg.n_heads == 4 and (cfg.n_periods == 0) == bool(layers)
+    with monkeypatch.context() as m:
+        m.setattr(ttrain, "init_model", no_init)
+        m.setattr(ttrain, "run_ranks", no_init)
+        with pytest.raises(ValueError, match="n_heads=4") as e:
+            ttrain.train(args)
+    leaf = str(e.value).split(":")[0].split("/")
+    assert leaf[-2] == "mixer" and leaf[-1] in HEADS["mla"], leaf
+    assert leaf[0] in (("prefix", "mtp") if layers
+                       else ("prefix", "periods", "mtp")), leaf
+    mesh = planning_mesh({"data": 1, "model": 8})
+    model = Model(cfg, torch.Generator(), torch.device("meta"))
+    with pytest.raises(ValueError, match="n_heads=4"):
         check_head_split(cfg, param_specs(cfg, model.stacked_shapes(),
-                                          mesh), 2)
-    lead = get_smoke_config("stablelm-1.6b")
-    lead = dataclasses.replace(lead, prefix=lead.pattern,
-                               n_layers=lead.n_layers + 1)
-    with pytest.raises(NotImplementedError, match="prefix blocks .*A11c"):
-        init_model(lead, device="cpu").shard_(mesh)
+                                          mesh), 8)
+    with pytest.raises(ValueError, match="n_heads=4"):
+        init_model(cfg, device="cpu").shard_(mesh)

@@ -74,12 +74,14 @@ def test_param_specs_match_reference_stablelm(mesh, fsdp, full):
     assert got == want
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-v0.1-52b",
-                                  "xlstm-350m", "granite-20b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b",
+                                  "jamba-v0.1-52b", "xlstm-350m",
+                                  "granite-20b"])
 @pytest.mark.parametrize("mesh", [(2, 2), (1, 4), (4, 2)])
 def test_param_specs_match_reference_other_leaves(arch, mesh):
-    """The MoE experts' 3-D leaves (deepseek, jamba), MLA, Mamba and
-    xLSTM leaves and ``fsdp_params`` as these configs set it: the rules
+    """The MoE experts' 3-D leaves (deepseek, jamba), MLA, the MTP
+    block's leaves (deepseek-v3), Mamba and xLSTM leaves and
+    ``fsdp_params`` as these configs set it: the rules
     are pure, whether or not the port runs the block yet.  The port's
     rules read only the leaf's path, its shape and ``fsdp_params``."""
     cj = jcfg(arch)

@@ -220,7 +220,7 @@ def _one_case(np_tree, data, model_ax, optimizer, compress):
     bs = batch_specs(cfg, mesh, args.global_batch, False)
     batch = {k: shard_leaf(v, bs[k], mesh) for k, v in batch.items()}
     model.zero_grad(set_to_none=True)
-    tot, cnt = lm_loss_terms(model, batch, chunk=args.loss_chunk)
+    (tot, cnt), _ = lm_loss_terms(model, batch, chunk=args.loss_chunk)
     (tot / cnt).backward()
     res["rep_grads"] = {k: g.float().numpy() for k, g in
                         model.stacked(lambda p: p.grad).items()
